@@ -4,18 +4,38 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``fdeflate_tpu_torch/csrc`` with nvcc,
-holds each kernel bit for bit against its plain PyTorch version on the card,
-drives the headline roundtrip (16 Sub-filtered PNG IDAT streams of 1 MiB,
-C = 512 fixed-geometry chunks) through the public entry points, checks the
-result (zlib.decompress of every stream, decoded bytes, exit bits and
-Adler-32), and times the kernels and the encode and decode legs against
-their plain versions with CUDA events.
+It builds the CUDA kernels from ``fdeflate_tpu_torch/csrc`` with nvcc (one
+process per source, all at once) and drives the port's two paths:
 
-Output: progress lines, then the kernel JSON line, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
-raises, so the exit code is nonzero; without CUDA it exits 1 and prints no
-result.  It imports nothing of JAX.
+1-3. The headline roundtrip (16 Sub-filtered PNG IDAT streams of 1 MiB,
+     C = 512 fixed-geometry chunks): K1-K3 against their plain versions,
+     the roundtrip through the public entry points (zlib.decompress of every
+     stream, decoded bytes, exit bits, Adler-32), kernel and leg times.
+4.   K4 inflate_records and K5 validate_headers against their plain
+     versions, bit for bit: blocks of a 1 MiB zlib-6 text stream, a Z_FIXED
+     block, a block with one distance code and one with none, an invalid
+     distance code, a corrupted stream, a budget-exhausted run; K5 on all
+     stage-1 survivors of the stream and of random bytes.
+5.   The foreign-stream path at the JAX bench's sizes through the entry
+     points: 8 MiB word-salad text at zlib 6 and 8 MiB of IDAT bytes at
+     zlib 1 through try_foreign, 16 x 1 MiB IDAT streams at zlib 1 through
+     decompress_batch (the try_foreign_batch route), and a small mixed
+     batch through the sequential route (stored, Z_FIXED, tiny, empty,
+     corrupted, truncated).  Every output equals zlib.decompress, the error
+     streams give the JAX package's error classes, and the full-size
+     streams take the block-parallel route.
+6.   Times with CUDA events: K4 and K5 against their plain versions at the
+     path's shapes, the foreign leg split into stage 1, stage 2 (K5),
+     record decode (host tables + K4 + readback) and stitch (materialize
+     + Adler-32), output GB/s
+     per stream kind, and host zlib.decompress on the same streams.
+
+Each path is driven with every kernel's launch count set to 0 just before
+it and read just after; a kernel of the path that did not launch fails the
+run.  Output: progress lines, then the kernel JSON line, the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed
+check raises, so the exit code is nonzero; without CUDA it exits 1 and
+prints no result.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +52,7 @@ import numpy as np
 
 BATCH, LENGTH, CHUNKS = 16, 1 << 20, 512   # bench.py's headline geometry
 KERNEL_REPS, PLAIN_REPS = 10, 3
+FOREIGN_MB = 8                              # bench.py's foreign leg size
 
 
 def nvidia_smi() -> str:
@@ -41,9 +62,11 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events, after a warm-up)."""
-    fn()
+def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
+    """Median milliseconds of ``fn`` on the card (CUDA events, after a
+    warm-up unless ``warm`` is False)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -106,6 +129,137 @@ def run_kernels(torch, t, data, lengths, C):
             raise AssertionError(f"{name}: kernel differs from plain by {err}")
         out[name] = (kern, plain, err)
     return out
+
+
+def word_salad(n: int, seed: int = 9) -> bytes:
+    """bench.py's foreign-leg text: words of 3-11 random bytes."""
+    rng = np.random.default_rng(seed)
+    wp = [rng.bytes(int(rng.integers(3, 12))) for _ in range(256)]
+    return b"".join(wp[int(rng.integers(256))] for _ in range(n // 7 + 1))[:n]
+
+
+def small_mixed_batch():
+    """The sequential route's batch: (streams, expected), expected = the
+    bytes or the JAX package's error class for each stream
+    (tests/test_torch_inflate.py holds the classes to the JAX path)."""
+    text = word_salad(12000, seed=9)
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FIXED)
+    z = zlib.compress(text, 6)
+    corrupt = bytearray(z)
+    corrupt[114] ^= 0x55
+    return [
+        (zlib.compress(text, 0), text),
+        (co.compress(text[:3000]) + co.flush(), text[:3000]),
+        (zlib.compress(b"hello world" * 3, 6), b"hello world" * 3),
+        (zlib.compress(b"", 6), b""),
+        (bytes(corrupt), "DistanceTooFarBack"),
+        (z[: len(z) // 2], "InsufficientInput"),
+        (z[:-1] + bytes([z[-1] ^ 1]), "WrongChecksum"),
+    ]
+
+
+def check_equal(torch, name: str, got, want) -> float:
+    """Hold a kernel's outputs against its plain version's; returns the
+    max abs difference (0) or raises."""
+    err = max_abs_err(torch, zip(got, want))
+    if err != 0:
+        raise AssertionError(f"{name}: kernel differs from plain by {err}")
+    return err
+
+
+def foreign_kernel_inputs(torch, dev, make_idat_corpus):
+    """Phase 4's K4 lanes over one flat word buffer: every block of a
+    1 MiB zlib-6 text stream and of a corrupted copy, a Z_FIXED block, a
+    block with one distance code (the port's own encoder), a
+    Z_HUFFMAN_ONLY block read with no distance codes, and a text block
+    read with no distance codes (an invalid distance code).  Returns
+    (K4 args, text stream, text stream's words)."""
+    import fdeflate_tpu_torch as P
+    from fdeflate_tpu_torch.ops.inflate import fixed_meta_tab, pad_words
+    from fdeflate_tpu_torch.ops.inflate_records import (NO_LIMIT,
+                                                        block_tables,
+                                                        pack_tables)
+    from fdeflate_tpu_torch.parallel import discovery as PD
+
+    text = word_salad(1 << 20, seed=5)
+    z_text = zlib.compress(text, 6)
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FIXED)
+    z_fixed = co.compress(text[:5000]) + co.flush()
+    (z_one,) = P.compress_batch_ultra_fast(
+        [make_idat_corpus(1, 1 << 16, seed=4)[0].tobytes()], device=dev)
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_HUFFMAN_ONLY)
+    z_huff = co.compress(text[:20000]) + co.flush()
+    corrupt = bytearray(z_text)
+    corrupt[len(corrupt) // 2] ^= 0xFF
+    streams = [z_text, z_fixed, z_one, z_huff, bytes(corrupt)]
+    words_np, base = pad_words(streams)
+
+    def parse(z):
+        return PD._scan_parse(z, device=dev)
+
+    text_lanes = parse(z_text)
+    (one,) = parse(z_one)
+    if np.count_nonzero(one[3][288:320]) != 1:
+        raise AssertionError("the one-distance-code block has another tree")
+    huff = parse(z_huff)[0]
+    lanes = []   # (stream, symbol start, (meta, tab), bit_end?, out0)
+    for _o, _b, sym, lengths, hlit in text_lanes:
+        lanes.append((0, sym, block_tables(lengths, hlit), False, NO_LIMIT))
+        lanes.append((4, sym, block_tables(lengths, hlit), True, 0))
+    lanes.append((1, 19, fixed_meta_tab(), True, 0))
+    lanes.append((2, one[2], block_tables(one[3], one[4]), True, 0))
+    for (_o, _b, sym, lengths, hlit), si in ((huff, 3), (text_lanes[0], 0)):
+        nodist = lengths.copy()
+        nodist[288:320] = 0
+        lanes.append((si, sym, block_tables(nodist, hlit), False, NO_LIMIT))
+    meta, tab = pack_tables([t for _s, _p, t, _e, _o in lanes], dev)
+
+    def col(vals):
+        return torch.tensor(vals, dtype=torch.int64, device=dev)
+
+    args = (torch.from_numpy(words_np).to(dev),
+            col([int(base[si]) * 32 + sym for si, sym, *_ in lanes]),
+            col([int(base[si + 1]) for si, *_ in lanes]),
+            col([int(base[si]) * 32 + len(streams[si]) * 8 if cut else NO_LIMIT
+                 for si, _s, _t, cut, _o in lanes]),
+            col([o for *_, o in lanes]), meta, tab)
+    return args, z_text, PD.stage_words(z_text, device=dev)
+
+
+def foreign_split(torch, P, PD, z: bytes, dev):
+    """Times of the foreign leg's pieces on one stream (CUDA events, ms),
+    output GB/s in the device-resident contract, and host zlib GB/s."""
+    wd = PD.stage_words(z, device=dev)
+    t = {"stage 1": cuda_ms(torch, lambda: PD.scan_stage1_device(
+        z, device=dev, words=wd), 3)}
+    c1 = PD.scan_stage1_device(z, device=dev, words=wd)
+    t["stage 2 (K5)"] = cuda_ms(torch, lambda: PD.validate_stage2_device(
+        z, c1, words_dev=wd, device=dev), 3)
+    scan = cuda_ms(torch, lambda: PD._scan_parse(z, words_dev=wd,
+                                                 device=dev), 3)
+    t["host header parse"] = scan - t["stage 1"] - t["stage 2 (K5)"]
+    lanes = PD._scan_parse(z, words_dev=wd, device=dev)
+    L = len(lanes)
+    bounds = (np.full(L, wd.numel()), np.full(L, len(z) * 8))
+    t["record decode (tables + K4 + readback)"] = cuda_ms(
+        torch, lambda: PD._lane_decode(lanes, 6144, wd, *bounds), 3)
+    recs, bpos, eob, nout = PD._lane_decode(lanes, 6144, wd, *bounds)
+    chain, _final = PD._chain(lanes, 0, L, bpos, eob)
+    mask = np.zeros(L, bool)
+    mask[chain] = True
+    produced = [int(nout[chain].sum())]
+    t["stitch (materialize + Adler-32)"] = cuda_ms(
+        torch, lambda: PD._stitch(recs, mask, [(0, L)], produced), 3)
+    total = cuda_ms(torch, lambda: P.try_foreign(
+        z, words_dev=wd, return_device=True, device=dev), 3)
+    host = min(timed(lambda: zlib.decompress(z)) for _ in range(3))
+    return t, total, host, L, (lanes, wd, bounds, c1)
+
+
+def timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
 
 def ragged(data: np.ndarray, lengths) -> np.ndarray:
@@ -271,6 +425,142 @@ def main() -> int:
         plain_ms = cuda_ms(torch, plain, PLAIN_REPS)
         print(f"{leg} leg: kernels {ms:.4f} ms ({mib / ms * 1e3 / 1024:.3f} GiB/s), "
               f"plain {plain_ms:.4f} ms [{card}]", flush=True)
+
+    # ---- 4. K4 and K5 against their plain versions, bit for bit ----------
+    from fdeflate_tpu_torch.ops.inflate_records import (inflate_records,
+                                                        inflate_records_plain)
+    from fdeflate_tpu_torch.ops.validate_headers import (
+        validate_headers, validate_headers_plain)
+    from fdeflate_tpu_torch.parallel import discovery as PD
+
+    k4_args, z1m, w1m = foreign_kernel_inputs(torch, dev, make_idat_corpus)
+    K = PD.lane_budget(6144)
+    errs = {"inflate_records": 0.0, "validate_headers": 0.0}
+    for k in (K, 64):
+        got = inflate_records(*k4_args, k)
+        want = inflate_records_plain(*k4_args, k)
+        torch.cuda.synchronize()
+        errs["inflate_records"] = max(errs["inflate_records"], check_equal(
+            torch, f"inflate_records K={k}", got, want))
+        codes = sorted(set(got[3].tolist()))
+        print(f"inflate_records == plain on {k4_args[1].numel()} lanes, "
+              f"K={k}: exit codes {codes}: ok", flush=True)
+        need = {1, 3} if k == K else {0}
+        if not need <= set(codes):
+            raise AssertionError(f"K={k}: exit codes {codes} miss {need}")
+    rb = np.random.default_rng(6).bytes(1 << 20)
+    for z, w in ((z1m, w1m), (rb, PD.stage_words(rb, device=dev))):
+        c = torch.from_numpy(PD.scan_stage1_device(z, device=dev, words=w)).to(dev)
+        got = validate_headers(w, c, len(z) * 8)
+        want = validate_headers_plain(w, c, len(z) * 8)
+        torch.cuda.synchronize()
+        errs["validate_headers"] = max(errs["validate_headers"], check_equal(
+            torch, "validate_headers", got, want))
+        print(f"validate_headers == plain on {c.numel()} stage-1 survivors "
+              f"({int(got[0].sum())} valid): ok", flush=True)
+
+    # ---- 5. the foreign path at the bench's sizes, through the entry points
+    text8 = word_salad(FOREIGN_MB << 20)
+    idat8 = make_idat_corpus(FOREIGN_MB, 1 << 20).tobytes()
+    z_text8, z_idat8 = zlib.compress(text8, 6), zlib.compress(idat8, 1)
+    batch_raw = [r.tobytes() for r in make_idat_corpus(BATCH, LENGTH, seed=7)]
+    batch = [zlib.compress(r, 1) for r in batch_raw]
+    small = small_mixed_batch()
+    foreign_kernels = {"inflate_records": inflate_records,
+                       "validate_headers": validate_headers}
+    torch.cuda.synchronize()
+    for fn in foreign_kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    r_text = P.try_foreign(z_text8, device=dev)
+    r_idat = P.try_foreign(z_idat8, device=dev)
+    r_route = P.try_foreign_batch(batch, device=dev)
+    r_batch = P.decompress_batch(batch, device=dev)
+    r_small = P.decompress_batch([z for z, _ in small], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, fn in foreign_kernels.items():
+        launches[k] = fn.launches
+    print(f"foreign path: {wall:.3f} s wall; launches "
+          f"{ {k: launches[k] for k in foreign_kernels} }", flush=True)
+    if not all(launches[k] > 0 for k in foreign_kernels):
+        raise AssertionError(f"a kernel of the foreign path was not launched: {launches}")
+    if r_text is None or r_idat is None or any(r is None for r in r_route):
+        raise AssertionError("a full-size stream left the block-parallel route")
+    if r_text != zlib.decompress(z_text8) or r_idat != zlib.decompress(z_idat8):
+        raise AssertionError("try_foreign differs from zlib.decompress")
+    want_batch = [zlib.decompress(z) for z in batch]
+    if r_route != want_batch or r_batch != want_batch:
+        raise AssertionError("the 16 x 1 MiB batch differs from zlib.decompress")
+    for (z, want), got in zip(small, r_small):
+        ok = got == want if isinstance(want, bytes) else type(got).__name__ == want
+        if not ok:
+            raise AssertionError(f"small batch: {got!r} where {want!r}")
+    print(f"try_foreign text6 ({len(z_text8)} B) and idat1 ({len(z_idat8)} B), "
+          f"try_foreign_batch and decompress_batch of {BATCH} x {LENGTH} B "
+          f"idat1 == zlib.decompress; small batch "
+          f"{[w if isinstance(w, str) else len(w) for _, w in small]}: ok",
+          flush=True)
+
+    # ---- 6. the foreign leg's times (card: see the line above) ------------
+    legs = {}
+    for kind, z, raw in (("text6", z_text8, text8), ("idat1", z_idat8, idat8)):
+        t, total, host, L, legs[kind] = foreign_split(torch, P, PD, z, dev)
+        parts = ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+        print(f"foreign {kind} ({FOREIGN_MB} MiB out, {len(z)} B in, {L} "
+              f"lanes): {parts} ms; try_foreign (words on device, output "
+              f"kept there) {total:.4f} ms = {len(raw) / total / 1e6:.4f} GB/s "
+              f"of output; host zlib.decompress {len(raw) / host / 1e9:.4f} "
+              f"GB/s [{card}]", flush=True)
+    tb = cuda_ms(torch, lambda: P.try_foreign_batch(batch, device=dev), 3)
+    host = sum(min(timed(lambda: zlib.decompress(z)) for _ in range(3))
+               for z in batch)
+    nbytes = BATCH * LENGTH
+    print(f"foreign batch idat1 {BATCH} x {LENGTH} B: try_foreign_batch "
+          f"(bytes back on the host) {tb:.4f} ms = {nbytes / tb / 1e6:.4f} "
+          f"GB/s of output; host zlib.decompress {nbytes / host / 1e9:.4f} "
+          f"GB/s [{card}]", flush=True)
+
+    lanes8, wd8, bounds8, c18 = legs["text6"]
+    args8 = PD.lane_inputs(lanes8, wd8, *bounds8)
+    got = inflate_records(*args8, K)
+    want = inflate_records_plain(*args8, K)
+    torch.cuda.synchronize()
+    errs["inflate_records"] = max(errs["inflate_records"], check_equal(
+        torch, "inflate_records (text6 8 MiB)", got, want))
+    c8 = torch.from_numpy(c18).to(dev)
+    n8 = len(z_text8) * 8
+    errs["validate_headers"] = max(errs["validate_headers"], check_equal(
+        torch, "validate_headers (text6 8 MiB)",
+        validate_headers(wd8, c8, n8), validate_headers_plain(wd8, c8, n8)))
+    foreign_fns = {
+        "inflate_records": (lambda: inflate_records(*args8, K),
+                            lambda: inflate_records_plain(*args8, K), 1,
+                            f"{args8[1].numel()} lanes, K={K}"),
+        "validate_headers": (lambda: validate_headers(wd8, c8, n8),
+                             lambda: validate_headers_plain(wd8, c8, n8),
+                             PLAIN_REPS, f"{c8.numel()} candidates"),
+    }
+    sources.update({
+        "inflate_records": ("fdeflate_tpu_torch/csrc/inflate_records.cu",
+                            "fdeflate_tpu/ops/pallas_inflate.py:277 (_kernel)"),
+        "validate_headers": ("fdeflate_tpu_torch/csrc/validate_headers.cu",
+                             "fdeflate_tpu/ops/pallas_inflate.py:604 "
+                             "(_validate_kernel)"),
+    })
+    for kname, (kern, plain, reps, shape) in foreign_fns.items():
+        ms = cuda_ms(torch, kern, KERNEL_REPS)
+        plain_ms = cuda_ms(torch, plain, reps, warm=False)
+        src, repl = sources[kname]
+        rows.append({"name": kname, "route": "cuda", "source": src,
+                     "replaces": repl, "launches": launches[kname],
+                     "max_abs_err": errs[kname], "ms": ms,
+                     "plain_ms": plain_ms})
+        print(f"{kname} (text6 {FOREIGN_MB} MiB, {shape}): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (one run) [{card}]"
+              if reps == 1 else f"{kname} (text6 {FOREIGN_MB} MiB, {shape}): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
+              flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card)

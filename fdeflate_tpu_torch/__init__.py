@@ -1,22 +1,36 @@
 """fdeflate_tpu_torch — the PyTorch/CUDA port of fdeflate_tpu for Hopper GPUs.
 
 The JAX package ``fdeflate_tpu`` is the reference; this package gives
-bit-identical outputs.  This slice ports the standard-zlib, fixed-geometry
-roundtrip of PNG IDAT streams (the benchmark's headline path):
+bit-identical outputs.  Two slices are ported:
 
-    encode  K1 assign_pack -> K2 combine -> framing -> Adler-32
-    decode  K3 decode2 -> exit-bit check -> decode-side Adler-32
+* the standard-zlib, fixed-geometry roundtrip of PNG IDAT streams (the
+  benchmark's headline path):
 
-K1-K3 are hand-written CUDA kernels (``csrc/``) launched for CUDA tensors;
+      encode  K1 assign_pack -> K2 combine -> framing -> Adler-32
+      decode  K3 decode2 -> exit-bit check -> decode-side Adler-32
+
+* decoding foreign zlib streams (any encoder, no chunk index):
+
+      discovery  stage 1 (torch, every bit offset) -> K5 validate_headers
+      decode     K4 inflate_records (one block per lane) -> chain walk
+                 -> materialize (torch) -> Adler-32
+      sequential K4 per block, host header parsing between launches
+
+K1-K5 are hand-written CUDA kernels (``csrc/``) launched for CUDA tensors;
 CPU tensors take their plain PyTorch versions.  The package imports
 ``torch`` and never ``jax``; it reuses the JAX package's jax-free host
-modules (``fdeflate_tpu.tables``, ``fdeflate_tpu.models.ultrafast``).
+modules (``fdeflate_tpu.tables``, ``fdeflate_tpu.models.ultrafast`` and
+the host helpers of ``fdeflate_tpu.ops.inflate``, ``ops.pallas_inflate``).
 
-Public batch API (the caller names the device):
+Public API (the caller names the device):
 
     compress_batch_ultra_fast(streams, with_index=C, device=...)
     zlib_encode_step(C)(data, lengths) -> words, ..., chunk_starts, eof_pos
     fused_zlib_roundtrip(C, N, device=...)(data, lengths)
+    decompress_batch(streams, device=...) -> bytes or error per stream
+    decompress_foreign(data, device=...) -> bytes (raises the decode error)
+    try_foreign(data, device=...) / try_foreign_batch(streams, device=...)
+        -> bytes, or None where the block-parallel path cannot decode
 """
 
 from .ops.ultrafast import compress_batch_ultra_fast, finalize_streams
@@ -25,11 +39,21 @@ from .parallel.device_pipeline import (
     zlib_decode_step,
     zlib_encode_step,
 )
+from .parallel.discovery import (
+    decompress_batch,
+    decompress_foreign,
+    try_foreign,
+    try_foreign_batch,
+)
 
 __all__ = [
     "compress_batch_ultra_fast",
+    "decompress_batch",
+    "decompress_foreign",
     "finalize_streams",
     "fused_zlib_roundtrip",
+    "try_foreign",
+    "try_foreign_batch",
     "zlib_decode_step",
     "zlib_encode_step",
 ]

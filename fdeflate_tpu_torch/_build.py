@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface (``build/fdeflate_tpu_torch/libfdt_kernels.so``
-under the repository root), loaded with ctypes.  Each entry point launches
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
+all started together, and link into one shared library with a plain C
+interface (``build/fdeflate_tpu_torch/libfdt_kernels.so`` under the
+repository root), loaded with ctypes.  Each entry point launches
 one kernel on the stream it is given and returns the launch's
 ``cudaError_t``; ``check`` turns a nonzero code into an exception.
 
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "fdeflate_tpu_torch"
 LIB_PATH = BUILD_DIR / "libfdt_kernels.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # data, lengths, lit_tok, len_tok, zlit, t285, win, chunk_bits,
     # B, N, C, wwin, stream
@@ -37,6 +38,11 @@ _SIGNATURES = {
     "fdt_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # words, chunk_starts, dtab, out, bpos, B, W, N, C, stream
     "fdt_decode2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # words, start, wend, bit_end, out0, meta, tab, recs, bpos, nout, done,
+    # L, K, stream
+    "fdt_inflate_records": [_P] * 11 + [_I, _I, _P],
+    # words, W, cands, n_bits, good, end, L, stream
+    "fdt_validate_headers": [_P, _L, _P, _L, _P, _P, _I, _P],
 }
 
 build_seconds: float | None = None  # wall time of this process's nvcc run
@@ -69,16 +75,34 @@ def build() -> pathlib.Path:
     if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-o", str(tmp)]
-    cmd += [str(p) for p in sorted(_CSRC.glob("*.cu"))]
+    tag = f"{os.getpid()}.tmp"
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
+    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    jobs = []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((obj, subprocess.Popen(
+            [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        _out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{err}")
+    if not failed:
+        res = subprocess.run([_nvcc(), ARCH, "-shared", "-o", str(tmp),
+                              *(str(obj) for obj, _ in jobs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr}")
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "ptxas.log").write_text(res.stderr)
+    (BUILD_DIR / "ptxas.log").write_text("".join(logs))
     os.replace(tmp, LIB_PATH)
     stamp.write_text(digest)
     return LIB_PATH

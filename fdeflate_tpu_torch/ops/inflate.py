@@ -1,0 +1,268 @@
+"""Batched decode of standard zlib streams: materialize and the sequential
+per-block path.
+
+JAX counterpart: ``fdeflate_tpu/ops/inflate.py`` — ``materialize``,
+``_seq_pallas_launch`` and ``_decompress_batch_sequential`` with the
+record-kernel engine (``decompress_batch``, which routes big streams to
+block discovery first, is in ``parallel/discovery.py``).  The symbol phase is K4
+(``ops/inflate_records.py``); the host parses the framing and block headers
+between launches with the JAX package's jax-free helpers
+(``_StreamState``, ``_advance_headers``, ``_parse_dynamic_lengths``).
+
+Where the JAX sequential path re-decodes a stream on its XLA engine
+(``decode_symbols``) after any record-kernel anomaly, the port has no
+second engine: K4 reads every block straight from the stream words (no
+staged window to overrun) and classifies errors itself, checking
+truncation against the stream's last bit and each distance against the
+bytes produced so far, with ``decode_symbols``' precedence.  The error
+class of every stream is the JAX path's.  For the same reason the fixed
+code's symbols 286 and 287 end the block, as they do in the reference
+decode tables (``tables.LITLEN_TABLE_ENTRIES``) that ``decode_symbols``
+reads.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from fdeflate_tpu import errors as E
+from fdeflate_tpu.ops import inflate as host
+from fdeflate_tpu.ops.pallas_inflate import _CLS_EOB, _LIT_BASE, _canonical_order
+from fdeflate_tpu.tables import FIXED_CODE_LENGTHS
+
+from .inflate_records import (
+    DONE_BAD_DIST,
+    DONE_BAD_LITLEN,
+    DONE_EOB,
+    DONE_SLOTS,
+    DONE_TOO_FAR,
+    DONE_TRUNCATED,
+    block_tables,
+    inflate_records,
+    pack_tables,
+    recs_to_records,
+)
+from .ultrafast import device_of
+
+WINDOW = host.WINDOW
+_STATUS = {
+    DONE_BAD_LITLEN: E.Status.INVALID_LITERAL_LENGTH_CODE,
+    DONE_BAD_DIST: E.Status.INVALID_DISTANCE_CODE,
+    DONE_TRUNCATED: E.Status.INSUFFICIENT_INPUT,
+    DONE_TOO_FAR: E.Status.DISTANCE_TOO_FAR_BACK,
+}
+
+
+def materialize(records, window, produced, out_capacity: int,
+                want_window: bool = True):
+    """Expand decode records into output bytes (JAX ``materialize`` with
+    ``max_lit_bytes=2``: K4 records carry at most two literals).
+
+    ``records`` = (lit, cnt, len, dist), each [K, B] (``recs_to_records``);
+    ``window`` u8[B, 32768] prior output, right-aligned; ``produced``
+    int[B] bytes the records make (used for masking); ``out_capacity`` a
+    bound on ``produced``.  Returns (u8[B, out_capacity], new window).
+
+    Literals land by scatter; every back-reference position gets a pointer
+    to its source through the containing record's (start, dist), found with
+    one scatter-max and one cummax over int64 keys ``start << 16 | dist``;
+    dist-1 spans collapse with one cummax; pointer doubling runs to a fixed
+    point; one gather reads the bytes.
+    """
+    rl, rc, rn, rd = records
+    K, B = rl.shape
+    dev = rl.device
+    i64 = torch.int64
+    produced = torch.as_tensor(produced, device=dev).to(i64).reshape(B)
+    ext = WINDOW + out_capacity
+
+    adv = (rc.to(i64) + rn.to(i64)).T                    # [B, K]
+    start = adv.cumsum(dim=1) - adv                       # per-stream offsets
+    s_abs = WINDOW + start
+    row = torch.arange(B, device=dev)[:, None]
+    dump = B * ext
+
+    # literal bytes (at most two per record, packed LSB first)
+    cnt = rc.to(i64).T
+    lit = rl.to(i64).T & 0xFFFF
+    vals = torch.zeros(B * ext + 1, dtype=i64, device=dev)
+    for j in range(2):
+        byte = (lit >> (8 * j)) & 0xFF
+        p = s_abs + j
+        tgt = torch.where((j < cnt) & (p < ext), row * ext + p, dump)
+        vals.index_add_(0, tgt.reshape(-1), byte.reshape(-1))
+    vals = vals[:dump].reshape(B, ext)
+
+    # back-reference pointers: the containing record's (start, dist) per
+    # position; keys grow with start, so a running max carries them.
+    is_ref = rn.T > 0
+    dist = torch.where(is_ref, (rd.to(i64).T - 1).clamp(min=0) + 1, 0)
+    has = adv > 0
+    tgt = torch.where(has & (s_abs < ext), row * ext + s_abs, dump)
+    key = torch.where(has, (s_abs << 16) | dist, 0)
+    c = torch.zeros(B * ext + 1, dtype=i64, device=dev)
+    c.scatter_reduce_(0, tgt.reshape(-1), key.reshape(-1), reduce="amax")
+    c = c[:dump].reshape(B, ext).cummax(dim=1).values
+    rec_start = c >> 16
+    pos_dist = c & 0xFFFF
+
+    posi = torch.arange(ext, device=dev, dtype=i64)[None, :]
+    in_new = (posi >= WINDOW) & (posi < WINDOW + produced[:, None])
+    is_copy = in_new & (pos_dist > 0)
+    # Single hop: a copy of distance d repeats the d bytes before its
+    # record, so position i maps to start - d + (i - start) mod d.
+    d_safe = pos_dist.clamp(min=1)
+    hop = rec_start - d_safe + torch.remainder(posi - rec_start, d_safe)
+    ptr = torch.where(is_copy, hop, posi.expand(B, ext))
+    is_d1 = is_copy & (pos_dist == 1)
+    left = torch.where(is_d1, -1, posi).cummax(dim=1).values
+    ptr = torch.where(is_d1, left, ptr)
+    for _ in range(max(1, (ext - 1).bit_length())):   # chains halve each round
+        nxt = ptr.gather(1, ptr)
+        changed = bool((nxt != ptr).any())
+        ptr = nxt
+        if not changed:
+            break
+
+    base = torch.cat([window.to(i64), vals[:, WINDOW:]], dim=1)
+    out = base.gather(1, ptr)[:, WINDOW:]
+    out = torch.where(in_new[:, WINDOW:], out, 0).to(torch.uint8)
+    if not want_window:
+        return out, window
+    full = torch.cat([window, out], dim=1)
+    idx = (torch.arange(WINDOW, device=dev)[None, :]
+           + produced[:, None]).clamp(0, full.shape[1] - 1)
+    return out, full.gather(1, idx)
+
+
+@functools.lru_cache(maxsize=1)
+def fixed_meta_tab():
+    """``foreign_meta`` of the fixed code with symbols 286/287 as end of
+    block (their entries in the reference decode tables)."""
+    meta, tab = host._fixed_foreign_meta()
+    tab = tab.copy()
+    order = _canonical_order(np.asarray(FIXED_CODE_LENGTHS, np.int64)[:288])
+    pairs = tab.view(np.uint32)
+    for sym in (286, 287):
+        i = _LIT_BASE + int(np.flatnonzero(order == sym)[0])
+        sh = (i & 1) * 16
+        pairs[i >> 1] = (int(pairs[i >> 1]) & ~(0xFFFF << sh) & 0xFFFFFFFF) | (
+            (_CLS_EOB << 13) << sh)
+    return meta, tab
+
+
+def pad_words(streams: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """Little-endian words of the streams, each padded to a word and by 8
+    zero bytes (``discovery.stage_words``), concatenated.  Returns (words
+    int32[W], word_base int64[S + 1])."""
+    padded = [s + bytes((-len(s)) % 4) + bytes(8) for s in streams]
+    base = np.zeros(len(streams) + 1, np.int64)
+    base[1:] = np.cumsum([len(p) // 4 for p in padded])
+    words = np.frombuffer(b"".join(padded), "<u4").astype(np.int32)
+    return words, base
+
+
+def record_budget(max_steps: int) -> int:
+    """Record slots per lane of the sequential path's launches (JAX
+    ``_seq_pallas_launch``: 4 * max_steps to a power of two, <= 8192)."""
+    return min(8192, 1 << max(4, (4 * max_steps - 1).bit_length()))
+
+
+def _seq_launch(states, lanes, words, word_base, K: int, dev):
+    """One K4 launch over the current block of the streams in ``lanes``.
+
+    Returns (records [K, len(lanes)], bpos int64 (stream bits), done,
+    nout) with bpos, done and nout on the host."""
+    for i in lanes:
+        st = states[i]
+        if st.meta_tab is None:
+            if st.lengths == "fixed":
+                st.meta_tab = fixed_meta_tab()
+            else:
+                st.meta_tab = block_tables(*st.lengths)
+    meta, tab = pack_tables([states[i].meta_tab for i in lanes], dev)
+    base = word_base[lanes] * 32
+    start = base + np.array([states[i].bitpos for i in lanes], np.int64)
+    bit_end = base + np.array([len(states[i].data) * 8 for i in lanes], np.int64)
+    out0 = np.array([len(states[i].out) for i in lanes], np.int64)
+    per_lane = [torch.from_numpy(a).to(dev)
+                for a in (start, word_base[np.asarray(lanes) + 1], bit_end, out0)]
+    recs, bpos, nout, done = inflate_records(words, *per_lane, meta, tab, K)
+    return (recs, bpos.cpu().numpy() - base, done.cpu().numpy(),
+            nout.cpu().numpy())
+
+
+def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
+                          device):
+    """Per-block decode with one K4 lane per stream (JAX
+    ``_decompress_batch_sequential``, record-kernel engine).
+
+    The host parses framing and headers between launches and copies stored
+    blocks; each launch decodes the current dynamic or fixed block of every
+    active stream until EOB, an error or K records.  The 32 KiB window of
+    prior output stays on the device across launches in which no stream
+    left its block.  Returns per stream the bytes or the error.
+    """
+    dev = device_of(device)
+    if not streams:
+        return []
+    states = [host._StreamState(s) for s in streams]
+    for st in states:
+        host._advance_headers(st)
+    words_np, word_base = pad_words(streams)
+    words = torch.from_numpy(words_np).to(dev)
+    K = record_budget(max_steps)
+    win_dev, win_lanes = None, None   # device windows of the last launch
+
+    while True:
+        lanes = [i for i, st in enumerate(states)
+                 if not st.done and st.in_block]
+        if not lanes:
+            break
+        recs, bpos, done, nout = _seq_launch(states, lanes, words, word_base,
+                                             K, dev)
+        failed = done > DONE_EOB
+        produced = np.where(failed, 0, nout)
+        cap = max(256, 1 << int(np.ceil(np.log2(max(int(produced.max()), 1)))))
+        if win_lanes == lanes:
+            window = win_dev
+        else:
+            window = torch.from_numpy(
+                np.stack([states[i].window for i in lanes])).to(dev)
+        out, new_window = materialize(recs_to_records(recs), window,
+                                      torch.from_numpy(produced).to(dev), cap)
+        out_np = out.cpu().numpy()
+        if (done == DONE_SLOTS).all():
+            # No stream leaves its block: the windows stay on the device.
+            win_dev, win_lanes = new_window, lanes
+            new_window_np = None
+        else:
+            win_dev, win_lanes = None, None
+            new_window_np = new_window.cpu().numpy()
+        for j, i in enumerate(lanes):
+            st = states[i]
+            if failed[j]:
+                st.error = E.error_for_status(_STATUS[int(done[j])])
+                st.done = True
+                continue
+            st.out += out_np[j, : produced[j]].tobytes()
+            if new_window_np is not None:
+                st.window = new_window_np[j]
+            st.bitpos = int(bpos[j])
+            if done[j] == DONE_EOB:
+                st.in_block = False
+                host._advance_headers(st)
+
+    results: list[bytes | E.DecompressionError] = []
+    for st in states:
+        if st.error is not None:
+            results.append(st.error)
+        elif not st.done:
+            results.append(E.InsufficientInput())
+        else:
+            results.append(bytes(st.out))
+    return results
+

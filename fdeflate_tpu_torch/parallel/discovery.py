@@ -1,0 +1,409 @@
+"""Block-parallel decode of foreign zlib streams (no chunk index).
+
+JAX counterpart: ``fdeflate_tpu/parallel/discovery.py`` — the device path
+of ``find_block_boundaries`` (``scan_stage1_device``,
+``validate_stage2_device``), ``_scan_parse``, ``stage_words``,
+``_pallas_lane_decode``, ``try_foreign`` with ``_jit_stitch``,
+``try_foreign_batch`` with ``_jit_stitch_batch``, ``decompress_foreign``,
+and the routing of ``ops/inflate.decompress_batch``, which sits here so
+that ``ops/`` does not import ``parallel/``.
+
+Every bit offset of the stream is screened as a possible dynamic-block
+header (stage 1, elementwise torch over all offsets); the survivors' code
+length sections are decoded by K5 (stage 2, ``ops/validate_headers.py``);
+the host parses each validated header (the JAX package's
+``_parse_dynamic_lengths``); K4 (``ops/inflate_records.py``) decodes every
+candidate block in its own lane, reading straight from the stream words;
+the host walks the chain of blocks whose end-of-block exit is the next
+confirmed header; one materialize and an Adler-32 on the device finish the
+stream.  A stream the chain cannot cover (a stored or fixed block, a
+false boundary, a block over the record budget) returns None, and
+``decompress_foreign`` falls back to the sequential path.
+
+On CPU tensors stage 1 runs the same torch code and K4/K5 their plain
+versions.  ``materialize="host"`` (the native C++ expansion) is not
+ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fdeflate_tpu import errors as E
+from fdeflate_tpu.ops import inflate as host
+
+from ..ops.adler32 import adler32_batch
+from ..ops.inflate import WINDOW, decompress_sequential, pad_words
+from ..ops.inflate import materialize as _materialize
+from ..ops.inflate_records import (
+    DONE_EOB,
+    NO_LIMIT,
+    block_tables,
+    inflate_records,
+    pack_tables,
+    recs_to_records,
+)
+from ..ops.ultrafast import device_of
+from ..ops.validate_headers import validate_headers
+
+_MAXCL = 7
+_PARALLEL_MIN = 49152   # decompress_batch's threshold for block discovery
+
+
+def _zlib_header_ok(data: bytes) -> bool:
+    """CMF/FLG of a deflate zlib stream with no preset dictionary."""
+    cmf, flg = data[0], data[1]
+    return cmf & 0x0F == 0x08 and ((cmf << 8) | flg) % 31 == 0 and not flg & 0x20
+
+
+def stage_words(data: bytes, *, device) -> torch.Tensor:
+    """The stream's little-endian words, padded to a word and by 8 zero
+    bytes, as int32 on ``device`` (upload once for repeated
+    ``try_foreign(..., words_dev=...)``)."""
+    words, _base = pad_words([data])
+    return torch.from_numpy(words).to(device_of(device))
+
+
+def scan_stage1_device(payload: bytes, min_tail_bits: int = 400, *,
+                       device, words=None) -> np.ndarray:
+    """Stage 1 over every bit offset below ``len * 8 - min_tail_bits``
+    (JAX ``_jit_stage1``): BTYPE dynamic, HLIT/HDIST bounds, and an exact
+    Kraft-complete code-length code with at least two codes.
+
+    Shifted-slice elementwise math over an int8 bit array (int8/int16
+    temporaries), then cumsum compaction (an int32 cumsum, searched for
+    each survivor's rank).  JAX compacts into a fixed number of slots and
+    redoes the scan exactly on the host when more survive; here every
+    survivor is kept, which is that result.  Returns the sorted offsets,
+    int64.
+    """
+    n_bits = len(payload) * 8 - min_tail_bits
+    if n_bits <= 0:
+        return np.zeros(0, np.int64)
+    dev = device_of(device)
+    if words is None:
+        words = stage_words(payload, device=dev)
+    data = words.reshape(-1).view(torch.uint8)[: len(payload)]
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    bits = ((data[:, None] >> shifts) & 1).reshape(-1).to(torch.int8)
+    i8, i16 = torch.int8, torch.int16
+
+    def sl(k):
+        return bits[k: k + n_bits]
+
+    def field(k, w, dtype=i8):
+        v = sl(k).to(dtype)
+        for j in range(1, w):
+            v = v | (sl(k + j).to(dtype) << j)
+        return v
+
+    ok = (sl(1) == 0) & (sl(2) == 1)
+    ok &= (field(3, 5) <= 29) & (field(8, 5) <= 29)
+    ncl = field(13, 4) + 4
+    kraft = torch.zeros(n_bits, dtype=i16, device=dev)
+    nz = torch.zeros(n_bits, dtype=i8, device=dev)
+    for j in range(19):
+        cl = field(17 + 3 * j, 3, i16)
+        use = (ncl > j) & (cl > 0)
+        kraft += torch.where(use, (1 << _MAXCL) >> cl, 0).to(i16)
+        nz += use.to(i8)
+    ok &= (kraft == 1 << _MAXCL) & (nz >= 2)
+
+    csum = ok.to(torch.int32).cumsum(0, dtype=torch.int32)
+    want = torch.arange(1, int(csum[-1]) + 1, dtype=torch.int32, device=dev)
+    offs = torch.searchsorted(csum, want)
+    return offs.cpu().numpy().astype(np.int64)
+
+
+def validate_stage2_device(payload: bytes, cands: np.ndarray,
+                           words_dev=None, *, device):
+    """Stage 2: K5 over the stage-1 survivors.  Returns (offsets,
+    header_end_bits) of the valid headers, int64, sorted (JAX
+    ``validate_stage2_device``, equal to the numpy ``validate_stage2``)."""
+    if len(cands) == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    dev = device_of(device)
+    if words_dev is None:
+        words_dev = stage_words(payload, device=dev)
+    c = torch.from_numpy(np.asarray(cands, np.int64)).to(dev)
+    good, end = validate_headers(words_dev, c, len(payload) * 8)
+    good = good.cpu().numpy()
+    return (np.asarray(cands, np.int64)[good],
+            end.cpu().numpy().astype(np.int64)[good])
+
+
+def find_block_boundaries(payload: bytes, words_dev=None, *, device):
+    """(offsets, header_end_bits) of the validated dynamic headers: stage 1
+    and K5 on ``device``."""
+    c1 = scan_stage1_device(payload, device=device, words=words_dev)
+    return validate_stage2_device(payload, c1, words_dev=words_dev,
+                                  device=device)
+
+
+def _scan_parse(data: bytes, words_dev=None, *, device):
+    """zlib header check + boundary scan + per-candidate header parse.
+
+    Returns the lane list [(off, bfinal, sym_start, lengths, hlit)], sorted
+    by offset with the first lane at bit 16, or None when the stream cannot
+    take the block-parallel path."""
+    if len(data) < 7 or not _zlib_header_ok(data):
+        return None
+    offsets, _ends = find_block_boundaries(data, words_dev=words_dev,
+                                           device=device)
+    if 16 not in set(offsets.tolist()):
+        return None  # first block not dynamic (stored/fixed)
+    lanes = []
+    for off in offsets.tolist():
+        r = host._HostBitReader(data, off)
+        bfinal = r.take(1)
+        if r.take(2) != 0b10:
+            continue
+        try:
+            lengths, hlit = host._parse_dynamic_lengths(r)
+        except E.DecompressionError:
+            continue
+        lanes.append((off, bool(bfinal), r.pos, lengths, hlit))
+    if not lanes or lanes[0][0] != 16:
+        return None
+    return lanes
+
+
+def lane_budget(max_steps: int) -> int:
+    """Record slots per lane of the block-parallel decode: JAX's K =
+    4 * max_steps (16..65536, a multiple of 16) in launches of
+    min(2^ceil(log2 K), 8192) slots, so a lane gets whole launches."""
+    K = min(65536, max(16, 4 * max_steps))
+    K += (-K) % 16
+    k_launch = min(1 << (K - 1).bit_length(), 8192)
+    return -(-K // k_launch) * k_launch
+
+
+def lane_inputs(lanes, words, wend, bit_end):
+    """K4's inputs for candidate lanes (absolute symbol start bits into
+    ``words``; ``wend`` / ``bit_end`` int64[L] bound each lane's stream):
+    (words, start, wend, bit_end, out0, meta, tab), or None when a lane's
+    trees are incomplete (a header the structural scan let through)."""
+    try:
+        tables = [block_tables(lengths, hlit)
+                  for (_o, _b, _s, lengths, hlit) in lanes]
+    except ValueError:
+        return None
+    dev = words.device
+    meta, tab = pack_tables(tables, dev)
+    start = np.array([sym for (_o, _b, sym, _l, _h) in lanes], np.int64)
+    per_lane = [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                for a in (start, wend, bit_end, np.full(len(lanes), NO_LIMIT))]
+    return (words, *per_lane, meta, tab)
+
+
+def _lane_decode(lanes, max_steps: int, words, wend, bit_end):
+    """K4 over every candidate lane (JAX ``_pallas_lane_decode``).  Returns
+    (recs int32[K, L], bpos, eob, nout), the last three on the host, or
+    None (see ``lane_inputs``)."""
+    args = lane_inputs(lanes, words, wend, bit_end)
+    if args is None:
+        return None
+    recs, bpos, nout, done = inflate_records(*args, lane_budget(max_steps))
+    return (recs, bpos.cpu().numpy(), done.cpu().numpy() == DONE_EOB,
+            nout.cpu().numpy())
+
+
+def _chain(lanes, lo: int, hi: int, bpos, eob, gbase: int = 0):
+    """Walk stream lanes[lo:hi] from bit 16: block i is confirmed when its
+    EOB exit is the next confirmed header.  Returns (lane indices, final
+    exit bit, stream-local) or None."""
+    by_off = {lanes[i][0]: i for i in range(lo, hi)}
+    chain = []
+    cur = 16
+    while True:
+        i = by_off.get(cur)
+        if i is None or not eob[i]:
+            return None
+        chain.append(i)
+        cur = int(bpos[i]) - gbase
+        if lanes[i][1]:  # BFINAL
+            return chain, cur
+
+
+def _stored_adler(data: bytes, final_exit: int) -> int:
+    tb = (final_exit + 7) & ~7   # trailer: byte-aligned, big-endian
+    return int.from_bytes(data[tb // 8: tb // 8 + 4], "big")
+
+
+def _stitch(recs, mask, ranges, produced):
+    """The chain lanes' records -> one output row per stream, on the device
+    (JAX ``_jit_stitch`` / ``_jit_stitch_batch``).
+
+    ``recs`` int32[K, L]; ``mask`` bool[L] marks chain lanes (the others
+    turn inert); stream s owns lanes ``ranges[s] = (lo, hi)``, i.e. the
+    lane-major records [lo*K, hi*K), and makes ``produced[s]`` bytes.
+    Returns (out u8[S, cap], Adler-32 int64[S] of each row's first
+    ``produced`` bytes, bad bool[S]: a distance reaching before the
+    stream's start, which empties that row).
+    """
+    K, L = recs.shape
+    dev = recs.device
+    lo = torch.tensor([r[0] for r in ranges], dtype=torch.int64, device=dev)
+    width = torch.tensor([(r[1] - r[0]) * K for r in ranges],
+                         dtype=torch.int64, device=dev)
+    m = torch.from_numpy(np.asarray(mask)).to(dev)
+    flat = torch.cat([torch.where(m[None, :], recs, 0).T.reshape(-1),
+                      torch.zeros(1, dtype=recs.dtype, device=dev)])
+    ks = torch.arange(max(r[1] - r[0] for r in ranges) * K, device=dev)[:, None]
+    records = recs_to_records(flat[torch.where(ks < width, lo * K + ks, L * K)])
+    adv = records[1].to(torch.int64) + records[2]
+    pos = adv.cumsum(dim=0) - adv
+    bad = ((records[3] > 0) & (records[3] > pos)).any(dim=0)
+    prod = torch.where(bad, 0, torch.as_tensor(produced, device=dev))
+    window = torch.zeros(len(ranges), WINDOW, dtype=torch.uint8, device=dev)
+    out, _ = _materialize(records, window, prod, _cap_bucket(int(max(produced))),
+                          want_window=False)
+    return out, adler32_batch(out, prod), bad
+
+
+def try_foreign(data: bytes, max_steps: int = 6144, *, device,
+                words_dev=None, return_device: bool = False,
+                materialize: str | None = None):
+    """``decompress_foreign`` without the fallback: the bytes of a confirmed,
+    checksum-verified chain decode, or None when the stream needs the
+    sequential path.
+
+    ``words_dev``: the stream's words already on the device
+    (``stage_words``).  ``return_device=True`` keeps the output on the
+    device and returns (out u8[1, cap], produced) with the Adler-32
+    verified there (one scalar read back).
+    """
+    if materialize == "host":
+        raise NotImplementedError("materialize='host' is not ported yet")
+    dev = device_of(device)
+    if words_dev is None:
+        words_dev = stage_words(data, device=dev)
+    lanes = _scan_parse(data, words_dev=words_dev, device=dev)
+    if lanes is None:
+        return None
+    L = len(lanes)
+    decoded = _lane_decode(lanes, max_steps, words_dev,
+                           np.full(L, words_dev.numel()),
+                           np.full(L, len(data) * 8))
+    if decoded is None:
+        return None
+    recs, bpos, eob, nout = decoded
+    walk = _chain(lanes, 0, L, bpos, eob)
+    if walk is None:
+        return None
+    chain, final_exit = walk
+    mask = np.zeros(L, bool)
+    mask[chain] = True
+    produced = int(nout[chain].sum())
+    out, ck, bad = _stitch(recs, mask, [(0, L)], [produced])
+    if bool(bad[0]) or _stored_adler(data, final_exit) != int(ck[0]):
+        return None  # the chain was structurally plausible but wrong
+    if return_device:
+        return out, produced
+    return out[0, :produced].cpu().numpy().tobytes()
+
+
+def _cap_bucket(produced: int) -> int:
+    """Materialize capacity: the smallest of {1, 1.5} * 2^k covering
+    ``produced`` (JAX ``_cap_bucket``)."""
+    produced = max(produced, 256)
+    p2 = 1 << int(np.ceil(np.log2(produced)))
+    return 3 * p2 // 4 if 3 * p2 // 4 >= produced else p2
+
+
+def try_foreign_batch(streams: list[bytes], max_steps: int = 6144, *,
+                      device):
+    """Block-parallel decode of many foreign streams in one K4 launch.
+
+    Every stream's discovered blocks join one lane list over the
+    concatenated stream words; chains are walked per stream and all
+    confirmed streams materialize together.  Returns, per stream, the
+    bytes or None (the caller falls back for that stream).
+    """
+    S = len(streams)
+    if S <= 1:
+        return [try_foreign(s, max_steps=max_steps, device=device)
+                for s in streams]
+    dev = device_of(device)
+    results: list[bytes | None] = [None] * S
+    words_np, word_base = pad_words(streams)
+    words = torch.from_numpy(words_np).to(dev)
+
+    glanes, wend, bit_end = [], [], []
+    lane_range = {}
+    for si, s in enumerate(streams):
+        lo_w, hi_w = int(word_base[si]), int(word_base[si + 1])
+        lanes = _scan_parse(s, words_dev=words[lo_w:hi_w], device=dev)
+        if lanes is None:
+            continue
+        lo = len(glanes)
+        for off, bfinal, sym_start, lengths, hlit in lanes:
+            glanes.append((off, bfinal, lo_w * 32 + sym_start, lengths, hlit))
+        wend += [hi_w] * len(lanes)
+        bit_end += [lo_w * 32 + len(s) * 8] * len(lanes)
+        lane_range[si] = (lo, len(glanes))
+    if not glanes:
+        return results
+    decoded = _lane_decode(glanes, max_steps, words, wend, bit_end)
+    if decoded is None:
+        return results
+    recs, bpos, eob, nout = decoded
+    mask = np.zeros(recs.shape[1], bool)
+    finals = {}
+    for si, (lo, hi) in lane_range.items():
+        walk = _chain(glanes, lo, hi, bpos, eob, int(word_base[si]) * 32)
+        if walk is not None:
+            mask[walk[0]] = True
+            finals[si] = walk[1]
+    confirmed = sorted(finals)
+    if not confirmed:
+        return results
+
+    ranges = [lane_range[si] for si in confirmed]
+    produced = [int(nout[lo:hi][mask[lo:hi]].sum()) for lo, hi in ranges]
+    out, ck, bad = _stitch(recs, mask, ranges, produced)
+    out_np, ck, bad = out.cpu().numpy(), ck.cpu().numpy(), bad.cpu().numpy()
+    for ci, si in enumerate(confirmed):
+        if not bad[ci] and _stored_adler(streams[si], finals[si]) == ck[ci]:
+            results[si] = out_np[ci, : produced[ci]].tobytes()
+    return results
+
+
+def decompress_foreign(data: bytes, max_steps: int = 6144, *, device) -> bytes:
+    """Block-parallel decode of a foreign zlib stream, falling back to the
+    sequential path for the whole stream when the chain cannot cover it;
+    raises the stream's decode error."""
+    if len(data) >= 7 and not _zlib_header_ok(data):
+        raise E.BadZlibHeader()
+    r = try_foreign(data, max_steps=max_steps, device=device)
+    if r is not None:
+        return r
+    r = decompress_sequential([data], max_steps=max_steps, device=device)[0]
+    if isinstance(r, E.DecompressionError):
+        raise r
+    return r
+
+
+def decompress_batch(streams: list[bytes], max_steps: int = 8192, *,
+                     device):
+    """Decode many zlib streams; per stream the bytes or the error.
+
+    Routing of JAX ``ops/inflate.decompress_batch``: streams of 49152 bytes
+    or more go to block discovery first (``try_foreign_batch`` when there
+    are several, ``try_foreign`` for one); those it leaves, and all others,
+    take the sequential path (``ops/inflate.decompress_sequential``).
+    ``device`` names where the kernels run.
+    """
+    big = [i for i, s in enumerate(streams) if len(s) >= _PARALLEL_MIN]
+    if len(big) > 1:
+        res = try_foreign_batch([streams[i] for i in big],
+                                max_steps=max_steps, device=device)
+    else:
+        res = [try_foreign(streams[i], max_steps=max_steps, device=device)
+               for i in big]
+    results_par = {i: r for i, r in zip(big, res) if r is not None}
+    rest = [s for i, s in enumerate(streams) if i not in results_par]
+    seq = iter(decompress_sequential(rest, max_steps=max_steps, device=device))
+    return [results_par[i] if i in results_par else next(seq)
+            for i in range(len(streams))]

@@ -11,13 +11,26 @@ Kernel and plain version must agree bit for bit (integer outputs).
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
 
+import fdeflate_tpu_torch as P
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack, assign_pack_plain
 from fdeflate_tpu_torch.ops.decode2 import decode2, decode2_plain
+from fdeflate_tpu_torch.ops.inflate_records import (
+    NO_LIMIT,
+    inflate_records,
+    inflate_records_plain,
+)
 from fdeflate_tpu_torch.ops.repack import combine, combine_plain
+from fdeflate_tpu_torch.ops.validate_headers import (
+    validate_headers,
+    validate_headers_plain,
+)
+from fdeflate_tpu_torch.parallel import discovery as PD
 from fdeflate_tpu_torch.ops.ultrafast import _encode, lane_starts, stream_words
 from fdeflate_tpu_torch.parallel.device_pipeline import fused_zlib_roundtrip
 from fdeflate_tpu_torch.trees import trained_tables
@@ -101,3 +114,67 @@ def test_fused_roundtrip_on_the_card(dev):
         data, lengths)
     assert torch.equal(out, data)
     assert bool(bpos_ok.all()) and bool(ck_ok.all())
+
+
+def _foreign(seed: int, n: int = 200_000) -> bytes:
+    rng = np.random.default_rng(seed)
+    wp = [rng.bytes(int(rng.integers(2, 12))) for _ in range(200)]
+    return b"".join(wp[int(rng.integers(200))] for _ in range(n // 6))[:n]
+
+
+def _lanes(z: bytes, dev, corrupt: bool):
+    """Every discovered block of ``z`` as a K4 lane (corrupted: one byte of
+    the payload flipped after the tables were parsed)."""
+    words = PD.stage_words(z, device=dev)
+    lanes = PD._scan_parse(z, words_dev=words, device=dev)
+    from fdeflate_tpu.ops.pallas_inflate import foreign_meta
+    from fdeflate_tpu_torch.ops.inflate_records import pack_tables
+
+    meta, tab = pack_tables([foreign_meta(l[3][: l[4]], l[3][288:320])
+                             for l in lanes], dev)
+    if corrupt:
+        words = words.clone()
+        words[words.numel() // 2] ^= 0x00F0F0F0
+    L = len(lanes)
+    start = torch.tensor([l[2] for l in lanes], dtype=torch.int64, device=dev)
+    full = lambda v: torch.full((L,), v, dtype=torch.int64, device=dev)  # noqa: E731
+    return words, start, full(words.numel()), full(NO_LIMIT), full(NO_LIMIT), meta, tab
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+@pytest.mark.parametrize("K", [64, 8192])
+def test_inflate_records_matches_plain(dev, corrupt, K):
+    args = _lanes(zlib.compress(_foreign(1), 6), dev, corrupt)
+    before = inflate_records.launches
+    got = inflate_records(*args, K)
+    assert inflate_records.launches == before + 1
+    want = inflate_records_plain(*args, K)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_validate_headers_matches_plain(dev):
+    z = zlib.compress(_foreign(2), 6)
+    words = PD.stage_words(z, device=dev)
+    rng = np.random.default_rng(3)
+    cands = np.unique(np.concatenate([
+        PD.scan_stage1_device(z, device=dev),
+        rng.integers(0, len(z) * 8 - 80, 20000)]))
+    c = torch.from_numpy(cands.astype(np.int64)).to(dev)
+    before = validate_headers.launches
+    good, end = validate_headers(words, c, len(z) * 8)
+    assert validate_headers.launches == before + 1
+    want_good, want_end = validate_headers_plain(words, c, len(z) * 8)
+    assert torch.equal(good, want_good) and torch.equal(end, want_end)
+    assert bool(good.any())
+
+
+def test_foreign_path_on_the_card(dev):
+    data = [_foreign(s, 120_000) for s in range(3)]
+    streams = [zlib.compress(d, lvl) for d, lvl in zip(data, (1, 6, 9))]
+    assert P.try_foreign(streams[1], device=dev) == data[1]
+    assert P.try_foreign_batch(streams, device=dev) == data
+    out = P.decompress_batch(streams + [zlib.compress(b"abc" * 99, 0),
+                                        streams[0][:500]], device=dev)
+    assert out[:3] == data and out[3] == b"abc" * 99
+    assert type(out[4]).__name__ == "InsufficientInput"

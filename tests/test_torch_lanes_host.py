@@ -1,12 +1,13 @@
 """The kernels' per-lane code, built for the host, against the plain versions.
 
 ``fdeflate_tpu_torch/csrc/lanes.cuh`` holds the whole sequential work of a
-K1 and a K3 lane as plain C++.  The CUDA kernels run it one lane per
-thread; here g++ builds the same header into a small host library with the
-kernels' lane loop around it, so the bit machines are held against the
-plain PyTorch versions on every tier-1 run, with no card.  The launch
-configuration, shared-memory tables and atomics are covered only on the
-card (tests/test_torch_cuda.py, chip_smoke.py).
+K1 and a K3 lane as plain C++, ``csrc/inflate_lanes.cuh`` that of a K4 and
+a K5 lane.  The CUDA kernels run it one lane per thread; here g++ builds
+the same headers into a small host library with the kernels' lane loop
+around them, so the bit machines are held against the plain PyTorch
+versions on every tier-1 run, with no card.  The launch configuration,
+shared-memory tables and atomics are covered only on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -16,21 +17,53 @@ import pathlib
 import shutil
 import subprocess
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
 
+from fdeflate_tpu.ops import inflate as I
+from fdeflate_tpu.ops.pallas_inflate import foreign_meta
+from fdeflate_tpu.parallel.discovery import scan_stage1
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack_plain, wwin
 from fdeflate_tpu_torch.ops.decode2 import decode2_plain
+from fdeflate_tpu_torch.ops.inflate import fixed_meta_tab, pad_words
+from fdeflate_tpu_torch.ops.inflate_records import (
+    NO_LIMIT,
+    inflate_records_plain,
+    pack_tables,
+)
 from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch
+from fdeflate_tpu_torch.ops.validate_headers import validate_headers_plain
 from fdeflate_tpu_torch.trees import trained_tables
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "fdeflate_tpu_torch" / "csrc"
 
-# The kernels' lane loop (assign_pack.cu, decode2.cu), serial on the host.
+# The kernels' lane loops (assign_pack.cu, decode2.cu, inflate_records.cu,
+# validate_headers.cu), serial on the host.
 _HARNESS = r"""
 #include <algorithm>
 #include "lanes.cuh"
+#include "inflate_lanes.cuh"
+extern "C" void inflate_lanes(const uint32_t* words, const int64_t* start,
+    const int64_t* wend, const int64_t* bit_end, const int64_t* out0,
+    const int32_t* meta, const int32_t* tab, int32_t* recs, int64_t* bpos,
+    int64_t* nout, int32_t* done, int L, int K) {
+  for (int64_t lane = 0; lane < L; ++lane) {
+    fdt::WordReader rd{words, wend[lane]};
+    done[lane] = fdt::inflate_lane(rd, start[lane], bit_end[lane], out0[lane],
+        meta + lane * fdt::kMetaRows, tab + lane * fdt::kTabPairs,
+        recs + lane, L, K, bpos + lane, nout + lane);
+  }
+}
+extern "C" void validate_lanes(const uint32_t* words, int64_t W,
+    const int64_t* cands, int64_t n_bits, int32_t* good, int64_t* end,
+    int L) {
+  fdt::WordReader rd{words, W};
+  for (int64_t i = 0; i < L; ++i)
+    good[i] = fdt::validate_lane(rd, cands[i], n_bits, end + i);
+}
 extern "C" void assign_pack_lanes(const uint8_t* data, const int32_t* lengths,
     const int32_t* lit, const int32_t* lent, int zlit, int t285,
     uint32_t* win, int32_t* bits, int B, int N, int C, int wwin) {
@@ -69,7 +102,12 @@ def lib(tmp_path_factory):
     subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
                     f"-I{CSRC}", "-o", str(so), str(d / "harness.cpp")],
                    check=True, capture_output=True, timeout=300)
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    lib.validate_lanes.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int]
+    return lib
 
 
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
@@ -146,3 +184,134 @@ def test_decode_lane_matches_plain(lib, seed0, corrupt):
         assert torch.equal(out, want_out), seed
         if not corrupt:
             assert torch.equal(out, data), seed
+
+
+def _foreign_stream(seed: int) -> bytes:
+    """A zlib stream of random kind, level and strategy."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(200, 12000))
+    kind = seed % 4
+    if kind == 0:
+        d = rng.integers(0, 256, n).astype(np.uint8).tobytes()
+    elif kind == 1:
+        d = (rng.integers(0, 6, n) * 41).astype(np.uint8).tobytes()
+    elif kind == 2:
+        wp = [rng.bytes(int(rng.integers(2, 12))) for _ in range(40)]
+        d = b"".join(wp[int(rng.integers(40))] for _ in range(n // 6))
+    else:
+        d = bytes(n // 3) + rng.bytes(n // 3) + bytes(n // 3)
+    strat = [zlib.Z_DEFAULT_STRATEGY, zlib.Z_FIXED, zlib.Z_HUFFMAN_ONLY,
+             zlib.Z_RLE][(seed // 4) % 4]
+    co = zlib.compressobj(int(rng.integers(1, 10)), zlib.DEFLATED, 15, 9, strat)
+    return co.compress(d) + co.flush()
+
+
+def _inflate_case(seed: int):
+    """Lanes from the first compressed block of several streams, some
+    corrupted, with random budgets, bit ends and output offsets."""
+    rng = np.random.default_rng(seed)
+    streams, tables, starts, ends, out0 = [], [], [], [], []
+    for j in range(6):
+        z = bytearray(_foreign_stream(seed * 8 + j))
+        r = I._HostBitReader(bytes(z), 16)
+        r.take(1)
+        btype = r.take(2)
+        if btype == 1:
+            tables.append(fixed_meta_tab())
+        elif btype == 2:
+            lengths, hlit = I._parse_dynamic_lengths(r)
+            tables.append(foreign_meta(lengths[:hlit], lengths[288:320]))
+        else:
+            continue
+        if rng.random() < 0.4:
+            for _ in range(int(rng.integers(1, 4))):
+                k = int(rng.integers(r.pos // 8, len(z)))
+                z[k] ^= int(rng.integers(1, 256))
+        streams.append(bytes(z))
+        starts.append(r.pos)
+        cut = rng.random()
+        ends.append(NO_LIMIT if cut < 0.5 else int(
+            rng.integers(r.pos, len(z) * 8 + 1)))
+        out0.append(NO_LIMIT if rng.random() < 0.5 else int(
+            rng.integers(-300, 40)))
+    # a fixed block holding symbol 286 under foreign_meta's fixed table,
+    # where it is an invalid literal/length code
+    streams.append(b"\x78\x01\x4b\x1c\x03" + bytes(4))
+    tables.append(I._fixed_foreign_meta())
+    starts.append(19)
+    # a block with matches decoded under a tree with no distance codes
+    z = zlib.compress(b"the quick brown fox jumps over the lazy dog " * 80, 9)
+    r = I._HostBitReader(z, 19)
+    lengths, hlit = I._parse_dynamic_lengths(r)
+    streams.append(z)
+    tables.append(foreign_meta(lengths[:hlit], np.zeros(30, np.int64)))
+    starts.append(r.pos)
+    ends += [NO_LIMIT] * 2
+    out0 += [NO_LIMIT] * 2
+    # the same block at the edges of the two checks: its last bit exactly
+    # at bit_end and one past it; its first match's distance exactly
+    # out0 + the bytes before it, and one more
+    meta, tab = foreign_meta(lengths[:hlit], lengths[288:320])
+    w = torch.from_numpy(pad_words([z])[0])
+    one = torch.tensor([r.pos], dtype=torch.int64)
+    recs, end, _n, _d = inflate_records_plain(
+        w, one, torch.tensor([w.numel()]), one + NO_LIMIT, one * 0 + NO_LIMIT,
+        torch.from_numpy(meta)[None], torch.from_numpy(tab)[None], 4096)
+    kind = recs[:, 0].numpy() >> 28
+    first = int(np.flatnonzero(kind == 2)[0])
+    before = int(((recs[:first, 0] >> 16) & 3).sum())
+    edge = (int(recs[first, 0]) & 0x7FFF) + 1 - before
+    for e, o in ((int(end[0]), NO_LIMIT), (int(end[0]) - 1, NO_LIMIT),
+                 (NO_LIMIT, edge), (NO_LIMIT, edge - 1)):
+        streams.append(z)
+        tables.append((meta, tab))
+        starts.append(r.pos)
+        ends.append(e)
+        out0.append(o)
+    words, base = pad_words(streams)
+    L = len(streams)
+    lane = {
+        "start": torch.from_numpy(base[:L] * 32 + np.array(starts)),
+        "wend": torch.from_numpy(base[1:]),
+        "bit_end": torch.tensor([min(e, NO_LIMIT) + (base[i] * 32 if e <
+                                 NO_LIMIT else 0) for i, e in enumerate(ends)],
+                                dtype=torch.int64),
+        "out0": torch.tensor(out0, dtype=torch.int64),
+    }
+    meta, tab = pack_tables(tables, "cpu")
+    return torch.from_numpy(words), lane, meta, tab, int(rng.integers(16, 3000))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_inflate_lane_matches_plain(lib, seed):
+    words, lane, meta, tab, K = _inflate_case(seed)
+    L = lane["start"].numel()
+    recs = torch.zeros(K, L, dtype=torch.int32)
+    bpos = torch.empty(L, dtype=torch.int64)
+    nout = torch.empty(L, dtype=torch.int64)
+    done = torch.empty(L, dtype=torch.int32)
+    lib.inflate_lanes(_ptr(words), *(_ptr(lane[k]) for k in (
+        "start", "wend", "bit_end", "out0")), _ptr(meta), _ptr(tab),
+        _ptr(recs), _ptr(bpos), _ptr(nout), _ptr(done), L, K)
+    want = inflate_records_plain(words, lane["start"], lane["wend"],
+                                 lane["bit_end"], lane["out0"], meta, tab, K)
+    for got, exp in zip((recs, bpos, nout, done), want):
+        assert torch.equal(got, exp), seed
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_validate_lane_matches_plain(lib, seed):
+    z = _foreign_stream(seed) if seed % 3 else np.random.default_rng(
+        seed).bytes(6000)
+    rng = np.random.default_rng(seed)
+    cands = np.unique(np.concatenate([
+        scan_stage1(z), rng.integers(0, max(1, len(z) * 8 - 80), 500)]))
+    words = torch.from_numpy(pad_words([z])[0])
+    c = torch.from_numpy(cands.astype(np.int64))
+    good = torch.empty(len(cands), dtype=torch.int32)
+    end = torch.empty(len(cands), dtype=torch.int64)
+    lib.validate_lanes(_ptr(words), words.numel(), _ptr(c), len(z) * 8,
+                       _ptr(good), _ptr(end), len(cands))
+    want_good, want_end = validate_headers_plain(words, c, len(z) * 8)
+    assert torch.equal(good.bool(), want_good)
+    assert torch.equal(end, want_end)

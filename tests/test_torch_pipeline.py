@@ -5,6 +5,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -13,7 +14,9 @@ import torch
 import fdeflate_tpu_torch as P
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack
 from fdeflate_tpu_torch.ops.decode2 import decode2
+from fdeflate_tpu_torch.ops.inflate_records import inflate_records
 from fdeflate_tpu_torch.ops.repack import combine
+from fdeflate_tpu_torch.ops.validate_headers import validate_headers
 from fdeflate_tpu_torch.trees import trained_tables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +35,16 @@ assert np.array_equal(out.numpy(), data) and bool(bpos_ok.all()) and bool(ck_ok.
 streams, index = P.compress_batch_ultra_fast(
     [data[0].tobytes(), data[1, :700].tobytes()], with_index=4, device="cpu")
 assert zlib.decompress(streams[1]) == data[1, :700].tobytes()
+# the foreign path: block-parallel and sequential decode of zlib streams
+text = b"".join(bytes([97 + (i * 7919) % 23]) * (1 + i % 3) for i in range(9000))
+co = zlib.compressobj(6)
+z = co.compress(text[:9000]) + co.flush(zlib.Z_BLOCK) + co.compress(text[9000:]) + co.flush()
+assert P.try_foreign(z, device="cpu") == text
+assert P.try_foreign_batch([z, z[:40]], device="cpu") == [text, None]
+out = P.decompress_batch([zlib.compress(text, 1), z[:-3], b""], device="cpu")
+assert out[0] == text and [type(r).__name__ for r in out[1:]] == [
+    "InsufficientInput", "InsufficientInput"]
+assert P.decompress_foreign(z, device="cpu") == text
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")))
 """
 
@@ -69,15 +82,27 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
     starts = torch.empty(2, 2, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         decode2(words, starts, t.dtab.to(meta), 64, 2)
+    lane = torch.empty(3, dtype=torch.int64, device=meta)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        inflate_records(words.reshape(-1), lane, lane, lane, lane,
+                        torch.empty(3, 64, dtype=torch.int32, device=meta),
+                        torch.empty(3, 160, dtype=torch.int32, device=meta),
+                        16)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        validate_headers(words.reshape(-1), lane, 2560)
 
 
 def test_cpu_path_counts_no_launches():
-    before = (assign_pack.launches, combine.launches, decode2.launches)
+    kernels = (assign_pack, combine, decode2, inflate_records,
+               validate_headers)
+    before = [k.launches for k in kernels]
     data = np.zeros((2, 512), np.uint8)
     out, bpos_ok, ck_ok = P.fused_zlib_roundtrip(4, 512, device="cpu")(
         data, np.full(2, 512, np.int32))
     assert bool(bpos_ok.all()) and bool(ck_ok.all())
-    assert (assign_pack.launches, combine.launches, decode2.launches) == before
+    text = bytes(range(256)) * 300
+    assert P.decompress_batch([zlib.compress(text, 6)], device="cpu") == [text]
+    assert [k.launches for k in kernels] == before
 
 
 def test_septree_profile_is_not_ported_yet():
