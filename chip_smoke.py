@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``fdeflate_tpu_torch/csrc`` with nvcc (one
-process per source, all at once) and drives the port's two paths:
+process per source, all at once) and drives the port's paths:
 
 1-3. The headline roundtrip (16 Sub-filtered PNG IDAT streams of 1 MiB,
      C = 512 fixed-geometry chunks): K1-K3 against their plain versions,
@@ -29,6 +29,21 @@ process per source, all at once) and drives the port's two paths:
      record decode (host tables + K4 + readback) and stitch (materialize
      + Adler-32), output GB/s
      per stream kind, and host zlib.decompress on the same streams.
+7.   The septree profile: K6 decode_sep against its plain version on the
+     small batches (clean and corrupted), the 16 x 1 MiB C = 512 roundtrip
+     with ``tree=sep_profile()`` through the entry points (zlib.decompress
+     of every stream, bytes, exit bits, Adler-32), the sep/trained size
+     ratio, leg times, K6 and plain K6 times, and K3 timed on the same
+     streams with the sep tree's table.
+8.   The adaptive tree: ``fused_adaptive_roundtrip`` at the same corpus and
+     geometry (bytes, exit bits, Adler-32), the code lengths built on the
+     card against the host build, K1 and K3 with the batch's tree against
+     their plain versions, tree-build, encode and decode times, and the
+     payload bits against the trained tree.
+9.   The checksum entry point ``adler32_pallas`` (K7 adler32_tiles) on a
+     64 MiB buffer with a length mask, at a size that is not a multiple of
+     1024 and on an unaligned view: equal to zlib.adler32, K7 equal to its
+     plain version, K7 and plain times.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
@@ -269,6 +284,242 @@ def ragged(data: np.ndarray, lengths) -> np.ndarray:
     return data
 
 
+def kernel_inputs(make_idat_corpus):
+    """The small batches every kernel is held to its plain version on:
+    [(label, u8[B, N], lengths, C)], one ragged, one wide."""
+    N = 8192
+    lens = [N, N - 700, 9]
+    small = ragged(make_idat_corpus(3, N, seed=1), lens)
+    small[1, :3000] = np.random.default_rng(1).integers(0, 256, 3000)
+    wide = make_idat_corpus(4, 1 << 16, seed=2)
+    wide[1] = np.random.default_rng(2).integers(0, 256, 1 << 16)
+    wide[2, 5000:40000] = 0
+    return [(f"B=3 N={N} C=4 ragged {lens}", small, lens, 4),
+            ("B=4 N=65536 C=512 (2048 lanes)", wide, [1 << 16] * 4, 512)]
+
+
+def sep_phase(torch, P, dev, data, lengths, streams_in, streams_trained,
+              inputs, card):
+    """Phase 7, the septree profile: K6 against its plain version on the
+    small batches (clean and corrupted, every lane's bytes and exit bit),
+    the sep roundtrip through the entry points with K1, K2 and K6 counted,
+    then K6 at the path's shapes and the sep times.  Returns K6's row."""
+    from fdeflate_tpu_torch.ops.assign_pack import assign_pack
+    from fdeflate_tpu_torch.ops.decode2 import decode2
+    from fdeflate_tpu_torch.ops.decode_sep import decode_sep, decode_sep_plain
+    from fdeflate_tpu_torch.ops.repack import combine
+    from fdeflate_tpu_torch.trees import profile_tables, sep_tables
+
+    sep = P.sep_profile()
+    meta, vals = sep_tables(sep.lens, dev)
+    err = 0.0
+    for label, arr, lens, C in inputs:
+        d = torch.from_numpy(arr).to(dev)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        words, _tb, _ad, starts, _eof = P.zlib_encode_step(C, tree=sep)(d, ln)
+        for corrupt in (False, True):
+            if corrupt:
+                words = words.clone()
+                words[0, 100] ^= 0x5A5A5A5A
+            got = decode_sep(words, starts, meta, vals, arr.shape[1], C)
+            want = decode_sep_plain(words, starts, meta, vals, arr.shape[1], C)
+            torch.cuda.synchronize()
+            err = max(err, check_equal(torch, f"decode_sep {label}", got, want))
+            if not corrupt and not torch.equal(got[0], d):
+                raise AssertionError(f"decode_sep {label}: bytes != input")
+        print(f"decode_sep == plain at {label}, clean and corrupted (every "
+              f"lane's bytes and exit bit): ok", flush=True)
+
+    B, N = data.shape
+    kernels = {"assign_pack": assign_pack, "combine": combine,
+               "decode_sep": decode_sep}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    enc = P.zlib_encode_step(CHUNKS, tree=sep)
+    words, total_bits, adler, starts, eof = enc(data, lengths)
+    streams = P.finalize_streams(words, total_bits, adler)
+    out, bpos_ok, ck_ok = P.fused_zlib_roundtrip(
+        CHUNKS, N, tree=sep, device=dev)(data, lengths)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"sep path ({B} x {N} B, C={CHUNKS}, tree=sep_profile()): "
+          f"{wall:.3f} s wall incl. host copies; launches {launches}",
+          flush=True)
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the sep path was not launched: {launches}")
+    n_ok = sum(zlib.decompress(s) == streams_in[i] for i, s in enumerate(streams))
+    print(f"sep zlib.decompress: {n_ok}/{len(streams)} streams equal the input",
+          flush=True)
+    if n_ok != B:
+        raise AssertionError("sep zlib roundtrip failed")
+    if not torch.equal(out, data):
+        raise AssertionError("sep: decoded bytes differ from the input")
+    if not (bool(bpos_ok.all()) and bool(ck_ok.all())):
+        raise AssertionError(f"sep: bpos_ok {bpos_ok.tolist()} ck_ok {ck_ok.tolist()}")
+    ratio = sum(map(len, streams)) / sum(map(len, streams_trained))
+    print(f"sep decoded == input, bpos_ok all, ck_ok all; sep/trained "
+          f"compressed size = {ratio:.6f}", flush=True)
+
+    got = decode_sep(words, starts, meta, vals, N, CHUNKS)
+    want = decode_sep_plain(words, starts, meta, vals, N, CHUNKS)
+    torch.cuda.synchronize()
+    err = max(err, check_equal(torch, "decode_sep (sep path)", got, want))
+    dec = P.zlib_decode_step(CHUNKS, N, tree=sep)
+    enc_ms = cuda_ms(torch, lambda: enc(data, lengths), KERNEL_REPS)
+    dec_ms = cuda_ms(torch, lambda: dec(words, starts, eof, adler, lengths),
+                     KERNEL_REPS)
+    ms = cuda_ms(torch, lambda: decode_sep(words, starts, meta, vals, N,
+                                           CHUNKS), KERNEL_REPS)
+    plain_ms = cuda_ms(torch, lambda: decode_sep_plain(
+        words, starts, meta, vals, N, CHUNKS), PLAIN_REPS)
+    # K3 (the canonical-table kernel) on the same sep streams, with the sep
+    # tree's 4096-entry table: whether the class-separated design pays here.
+    dtab = profile_tables(sep, str(dev)).dtab
+    k3_same = torch.equal(decode2(words, starts, dtab, N, CHUNKS)[0], data)
+    k3_ms = cuda_ms(torch, lambda: decode2(words, starts, dtab, N, CHUNKS),
+                    KERNEL_REPS)
+    mib = B * N / 2**20
+    print(f"sep encode leg {enc_ms:.4f} ms ({mib / enc_ms * 1e3 / 1024:.3f} "
+          f"GiB/s), decode leg {dec_ms:.4f} ms ({mib / dec_ms * 1e3 / 1024:.3f} "
+          f"GiB/s); decode_sep (K6): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms; K3 with the sep table on the same streams {k3_ms:.4f} ms "
+          f"(bytes == input: {k3_same}) [{card}]", flush=True)
+    return {"name": "decode_sep", "route": "cuda",
+            "source": "fdeflate_tpu_torch/csrc/decode_sep.cu",
+            "replaces": "fdeflate_tpu/ops/pallas_decode2.py:704 (_kernel_sep) "
+                        "+ fdeflate_tpu/ops/repack.py:126 (_slab_kernel)",
+            "launches": launches["decode_sep"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def adaptive_phase(torch, P, dev, data, lengths, card):
+    """Phase 8, the adaptive tree: the roundtrip through the entry point
+    with K1 and K3 counted, the tree built on the card against the same
+    build on the host, K1 and K3 with the batch's tree against their plain
+    versions, and the tree-build, encode and decode times.  Returns the
+    max abs errors of K1 and K3 with that tree."""
+    from fdeflate_tpu_torch.ops import adaptive as PA
+    from fdeflate_tpu_torch.ops.assign_pack import assign_pack, assign_pack_plain
+    from fdeflate_tpu_torch.ops.decode2 import decode2, decode2_plain
+    from fdeflate_tpu_torch.trees import canonical_codes, code_tables, trained_tables
+
+    B, N = data.shape
+    S = N // CHUNKS
+    step = P.fused_adaptive_roundtrip(CHUNKS, N, device=dev)
+    kernels = {"assign_pack": assign_pack, "decode2": decode2}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out, bpos_ok, ck_ok, total_bits = step(data, lengths)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"adaptive path ({B} x {N} B, C={CHUNKS}): {wall:.3f} s wall; "
+          f"launches {launches}", flush=True)
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the adaptive path was not launched: {launches}")
+    if not torch.equal(out, data):
+        raise AssertionError("adaptive: decoded bytes differ from the input")
+    if not (bool(bpos_ok.all()) and bool(ck_ok.all())):
+        raise AssertionError(f"adaptive: bpos_ok {bpos_ok.tolist()} ck_ok {ck_ok.tolist()}")
+
+    freqs = PA.symbol_freqs(data, lengths, S)
+    lens_card = PA.code_lengths_dp(freqs)
+    if not torch.equal(lens_card.cpu(), PA.code_lengths_dp(freqs.cpu())):
+        raise AssertionError("adaptive: code lengths on the card != on the host")
+    win, _cb, _ad, _lens, ta = PA.encode_adaptive_blocked(data, lengths, CHUNKS)
+    starts = torch.zeros(B * CHUNKS, 1, dtype=torch.int32, device=dev)
+    errs = {
+        "assign_pack": check_equal(
+            torch, "assign_pack (adaptive tree)",
+            assign_pack(data, lengths, CHUNKS, ta),
+            assign_pack_plain(data, lengths, CHUNKS, ta)),
+        "decode2": check_equal(
+            torch, "decode2 (adaptive tree)", decode2(win, starts, ta.dtab, S, 1),
+            decode2_plain(win, starts, ta.dtab, S, 1)),
+    }
+    trained = assign_pack(data, lengths, CHUNKS, trained_tables(str(dev)))[1]
+    trained_bits = int(trained.to(torch.int64).sum())
+    print(f"adaptive decoded == input, bpos_ok all, ck_ok all; lengths on the "
+          f"card == host; K1, K3 with the batch's tree == plain; payload bits "
+          f"{int(total_bits)} adaptive, {trained_bits} trained "
+          f"(ratio {int(total_bits) / trained_bits:.6f})", flush=True)
+
+    def build():
+        lens = PA.code_lengths_dp(PA.symbol_freqs(data, lengths, S))
+        return code_tables(canonical_codes(lens)[0], lens)
+
+    build_ms = cuda_ms(torch, build, 3)
+    dp_ms = cuda_ms(torch, lambda: PA.code_lengths_dp(freqs), 3)
+    enc_ms = cuda_ms(torch, lambda: PA.encode_adaptive_blocked(
+        data, lengths, CHUNKS), 3)
+    k3_ms = cuda_ms(torch, lambda: decode2(win, starts, ta.dtab, S, 1),
+                    KERNEL_REPS)
+    rt_ms = cuda_ms(torch, lambda: step(data, lengths), 3)
+    print(f"adaptive tree build (freqs + DP + tables) {build_ms:.4f} ms (DP "
+          f"alone {dp_ms:.4f} ms); encode (build + K1) {enc_ms:.4f} ms; K3 on "
+          f"the lane windows {k3_ms:.4f} ms; whole roundtrip {rt_ms:.4f} ms "
+          f"[{card}]", flush=True)
+    return errs
+
+
+def checksum_phase(torch, P, dev, card):
+    """Phase 9, the checksum entry point: adler32_pallas on a 64 MiB buffer
+    with a length mask, at a size that is not a multiple of 1024 and on an
+    unaligned view, with K7 counted and held to zlib.adler32; K7 against
+    its plain version; K7 and plain times.  Returns K7's row."""
+    from fdeflate_tpu_torch.ops.adler32_pallas import (adler32_tiles,
+                                                       adler32_tiles_plain)
+
+    n = 64 << 20
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    buf = torch.randint(0, 256, (n,), generator=gen, dtype=torch.uint8,
+                        device=dev)
+    host = buf.cpu().numpy()
+    cases = [("64 MiB, length 64 MiB - 12345", buf, n - 12345, host),
+             ("64 MiB - 777 B, whole", buf[: n - 777], None, host[: n - 777]),
+             ("unaligned view of 5000001 B", buf[3:5000004], None,
+              host[3:5000004])]
+    torch.cuda.synchronize()
+    adler32_tiles.launches = 0
+    got = [P.adler32_pallas(x, ln) for _l, x, ln, _h in cases]
+    torch.cuda.synchronize()
+    launches = adler32_tiles.launches
+    if launches == 0:
+        raise AssertionError("adler32_tiles was not launched")
+    err = 0.0
+    for (label, x, ln, h), g in zip(cases, got):
+        want = zlib.adler32(h[:ln].tobytes())
+        if int(g) != want:
+            raise AssertionError(f"adler32_pallas {label}: {int(g)} != {want}")
+        lt = torch.tensor([x.numel() if ln is None else ln],
+                          dtype=torch.int64, device=dev)
+        err = max(err, check_equal(torch, f"adler32_tiles {label}",
+                                   adler32_tiles(x, lt),
+                                   adler32_tiles_plain(x, lt)))
+    print(f"adler32_pallas == zlib.adler32 on {[c[0] for c in cases]}; "
+          f"adler32_tiles == plain; launches {launches}: ok", flush=True)
+    lt = torch.tensor([n - 12345], dtype=torch.int64, device=dev)
+    ms = cuda_ms(torch, lambda: adler32_tiles(buf, lt), KERNEL_REPS)
+    plain_ms = cuda_ms(torch, lambda: adler32_tiles_plain(buf, lt), PLAIN_REPS)
+    whole_ms = cuda_ms(torch, lambda: P.adler32_pallas(buf, lt), KERNEL_REPS)
+    host_s = min(timed(lambda: zlib.adler32(host)) for _ in range(3))
+    print(f"adler32_tiles (K7) at 64 MiB: kernel {ms:.4f} ms "
+          f"({n / ms / 1e6:.3f} GB/s), plain {plain_ms:.4f} ms; "
+          f"adler32_pallas (K7 + fold) {whole_ms:.4f} ms; host zlib.adler32 "
+          f"{host_s * 1e3:.4f} ms [{card}]", flush=True)
+    return {"name": "adler32_tiles", "route": "cuda",
+            "source": "fdeflate_tpu_torch/csrc/adler32_tiles.cu",
+            "replaces": "fdeflate_tpu/ops/adler32_pallas.py:32 (_tile_kernel)",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
 def main() -> int:
     import torch
 
@@ -307,25 +558,18 @@ def main() -> int:
     t = trained_tables(str(dev))
 
     # ---- 1. each kernel against its plain version at small geometries ----
-    N = 8192
-    lens = [N, N - 700, 9]
-    small = ragged(make_idat_corpus(3, N, seed=1), lens)
-    small[1, :3000] = np.random.default_rng(1).integers(0, 256, 3000)
-    run_kernels(torch, t, torch.from_numpy(small).to(dev),
-                torch.tensor(lens, dtype=torch.int32, device=dev), 4)
-    print("kernels == plain at B=3 N=8192 C=4 ragged [8192, 7492, 9]: ok",
-          flush=True)
-    wide = make_idat_corpus(4, 1 << 16, seed=2)
-    wide[1] = np.random.default_rng(2).integers(0, 256, 1 << 16)
-    wide[2, 5000:40000] = 0
-    run_kernels(torch, t, torch.from_numpy(wide).to(dev),
-                torch.full((4,), 1 << 16, dtype=torch.int32, device=dev), 512)
-    print("kernels == plain at B=4 N=65536 C=512 (2048 lanes): ok", flush=True)
+    inputs = kernel_inputs(make_idat_corpus)
+    for label, arr, lens, C in inputs:
+        run_kernels(torch, t, torch.from_numpy(arr).to(dev),
+                    torch.tensor(lens, dtype=torch.int32, device=dev), C)
+        print(f"kernels == plain at {label}: ok", flush=True)
 
     # Corrupted stream: the decode kernel and its plain version still agree.
+    _label, small, lens, _C = inputs[0]
+    N = small.shape[1]
     sd = torch.from_numpy(small).to(dev)
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(sd, sl, 4, t)
+    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(sd, sl, 4)
     words[0, 100] ^= 0x5A5A5A5A
     errs = max_abs_err(torch, zip(decode2(words, starts, t.dtab, N, 4),
                                   decode2_plain(words, starts, t.dtab, N, 4)))
@@ -416,8 +660,9 @@ def main() -> int:
         "decode": (lambda: decode_verify(
                        words, starts, eof, adler, lengths, LENGTH, CHUNKS, t),
                    lambda: _decode_verify(
-                       words, starts, eof, adler, lengths, LENGTH, CHUNKS, t,
-                       decode2_plain)),
+                       words, starts, eof, adler, lengths, CHUNKS,
+                       lambda w, s: decode2_plain(w, s, t.dtab, LENGTH,
+                                                  CHUNKS))),
     }
     mib = BATCH * LENGTH / 2**20
     for leg, (kern, plain) in legs.items():
@@ -561,6 +806,16 @@ def main() -> int:
               if reps == 1 else f"{kname} (text6 {FOREIGN_MB} MiB, {shape}): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
               flush=True)
+
+    # ---- 7-9. runtime trees and the checksum entry point ------------------
+    rows.append(sep_phase(torch, P, dev, data, lengths, streams_in, streams,
+                          inputs, card))
+    adaptive_errs = adaptive_phase(torch, P, dev, data, lengths, card)
+    for row in rows:
+        if row["name"] in adaptive_errs:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     adaptive_errs[row["name"]])
+    rows.append(checksum_phase(torch, P, dev, card))
 
     print(json.dumps({"kernels": rows}))
     print(card)

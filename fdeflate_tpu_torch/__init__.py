@@ -1,7 +1,7 @@
 """fdeflate_tpu_torch — the PyTorch/CUDA port of fdeflate_tpu for Hopper GPUs.
 
 The JAX package ``fdeflate_tpu`` is the reference; this package gives
-bit-identical outputs.  Two slices are ported:
+bit-identical outputs.  Three slices are ported:
 
 * the standard-zlib, fixed-geometry roundtrip of PNG IDAT streams (the
   benchmark's headline path):
@@ -16,25 +16,40 @@ bit-identical outputs.  Two slices are ported:
                  -> materialize (torch) -> Adler-32
       sequential K4 per block, host header parsing between launches
 
-K1-K5 are hand-written CUDA kernels (``csrc/``) launched for CUDA tensors;
+* runtime trees (slice 3): the class-separated "septree" profile
+  (``tree=sep_profile()`` on the codec's steps: K1/K2 with the profile's
+  codes and header, decode by K6 decode_sep), the per-batch adaptive tree
+  (tree built on the device, K1 and K3 with its runtime tables), and the
+  checksum entry point ``adler32_pallas`` (K7 adler32_tiles)
+
+K1-K7 are hand-written CUDA kernels (``csrc/``) launched for CUDA tensors;
 CPU tensors take their plain PyTorch versions.  The package imports
 ``torch`` and never ``jax``; it reuses the JAX package's jax-free host
-modules (``fdeflate_tpu.tables``, ``fdeflate_tpu.models.ultrafast`` and
-the host helpers of ``fdeflate_tpu.ops.inflate``, ``ops.pallas_inflate``).
+modules (``fdeflate_tpu.tables``, ``fdeflate_tpu.models.ultrafast``,
+``fdeflate_tpu.ops.septree`` and the host helpers of
+``fdeflate_tpu.ops.inflate``, ``ops.pallas_inflate``).
 
 Public API (the caller names the device):
 
     compress_batch_ultra_fast(streams, with_index=C, device=...)
-    zlib_encode_step(C)(data, lengths) -> words, ..., chunk_starts, eof_pos
-    fused_zlib_roundtrip(C, N, device=...)(data, lengths)
+    zlib_encode_step(C, tree=None)(data, lengths)
+        -> words, ..., chunk_starts, eof_pos
+    fused_zlib_roundtrip(C, N, tree=None, device=...)(data, lengths)
+    fused_adaptive_roundtrip(C, N, device=...)(data, lengths)
+        -> out, bpos_ok, ck_ok, total_bits
+    adler32_pallas(data, length=None) -> int64 0-d checksum tensor
     decompress_batch(streams, device=...) -> bytes or error per stream
     decompress_foreign(data, device=...) -> bytes (raises the decode error)
     try_foreign(data, device=...) / try_foreign_batch(streams, device=...)
         -> bytes, or None where the block-parallel path cannot decode
 """
 
+from fdeflate_tpu.ops.septree import sep_profile
+
+from .ops.adler32_pallas import adler32_pallas
 from .ops.ultrafast import compress_batch_ultra_fast, finalize_streams
 from .parallel.device_pipeline import (
+    fused_adaptive_roundtrip,
     fused_zlib_roundtrip,
     zlib_decode_step,
     zlib_encode_step,
@@ -47,11 +62,14 @@ from .parallel.discovery import (
 )
 
 __all__ = [
+    "adler32_pallas",
     "compress_batch_ultra_fast",
     "decompress_batch",
     "decompress_foreign",
     "finalize_streams",
+    "fused_adaptive_roundtrip",
     "fused_zlib_roundtrip",
+    "sep_profile",
     "try_foreign",
     "try_foreign_batch",
     "zlib_decode_step",

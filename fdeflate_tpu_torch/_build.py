@@ -31,13 +31,16 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # data, lengths, lit_tok, len_tok, zlit, t285, win, chunk_bits,
-    # B, N, C, wwin, stream
-    "fdt_assign_pack": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
+    # data, lengths, lit_tok, len_tok, win, chunk_bits, B, N, C, wwin, stream
+    "fdt_assign_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # win, chunk_bits, pos0, words, B, C, wwin, W, stream
     "fdt_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # words, chunk_starts, dtab, out, bpos, B, W, N, C, stream
     "fdt_decode2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # words, chunk_starts, meta, vals, out, bpos, B, W, N, C, stream
+    "fdt_decode_sep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # data, n, length, sums, wsums, tiles, stream
+    "fdt_adler32_tiles": [_P, _L, _P, _P, _P, _L, _P],
     # words, start, wend, bit_end, out0, meta, tab, recs, bpos, nout, done,
     # L, K, stream
     "fdt_inflate_records": [_P] * 11 + [_I, _I, _P],

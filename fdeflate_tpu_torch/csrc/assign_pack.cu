@@ -24,7 +24,6 @@ __global__ void assign_pack_kernel(const uint8_t* __restrict__ data,
                                    const int32_t* __restrict__ lengths,
                                    const int32_t* __restrict__ lit_tok_g,
                                    const int32_t* __restrict__ len_tok_g,
-                                   int32_t zlit, int32_t t285,
                                    uint32_t* __restrict__ win,
                                    int32_t* __restrict__ chunk_bits, int B,
                                    int N, int C, int wwin) {
@@ -33,6 +32,10 @@ __global__ void assign_pack_kernel(const uint8_t* __restrict__ data,
   for (int i = threadIdx.x; i < 256; i += blockDim.x) lit_tok[i] = lit_tok_g[i];
   for (int i = threadIdx.x; i < 29; i += blockDim.x) len_tok[i] = len_tok_g[i];
   __syncthreads();
+  // The zero literal's token, and symbol 285's with its 1-bit distance code
+  // (the tables may be an adaptive tree's, built on the card: no host read).
+  const int32_t zlit = lit_tok[0];
+  const int32_t t285 = len_tok[28] + (1 << fdt::kNbShift);
 
   int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= static_cast<int64_t>(B) * C) return;
@@ -57,7 +60,7 @@ __global__ void assign_pack_kernel(const uint8_t* __restrict__ data,
 
 extern "C" int fdt_assign_pack(const void* data, const void* lengths,
                                const void* lit_tok, const void* len_tok,
-                               int zlit, int t285, void* win, void* chunk_bits,
+                               void* win, void* chunk_bits,
                                int B, int N, int C, int wwin, void* stream) {
   const int threads = 64;
   int64_t L = static_cast<int64_t>(B) * C;
@@ -65,7 +68,7 @@ extern "C" int fdt_assign_pack(const void* data, const void* lengths,
   assign_pack_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
       static_cast<const int32_t*>(lit_tok), static_cast<const int32_t*>(len_tok),
-      zlit, t285, static_cast<uint32_t*>(win),
+      static_cast<uint32_t*>(win),
       static_cast<int32_t*>(chunk_bits), B, N, C, wwin);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,10 @@
 //
 // A lane is one S-byte chunk of one stream (lane = stream * C + chunk).
 // Each function below is the whole sequential work of one lane; the
-// kernels in assign_pack.cu and decode2.cu run one lane per thread.  The
-// functions are plain C++ with no CUDA intrinsics, so the same source also
-// compiles for the host.
+// kernels in assign_pack.cu, decode2.cu and decode_sep.cu run one lane per
+// thread.  The functions are plain C++ (device intrinsics only behind
+// __CUDA_ARCH__, with a host equivalent), so the same source also compiles
+// for the host.
 #pragma once
 
 #include <stdint.h>
@@ -200,6 +201,87 @@ FDT_HD int32_t decode_lane(const uint32_t* row, int64_t W, int64_t start,
     pos += L;
   }
   out.zeros(S - out.n);
+  return pos;
+}
+
+FDT_HD int bitrev12(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return static_cast<int>(__brev(x) >> 20);
+#else
+  int r = 0;
+  for (int i = 0; i < kMaxL; ++i) r |= ((x >> i) & 1) << (kMaxL - 1 - i);
+  return r;
+#endif
+}
+
+// K6: decode one lane of S bytes of a class-separated tree (ops/septree)
+// starting at absolute bit `start` of the stream row `row` (W words; words
+// at or past W read as 0).
+//
+// Semantics of pallas_decode2._kernel_sep: the lane makes S / 4 word steps
+// of up to 4 sub-steps.  A sub-step first takes pending run bytes into the
+// word; if the word still has room and no run is pending it decodes one
+// symbol: code length L = 1 + #{l < 12: r12 >= bounds[l]} on the
+// bit-reversed 12-bit peek r12, sorted index kvals[L] + (r12 >> (12 - L)).
+// L < 12 is a literal whose byte comes from the 4-packed `vals`; L == 12
+// is EOB when idx - n_lit == 0 (12 bits consumed, nothing written,
+// decoding goes on) and otherwise a length symbol whose zero run (RFC 1951
+// closed-form base and extra bits, 1 distance bit consumed unchecked) is
+// written as zero bytes.  The run left over when the word is full carries
+// to the next step and is dropped at the lane end.  Returns the exit bit
+// relative to `start`.
+FDT_HD int32_t decode_sep_lane(const uint32_t* row, int64_t W, int64_t start,
+                               const int32_t* meta, const int32_t* vals,
+                               uint32_t* dst, int S) {
+  int64_t wnext = start >> 5;
+  auto fetch = [&]() -> uint64_t {
+    uint64_t v = (wnext >= 0 && wnext < W) ? row[wnext] : 0u;
+    ++wnext;
+    return v;
+  };
+  int sh = static_cast<int>(start & 31);
+  uint64_t buf = fetch() >> sh;
+  int nbuf = 32 - sh;
+  const int n_lit = meta[15];
+  int32_t pos = 0;
+  int run = 0;  // run bytes not yet written
+  for (int u = 0; u < S / 4; ++u) {
+    uint32_t word = 0;
+    int filled = 0;
+    for (int s = 0; s < 4; ++s) {
+      int take = run < 4 - filled ? run : 4 - filled;
+      filled += take;
+      run -= take;
+      if (filled == 4 || run != 0) continue;
+      if (nbuf < 32) {  // a sub-step consumes at most 12 + 5 + 1 bits
+        buf |= fetch() << nbuf;
+        nbuf += 32;
+      }
+      uint32_t bits = static_cast<uint32_t>(buf);
+      int r12 = bitrev12(bits);
+      int L = 1;
+      for (int l = 1; l < kMaxL; ++l) L += r12 >= meta[l];
+      int idx = meta[16 + L] + (r12 >> (kMaxL - L));
+      int n = L;
+      if (L < kMaxL) {
+        uint32_t v = static_cast<uint32_t>(vals[idx >> 2]) >> (8 * (idx & 3));
+        word |= (v & 0xFFu) << (8 * filled);
+        ++filled;
+      } else if (idx > n_lit) {
+        int sp = idx - n_lit - 1;  // length symbol 257 + sp
+        int e = (sp < 4 || sp == 28) ? 0 : (sp >> 2) - 1;
+        int base = sp == 28 ? 258 : sp < 4 ? sp + 3 : ((4 + (sp & 3)) << e) + 3;
+        run = base + static_cast<int>((bits >> L) & ((1u << e) - 1));
+        n += e + 1;
+      }
+      buf >>= n;
+      nbuf -= n;
+      pos += n;
+    }
+    int take = run < 4 - filled ? run : 4 - filled;
+    run -= take;
+    dst[u] = word;
+  }
   return pos;
 }
 

@@ -16,6 +16,8 @@ bits.  ``chunk_bits[lane]`` is the lane's payload bit count.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -38,13 +40,26 @@ def wwin(S: int) -> int:
     return (13 * S + 31) // 32
 
 
-def assign_tokens(data: torch.Tensor, lengths: torch.Tensor, S: int,
-                  t: TreeTables):
-    """Per-byte tokens, twin of ``_assign_tokens(..., split_S=S)``.
+class Runs(NamedTuple):
+    """Per-byte run structure of the token grammar (int64/bool [B, N])."""
 
-    Returns int64 ``(v, nb, at_extra)`` of shape [B, N]: token bits, token
-    bit counts and the extra-bits-token mask.
-    """
+    d: torch.Tensor          # the bytes
+    member: torch.Tensor     # byte belongs to a zero run
+    is_first: torch.Tensor   # the run's opening literal zero
+    is_285: torch.Tensor     # a 258-byte block's length-285 token
+    at_sym: torch.Tensor     # the tail's length symbol (tail >= 5)
+    at_extra: torch.Tensor   # the tail's extra-bits token
+    small_tail: torch.Tensor  # one of the tail's <= 4 literal zeros
+    tail: torch.Tensor       # the run's tail length, per byte
+    in_stream: torch.Tensor  # byte index < length
+    in_aligned: torch.Tensor  # byte index < length // 8 * 8
+
+
+def runs(data: torch.Tensor, lengths: torch.Tensor, S: int) -> Runs:
+    """The run structure of ``_assign_tokens(..., split_S=S)``: 8-byte-chunk
+    run membership below the aligned length, runs cut at every S-byte lane
+    boundary, each run a literal zero, one 285 token per further 258 bytes
+    and its tail.  Tree-independent."""
     B, N = data.shape
     dev = data.device
     d = data.to(torch.int64)
@@ -85,44 +100,67 @@ def assign_tokens(data: torch.Tensor, lengths: torch.Tensor, S: int,
     run1 = seg_end - seg_start - 1
     tail = run1 - run1 // 258 * 258
     q0 = run1 - tail
+    big_tail = member & (tail > 4)
+    return Runs(
+        d=d, member=member,
+        is_first=member & (p == 0),
+        is_285=member & (p > 0) & (q - q // 258 * 258 == 257),
+        at_sym=big_tail & (q == q0),
+        at_extra=big_tail & (q == q0 + 1),
+        small_tail=member & (tail > 0) & (tail <= 4) & (q >= q0)
+        & (q < q0 + tail),
+        tail=tail, in_stream=idx < lengths[:, None], in_aligned=in_aligned)
 
-    # ---- tokens ------------------------------------------------------------
-    lit = t.lit_tok.to(torch.int64)[d]
-    zlit = t.zlit_tok
-    v = torch.where(member, 0, lit & _TOK_MASK)
-    nb = torch.where(member, 0, lit >> NB_SHIFT)
 
-    is_first = member & (p == 0)
-    v = torch.where(is_first, zlit & _TOK_MASK, v)
-    nb = torch.where(is_first, zlit >> NB_SHIFT, nb)
+def assign_tokens(data: torch.Tensor, lengths: torch.Tensor, S: int,
+                  t: TreeTables):
+    """Per-byte tokens, twin of ``_assign_tokens(..., split_S=S)``.
 
-    is_285 = member & (p > 0) & (q - q // 258 * 258 == 257)
-    v = torch.where(is_285, t.t285_tok & _TOK_MASK, v)
-    nb = torch.where(is_285, t.t285_tok >> NB_SHIFT, nb)
+    Returns int64 ``(v, nb, at_extra)`` of shape [B, N]: token bits, token
+    bit counts and the extra-bits-token mask.
+    """
+    r = runs(data, lengths, S)
+    dev = data.device
+    lit = t.lit_tok.to(torch.int64)[r.d]
+    zlit = t.lit_tok[0].to(torch.int64)
+    t285 = t.len_tok[28].to(torch.int64) + (1 << NB_SHIFT)   # + distance bit
+    v = torch.where(r.member, 0, lit & _TOK_MASK)
+    nb = torch.where(r.member, 0, lit >> NB_SHIFT)
 
-    tl = tail.clamp(0, 258)
+    zero_lit = r.is_first | r.small_tail
+    v = torch.where(zero_lit, zlit & _TOK_MASK, v)
+    nb = torch.where(zero_lit, zlit >> NB_SHIFT, nb)
+    v = torch.where(r.is_285, t285 & _TOK_MASK, v)
+    nb = torch.where(r.is_285, t285 >> NB_SHIFT, nb)
+
+    tl = r.tail.clamp(0, 258)
     sym_tok = t.len_tok.to(torch.int64)[torch.as_tensor(_TAIL_SYM, device=dev)[tl]]
     tail_extra = torch.as_tensor(_TAIL_EXTRA, device=dev)[tl]
-    big_tail = member & (tail > 4)
-    at_sym = big_tail & (q == q0)
-    at_extra = big_tail & (q == q0 + 1)
-    v = torch.where(at_sym, sym_tok & _TOK_MASK, v)
-    nb = torch.where(at_sym, sym_tok >> NB_SHIFT, nb)
-    v = torch.where(at_extra, (tail - 3) & ((1 << tail_extra) - 1), v)
-    nb = torch.where(at_extra, tail_extra + 1, nb)
-
-    small_tail = member & (tail > 0) & (tail <= 4) & (q >= q0) & (q < q0 + tail)
-    v = torch.where(small_tail, zlit & _TOK_MASK, v)
-    nb = torch.where(small_tail, zlit >> NB_SHIFT, nb)
+    v = torch.where(r.at_sym, sym_tok & _TOK_MASK, v)
+    nb = torch.where(r.at_sym, sym_tok >> NB_SHIFT, nb)
+    v = torch.where(r.at_extra, (r.tail - 3) & ((1 << tail_extra) - 1), v)
+    nb = torch.where(r.at_extra, tail_extra + 1, nb)
 
     # Bytes past the aligned length are literals; padding emits nothing.
-    in_stream = idx < lengths[:, None]
-    is_rem = ~in_aligned & in_stream
+    is_rem = ~r.in_aligned & r.in_stream
     v = torch.where(is_rem, lit & _TOK_MASK, v)
     nb = torch.where(is_rem, lit >> NB_SHIFT, nb)
-    nb = torch.where(in_stream, nb, 0)
+    nb = torch.where(r.in_stream, nb, 0)
     v = torch.where(nb > 0, v, 0)
-    return v, nb, at_extra
+    return v, nb, r.at_extra
+
+
+def token_symbols(data: torch.Tensor, lengths: torch.Tensor,
+                  S: int) -> torch.Tensor:
+    """int64[B, N] DEFLATE symbol per byte, -1 where the byte emits none
+    (mid-run bytes, extra bits, padding): the ``return_syms`` output of
+    ``_assign_tokens(..., split_S=S)``."""
+    r = runs(data, lengths, S)
+    tail_sym = torch.as_tensor(_TAIL_SYM + 257, device=data.device)
+    sym = torch.where(r.member | ~r.in_stream, -1, r.d)
+    sym = torch.where(r.is_first | r.small_tail, 0, sym)
+    sym = torch.where(r.at_sym, tail_sym[r.tail.clamp(0, 258)], sym)
+    return torch.where(r.is_285, 285, sym)
 
 
 def assign_pack_plain(data: torch.Tensor, lengths: torch.Tensor, C: int,
@@ -180,7 +218,7 @@ def assign_pack(data: torch.Tensor, lengths: torch.Tensor, C: int,
         return win, chunk_bits
     err = _build.library().fdt_assign_pack(
         data.data_ptr(), lengths.data_ptr(), t.lit_tok.data_ptr(),
-        t.len_tok.data_ptr(), t.zlit_tok, t.t285_tok, win.data_ptr(),
+        t.len_tok.data_ptr(), win.data_ptr(),
         chunk_bits.data_ptr(), B, N, C, ww,
         torch.cuda.current_stream(data.device).cuda_stream)
     _build.check(err, "assign_pack")

@@ -2,13 +2,13 @@
 
 JAX counterpart: ``fdeflate_tpu/ops/ultrafast_kernel.py``
 ``encode_ultrafast_batch(num_chunks=C, fixed_geometry=True,
-return_eof=True)`` with ``_frame_words``, ``finalize_streams`` and
+return_eof=True, tree=)`` with ``_frame_words``, ``finalize_streams`` and
 ``compress_batch_ultra_fast``.  The chain is
 
     K1 assign_pack  (ops/assign_pack.py)  bytes -> lane windows, chunk bits
     pos0 = header bits + exclusive cumsum of chunk bits         (torch)
     K2 combine      (ops/repack.py)       windows -> linear words
-    framing: header words and the EOF token                     (torch)
+    framing: the tree's header words and EOF token              (torch)
     Adler-32                              (ops/adler32.py)
 
 Every stream is cut into C lanes of S = N / C bytes and zero runs are cut
@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..trees import TreeTables, trained_tables
+from ..trees import TreeTables, profile_tables, trained_tables
 from .adler32 import adler32_batch
 from .assign_pack import assign_pack, assign_tokens
 from .repack import combine
@@ -71,21 +71,24 @@ def frame_words(words: torch.Tensor, eof_pos: torch.Tensor,
 
 
 def encode_ultrafast_batch(data: torch.Tensor, lengths: torch.Tensor,
-                           num_chunks: int, tables: TreeTables | None = None):
+                           num_chunks: int, tree=None):
     """Encode B streams of padded length N in fixed geometry.
 
     Args:
       data: u8[B, N], zero past ``lengths``; N % num_chunks == 0 and
         S = N / num_chunks a multiple of 8.
       lengths: i32[B] logical lengths.
-      tables: the tree's tables on ``data``'s device (default: trained).
+      tree: a ``fdeflate_tpu.ops.septree.TreeProfile`` (codes of at most 12
+        bits, its own canned header), as the JAX ``tree=``; None keeps the
+        trained tree.
 
     Returns (words int32[B, W], total_bits int32[B], adler int64[B],
     chunk_starts int32[B, C], eof_pos int32[B]); words hold u32 bit
     patterns and, with total_bits and adler, assemble into zlib streams
     (``finalize_streams``).
     """
-    t = tables if tables is not None else trained_tables(str(data.device))
+    dev = str(data.device)
+    t = trained_tables(dev) if tree is None else profile_tables(tree, dev)
     return _encode(data, lengths, num_chunks, t, assign_pack, combine)
 
 
@@ -155,11 +158,11 @@ def compress_batch_ultra_fast(streams: list[bytes], with_index: int = 0, *,
         buf[i, : len(s)] = np.frombuffer(s, dtype=np.uint8)
     data = torch.from_numpy(buf).to(dev)
     lens = torch.from_numpy(lengths).to(dev)
-    t = trained_tables(str(dev))
     words, total_bits, adler, _starts, eof_pos = encode_ultrafast_batch(
-        data, lens, 1, t)
+        data, lens, 1)
     out = finalize_streams(words, total_bits, adler)
     if with_index:
-        index = symbol_index(data, lens, int(with_index), eof_pos, t)
+        index = symbol_index(data, lens, int(with_index), eof_pos,
+                             trained_tables(str(dev)))
         return out, index.cpu().numpy()
     return out

@@ -1,85 +1,100 @@
-"""Standard-zlib encode and decode legs and their fused roundtrip.
+"""Standard-zlib encode and decode legs, their fused roundtrip, and the
+adaptive-tree roundtrip.
 
 JAX counterpart: ``fdeflate_tpu/parallel/device_pipeline.py``
-``zlib_encode_step``, ``zlib_decode_step`` and ``fused_zlib_roundtrip``,
-with the same signatures and returns except the decoded output: here it is
-u8[B, N] in standard byte order, where JAX returns the TPU kernel's
-step-major ``out_sm i32[LB, T, 8, 128]``.
+``zlib_encode_step``, ``zlib_decode_step``, ``fused_zlib_roundtrip`` and
+``fused_adaptive_roundtrip``, with the same signatures and returns except
+the decoded output: here it is u8[B, N] in standard byte order, where JAX
+returns the TPU kernel's step-major ``out_sm i32[LB, T, 8, 128]``.
 
-The decode leg runs K3 (ops/decode2.py) straight from the linear words,
-then checks, as the JAX leg does:
+The decode leg runs K3 (ops/decode2.py) straight from the linear words —
+or, for a ``tree=`` profile, K6 (ops/decode_sep.py) with that tree's own
+(meta, vals) rows — then checks, as the JAX leg does:
   * ``bpos_ok[b]``: every full lane's exit bit equals its index difference
     ``diff(chunk_starts ++ eof_pos)`` (lanes the stream's length does not
     cover are not checked);
   * ``ck_ok[b]``: the decode-side Adler-32 (ops/adler32.adler_lanes) equals
     the encoder's.
 
-``wwin``, ``U`` and ``R`` size the TPU kernel's windows and grid; the port
+``tree``: a ``fdeflate_tpu.ops.septree.TreeProfile``.  The encode takes
+any tree of codes up to 12 bits; the decode needs a class-separated one
+(``sep_profile()``) and raises ValueError for another at step
+construction.  (The JAX decode leg decodes every profile with the
+canonical kernel tree's rows; the port decodes with the tree it is given.)
+
+``wwin``, ``U`` and ``R`` size the TPU kernels' windows and grid; the port
 reads every lane straight from the words, so it accepts and ignores them.
-``tree`` (the septree profile) is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.adaptive import encode_adaptive_blocked
 from ..ops.adler32 import adler_lanes
 from ..ops.decode2 import decode2
+from ..ops.decode_sep import decode_sep
 from ..ops.ultrafast import device_of, encode_ultrafast_batch
-from ..trees import TreeTables, trained_tables
-
-
-def _no_tree(tree) -> None:
-    if tree is not None:
-        raise NotImplementedError("the septree profile is not ported yet")
+from ..trees import TreeTables, sep_tables, trained_tables
 
 
 def zlib_encode_step(C: int, tree=None):
     """fn(data u8[B, N], lengths i32[B]) -> (words int32[B, W], total_bits
     int32[B], adler int64[B], chunk_starts int32[B, C], eof_pos int32[B])."""
-    _no_tree(tree)
 
     def step(data, lengths):
-        return encode_ultrafast_batch(data, lengths, C)
+        return encode_ultrafast_batch(data, lengths, C, tree=tree)
 
     return step
 
 
+def _checks(out, bp, lane_bits, lengths, adler, C: int):
+    """(bpos_ok bool[B], ck_ok bool[B]) of a decode: full lanes' exit bits
+    against ``lane_bits`` [B, C], the decode-side Adler-32 against the
+    encoder's."""
+    B, N = out.shape
+    S = N // C
+    offs = torch.arange(C, device=out.device) * S
+    full = offs[None, :] + S <= lengths.to(torch.int64)[:, None]
+    bpos_ok = ((bp == lane_bits) | ~full).all(dim=1)
+    return bpos_ok, adler_lanes(out, lengths, C) == adler
+
+
 def decode_verify(words, chunk_starts, eof_pos, adler, lengths, N: int,
                   C: int, t: TreeTables):
-    """The decode leg on ``words``' device: K3, then the two checks.
+    """The trained-tree decode leg on ``words``' device: K3, then the two
+    checks.  Returns (out u8[B, N], bpos_ok bool[B], ck_ok bool[B])."""
+    return _decode_verify(words, chunk_starts, eof_pos, adler, lengths, C,
+                          lambda w, s: decode2(w, s, t.dtab, N, C))
 
-    Returns (out u8[B, N], bpos_ok bool[B], ck_ok bool[B])."""
-    return _decode_verify(words, chunk_starts, eof_pos, adler, lengths, N, C,
-                          t, decode2)
 
-
-def _decode_verify(words, chunk_starts, eof_pos, adler, lengths, N: int,
-                   C: int, t: TreeTables, k3):
-    """``decode_verify`` with K3 given: the kernel wrapper, or its plain
-    version to time it on the card."""
-    out, bp = k3(words, chunk_starts, t.dtab, N, C)
-    S = N // C
+def _decode_verify(words, chunk_starts, eof_pos, adler, lengths, C: int,
+                   decode):
+    """A decode leg with its lane decoder given: ``decode(words,
+    chunk_starts) -> (out, bpos)``, a kernel wrapper or, to time it on the
+    card, its plain version."""
+    out, bp = decode(words, chunk_starts)
     ends = torch.cat([chunk_starts[:, 1:], eof_pos[:, None]], dim=1)
-    offs = torch.arange(C, device=words.device) * S
-    full = offs[None, :] + S <= lengths.to(torch.int64)[:, None]
-    bpos_ok = ((bp == ends - chunk_starts) | ~full).all(dim=1)
-    ck_ok = adler_lanes(out, lengths, C) == adler
-    return out, bpos_ok, ck_ok
+    return (out, *_checks(out, bp, ends - chunk_starts, lengths, adler, C))
 
 
 def zlib_decode_step(C: int, N: int, wwin: int | None = None, U: int = 32,
                      R: int | None = None, tree=None):
     """fn(words, chunk_starts, eof_pos, adler, lengths) ->
     (out u8[B, N], bpos_ok bool[B], ck_ok bool[B])."""
-    _no_tree(tree)
     if N % C:
         raise ValueError("N must divide into C chunks")
+    sep = None if tree is None else sep_tables(tree.lens)
 
     def step(words, chunk_starts, eof_pos, adler, lengths):
-        t = trained_tables(str(words.device))
-        return decode_verify(words, chunk_starts, eof_pos, adler, lengths,
-                             N, C, t)
+        if sep is None:
+            return decode_verify(words, chunk_starts, eof_pos, adler,
+                                 lengths, N, C,
+                                 trained_tables(str(words.device)))
+        meta, vals = (x.to(words.device) for x in sep)
+        return _decode_verify(
+            words, chunk_starts, eof_pos, adler, lengths, C,
+            lambda w, s: decode_sep(w, s, meta, vals, N, C))
 
     return step
 
@@ -98,5 +113,38 @@ def fused_zlib_roundtrip(C: int, N: int, wwin: int | None = None, U: int = 32,
         lengths = torch.as_tensor(lengths).to(dev, torch.int32)
         words, _total_bits, adler, starts, eof = enc(data, lengths)
         return dec(words, starts, eof, adler, lengths)
+
+    return step
+
+
+def fused_adaptive_roundtrip(C: int, N: int, U: int = 8, *, device):
+    """Adaptive-tree roundtrip on ``device``: the batch's own tree built on
+    the device, K1 into lane windows with its tokens, K3 on each window
+    with its decode table, both checks.
+
+    fn(data u8[B, N], lengths i32[B]) -> (out u8[B, N], bpos_ok bool[B],
+    ck_ok bool[B], total_bits: the 0-d sum of the lanes' payload bits).
+    Exit bits are held to ``chunk_bits``.  Bytes past a stream's length
+    decode from zero bits, whose symbol in this tree need not be a zero
+    byte, so ``ck_ok`` (unmasked, as in JAX) may fail for ragged streams.
+    """
+    dev = device_of(device)
+    if N % C or (N // C) % 8:
+        raise ValueError("fused_adaptive_roundtrip needs (N / C) % 8 == 0")
+    S = N // C
+
+    def step(data, lengths):
+        data = torch.as_tensor(data).to(dev)
+        lengths = torch.as_tensor(lengths).to(dev, torch.int32)
+        B = data.shape[0]
+        win, chunk_bits, adler, _lens, t = encode_adaptive_blocked(
+            data, lengths, C)
+        # Each lane's window is a one-lane stream of S bytes from bit 0.
+        starts = torch.zeros(B * C, 1, dtype=torch.int32, device=dev)
+        out, bp = decode2(win, starts, t.dtab, S, 1)
+        out = out.reshape(B, N)
+        bpos_ok, ck_ok = _checks(out, bp.reshape(B, C), chunk_bits, lengths,
+                                 adler, C)
+        return out, bpos_ok, ck_ok, chunk_bits.sum()
 
     return step

@@ -52,7 +52,7 @@ def cuda_ms(fn, reps: int) -> float:
 def sweep_row(data, lengths, C: int, t, reps: int) -> dict:
     B, N = data.shape
     words, total_bits, adler, starts, eof = encode_ultrafast_batch(
-        data, lengths, C, t)
+        data, lengths, C)
     out, bpos_ok, ck_ok = decode_verify(words, starts, eof, adler, lengths,
                                         N, C, t)
     if not (torch.equal(out, data) and bool(bpos_ok.all())
@@ -67,7 +67,7 @@ def sweep_row(data, lengths, C: int, t, reps: int) -> dict:
         "K2": cuda_ms(lambda: combine(win, bits, pos0, B, W), reps),
         "K3": cuda_ms(lambda: decode2(words, starts, t.dtab, N, C), reps),
         "encode_leg": cuda_ms(
-            lambda: encode_ultrafast_batch(data, lengths, C, t), reps),
+            lambda: encode_ultrafast_batch(data, lengths, C), reps),
         "decode_leg": cuda_ms(
             lambda: decode_verify(words, starts, eof, adler, lengths, N, C, t),
             reps),

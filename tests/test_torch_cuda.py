@@ -18,8 +18,13 @@ import pytest
 import torch
 
 import fdeflate_tpu_torch as P
+from fdeflate_tpu_torch.ops.adler32_pallas import (
+    adler32_tiles,
+    adler32_tiles_plain,
+)
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack, assign_pack_plain
 from fdeflate_tpu_torch.ops.decode2 import decode2, decode2_plain
+from fdeflate_tpu_torch.ops.decode_sep import decode_sep, decode_sep_plain
 from fdeflate_tpu_torch.ops.inflate_records import (
     NO_LIMIT,
     inflate_records,
@@ -33,7 +38,7 @@ from fdeflate_tpu_torch.ops.validate_headers import (
 from fdeflate_tpu_torch.parallel import discovery as PD
 from fdeflate_tpu_torch.ops.ultrafast import _encode, lane_starts, stream_words
 from fdeflate_tpu_torch.parallel.device_pipeline import fused_zlib_roundtrip
-from fdeflate_tpu_torch.trees import trained_tables
+from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 pytestmark = pytest.mark.cuda
 
@@ -114,6 +119,67 @@ def test_fused_roundtrip_on_the_card(dev):
         data, lengths)
     assert torch.equal(out, data)
     assert bool(bpos_ok.all()) and bool(ck_ok.all())
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decode_sep_matches_plain(dev, name, corrupt):
+    """K6 on septree streams: every lane's bytes and exit bit, the ragged
+    and empty lanes (which decode on past EOB) included."""
+    data, lengths, C = _inputs(dev, name)
+    B, N = data.shape
+    tree = P.sep_profile()
+    words, _tb, _ad, starts, _eof = P.zlib_encode_step(C, tree=tree)(
+        data, lengths)
+    if corrupt:
+        words[0, 40] ^= 0x5A5A5A5A
+    meta, vals = sep_tables(tree.lens, dev)
+    before = decode_sep.launches
+    got = decode_sep(words, starts, meta, vals, N, C)
+    assert decode_sep.launches == before + 1
+    want = decode_sep_plain(words, starts, meta, vals, N, C)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if not corrupt:
+        assert torch.equal(got[0], data)
+
+
+def test_sep_roundtrip_on_the_card(dev):
+    data, lengths, C = _inputs(dev, "lanes2048_B4_N65536_C512")
+    out, bpos_ok, ck_ok = fused_zlib_roundtrip(
+        C, data.shape[1], tree=P.sep_profile(), device=dev)(data, lengths)
+    assert torch.equal(out, data)
+    assert bool(bpos_ok.all()) and bool(ck_ok.all())
+
+
+def test_adaptive_roundtrip_on_the_card(dev):
+    """The tree is built on the card; the roundtrip and its payload bits
+    equal the CPU path's."""
+    data, lengths, C = _inputs(dev, "lanes2048_B4_N65536_C512")
+    N = data.shape[1]
+    out, bpos_ok, ck_ok, total = P.fused_adaptive_roundtrip(
+        C, N, device=dev)(data, lengths)
+    assert torch.equal(out, data)
+    assert bool(bpos_ok.all()) and bool(ck_ok.all())
+    _o, _b, _c, cpu_total = P.fused_adaptive_roundtrip(C, N, device="cpu")(
+        data.cpu(), lengths.cpu())
+    assert int(total) == int(cpu_total)
+
+
+@pytest.mark.parametrize("n,length,offset", [
+    (1, None, 0), (1023, None, 0), (4097, 3001, 0), (200001, None, 3),
+    ((1 << 20) + 5, (1 << 19) + 7, 1)])
+def test_adler32_tiles_matches_plain(dev, n, length, offset):
+    host = np.random.default_rng(n).integers(0, 256, n + offset, np.uint8)
+    x = torch.from_numpy(host).to(dev)[offset:]
+    ln = n if length is None else length
+    lt = torch.tensor([ln], dtype=torch.int64, device=dev)
+    before = adler32_tiles.launches
+    got = adler32_tiles(x, lt)
+    assert adler32_tiles.launches == before + 1
+    want = adler32_tiles_plain(x, lt)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    want_ck = zlib.adler32(host[offset : offset + ln].tobytes())
+    assert int(P.adler32_pallas(x, length)) == want_ck
 
 
 def _foreign(seed: int, n: int = 200_000) -> bytes:

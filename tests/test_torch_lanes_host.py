@@ -1,7 +1,7 @@
 """The kernels' per-lane code, built for the host, against the plain versions.
 
 ``fdeflate_tpu_torch/csrc/lanes.cuh`` holds the whole sequential work of a
-K1 and a K3 lane as plain C++, ``csrc/inflate_lanes.cuh`` that of a K4 and
+K1, a K3 and a K6 lane as plain C++, ``csrc/inflate_lanes.cuh`` that of a K4 and
 a K5 lane.  The CUDA kernels run it one lane per thread; here g++ builds
 the same headers into a small host library with the kernels' lane loop
 around them, so the bit machines are held against the plain PyTorch
@@ -27,7 +27,9 @@ from fdeflate_tpu.ops import inflate as I
 from fdeflate_tpu.ops.pallas_inflate import foreign_meta
 from fdeflate_tpu.parallel.discovery import scan_stage1
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack_plain, wwin
+from fdeflate_tpu.ops.septree import sep_profile
 from fdeflate_tpu_torch.ops.decode2 import decode2_plain
+from fdeflate_tpu_torch.ops.decode_sep import decode_sep_plain
 from fdeflate_tpu_torch.ops.inflate import fixed_meta_tab, pad_words
 from fdeflate_tpu_torch.ops.inflate_records import (
     NO_LIMIT,
@@ -36,12 +38,12 @@ from fdeflate_tpu_torch.ops.inflate_records import (
 )
 from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch
 from fdeflate_tpu_torch.ops.validate_headers import validate_headers_plain
-from fdeflate_tpu_torch.trees import trained_tables
+from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "fdeflate_tpu_torch" / "csrc"
 
-# The kernels' lane loops (assign_pack.cu, decode2.cu, inflate_records.cu,
-# validate_headers.cu), serial on the host.
+# The kernels' lane loops (assign_pack.cu, decode2.cu, decode_sep.cu,
+# inflate_records.cu, validate_headers.cu), serial on the host.
 _HARNESS = r"""
 #include <algorithm>
 #include "lanes.cuh"
@@ -65,9 +67,10 @@ extern "C" void validate_lanes(const uint32_t* words, int64_t W,
     good[i] = fdt::validate_lane(rd, cands[i], n_bits, end + i);
 }
 extern "C" void assign_pack_lanes(const uint8_t* data, const int32_t* lengths,
-    const int32_t* lit, const int32_t* lent, int zlit, int t285,
-    uint32_t* win, int32_t* bits, int B, int N, int C, int wwin) {
+    const int32_t* lit, const int32_t* lent, uint32_t* win, int32_t* bits,
+    int B, int N, int C, int wwin) {
   int S = N / C;
+  int32_t zlit = lit[0], t285 = lent[28] + (1 << fdt::kNbShift);
   for (int64_t lane = 0; lane < (int64_t)B * C; ++lane) {
     int b = lane / C, k = lane % C, base = k * S;
     const uint8_t* src = data + (int64_t)b * N + base;
@@ -76,6 +79,16 @@ extern "C" void assign_pack_lanes(const uint8_t* data, const int32_t* lengths,
     bool prev_run = k > 0 && src[-1] == 0;
     bits[lane] = fdt::assign_pack_lane(src, S, al, ln, prev_run, lit, lent,
                                        zlit, t285, win + lane * wwin, wwin);
+  }
+}
+extern "C" void decode_sep_lanes(const uint32_t* words, const int32_t* starts,
+    const int32_t* meta, const int32_t* vals, uint8_t* out, int32_t* bpos,
+    int B, int W, int N, int C) {
+  int S = N / C;
+  for (int64_t lane = 0; lane < (int64_t)B * C; ++lane) {
+    int b = lane / C, k = lane % C;
+    bpos[lane] = fdt::decode_sep_lane(words + (int64_t)b * W, W, starts[lane],
+        meta, vals, (uint32_t*)(out + (int64_t)b * N + (int64_t)k * S), S);
   }
 }
 extern "C" void decode_lanes(const uint32_t* words, const int32_t* starts,
@@ -151,8 +164,8 @@ def test_assign_pack_lane_matches_plain(lib, seed0):
         win = torch.empty(B * C, ww, dtype=torch.int32)
         bits = torch.empty(B * C, dtype=torch.int32)
         lib.assign_pack_lanes(_ptr(data), _ptr(lengths), _ptr(t.lit_tok),
-                              _ptr(t.len_tok), t.zlit_tok, t.t285_tok,
-                              _ptr(win), _ptr(bits), B, N, C, ww)
+                              _ptr(t.len_tok), _ptr(win), _ptr(bits), B, N,
+                              C, ww)
         want_win, want_bits = assign_pack_plain(data, lengths, C, t)
         assert torch.equal(bits, want_bits), seed
         assert torch.equal(win, want_win), seed
@@ -180,6 +193,39 @@ def test_decode_lane_matches_plain(lib, seed0, corrupt):
         lib.decode_lanes(_ptr(words), _ptr(starts), _ptr(t.dtab), _ptr(out),
                          _ptr(bpos), B, W, N, C)
         want_out, want_bpos = decode2_plain(words, starts, t.dtab, N, C)
+        assert torch.equal(bpos, want_bpos), seed
+        assert torch.equal(out, want_out), seed
+        if not corrupt:
+            assert torch.equal(out, data), seed
+
+
+@pytest.mark.parametrize("seed0", SEEDS)
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decode_sep_lane_matches_plain(lib, seed0, corrupt):
+    """Septree streams, ragged and empty lanes (EOB met mid-lane or first,
+    decoding on past it) and corrupted words."""
+    tree = sep_profile()
+    meta, vals = sep_tables(tree.lens)
+    for seed in range(seed0, seed0 + 6):
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        if (N // C) % 4:
+            continue
+        words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
+            data, lengths, C, tree=tree)
+        if corrupt:
+            rng = np.random.default_rng(seed)
+            for _ in range(3):
+                b = int(rng.integers(0, B))
+                j = int(rng.integers(10, max(11, int(total_bits[b]) // 32)))
+                words[b, j] ^= int(rng.integers(1, 2**31))
+        W = words.shape[1]
+        out = torch.empty(B, N, dtype=torch.uint8)
+        bpos = torch.empty(B, C, dtype=torch.int32)
+        starts = starts.contiguous()
+        lib.decode_sep_lanes(_ptr(words), _ptr(starts), _ptr(meta),
+                             _ptr(vals), _ptr(out), _ptr(bpos), B, W, N, C)
+        want_out, want_bpos = decode_sep_plain(words, starts, meta, vals, N, C)
         assert torch.equal(bpos, want_bpos), seed
         assert torch.equal(out, want_out), seed
         if not corrupt:

@@ -12,18 +12,21 @@ import pytest
 import torch
 
 import fdeflate_tpu_torch as P
+from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack
 from fdeflate_tpu_torch.ops.decode2 import decode2
+from fdeflate_tpu_torch.ops.decode_sep import decode_sep
 from fdeflate_tpu_torch.ops.inflate_records import inflate_records
 from fdeflate_tpu_torch.ops.repack import combine
 from fdeflate_tpu_torch.ops.validate_headers import validate_headers
-from fdeflate_tpu_torch.trees import trained_tables
+from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CPU_SLICE = """
 import sys, zlib
 import numpy as np
+import torch
 import fdeflate_tpu_torch as P
 rng = np.random.default_rng(0)
 data = np.where(rng.random((2, 1024)) < 0.5, 0,
@@ -45,6 +48,17 @@ out = P.decompress_batch([zlib.compress(text, 1), z[:-3], b""], device="cpu")
 assert out[0] == text and [type(r).__name__ for r in out[1:]] == [
     "InsufficientInput", "InsufficientInput"]
 assert P.decompress_foreign(z, device="cpu") == text
+# runtime trees: the septree profile, the adaptive tree, adler32_pallas
+sep = P.fused_zlib_roundtrip(4, 1024, tree=P.sep_profile(), device="cpu")
+out, bpos_ok, ck_ok = sep(data, lengths)
+assert np.array_equal(out.numpy(), data) and bool(bpos_ok.all()) and bool(ck_ok.all())
+words, bits, adler, _s, _e = P.zlib_encode_step(4, tree=P.sep_profile())(
+    torch.from_numpy(data), torch.from_numpy(lengths))
+assert zlib.decompress(P.finalize_streams(words, bits, adler)[1]) == data[1, :700].tobytes()
+full = np.full(2, 1024, np.int32)
+out, bpos_ok, ck_ok, total = P.fused_adaptive_roundtrip(4, 1024, device="cpu")(data, full)
+assert np.array_equal(out.numpy(), data) and bool(bpos_ok.all()) and bool(ck_ok.all())
+assert int(P.adler32_pallas(torch.from_numpy(data[1]), 700)) == zlib.adler32(data[1, :700].tobytes())
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")))
 """
 
@@ -63,6 +77,8 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         P.fused_zlib_roundtrip(8, 2048, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         P.compress_batch_ultra_fast([b"abc"], device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.fused_adaptive_roundtrip(8, 2048, device="cuda")
 
 
 def test_wrappers_take_no_plain_path_off_the_cpu():
@@ -90,11 +106,16 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
                         16)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         validate_headers(words.reshape(-1), lane, 2560)
+    sm, sv = sep_tables(P.sep_profile().lens, meta)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        decode_sep(words, starts, sm, sv, 64, 2)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        adler32_tiles(data.reshape(-1), lane[:1])
 
 
 def test_cpu_path_counts_no_launches():
     kernels = (assign_pack, combine, decode2, inflate_records,
-               validate_headers)
+               validate_headers, decode_sep, adler32_tiles)
     before = [k.launches for k in kernels]
     data = np.zeros((2, 512), np.uint8)
     out, bpos_ok, ck_ok = P.fused_zlib_roundtrip(4, 512, device="cpu")(
@@ -102,11 +123,29 @@ def test_cpu_path_counts_no_launches():
     assert bool(bpos_ok.all()) and bool(ck_ok.all())
     text = bytes(range(256)) * 300
     assert P.decompress_batch([zlib.compress(text, 6)], device="cpu") == [text]
+    lengths = np.full(2, 512, np.int32)
+    _o, bpos_ok, ck_ok = P.fused_zlib_roundtrip(
+        4, 512, tree=P.sep_profile(), device="cpu")(data, lengths)
+    assert bool(bpos_ok.all()) and bool(ck_ok.all())
+    _o, bpos_ok, ck_ok, _tb = P.fused_adaptive_roundtrip(
+        4, 512, device="cpu")(data, lengths)
+    assert bool(bpos_ok.all()) and bool(ck_ok.all())
+    assert int(P.adler32_pallas(torch.from_numpy(data[0]))) == zlib.adler32(
+        data[0].tobytes())
     assert [k.launches for k in kernels] == before
 
 
 def test_septree_profile_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        P.zlib_encode_step(8, tree=object())
-    with pytest.raises(NotImplementedError):
-        P.zlib_decode_step(8, 2048, tree=object())
+    """The septree profile is ported; a decode for a tree that is not
+    class-separated is not (the sep kernel's class arithmetic needs one):
+    building such a decode step raises ValueError."""
+    from fdeflate_tpu.ops.septree import TreeProfile
+    from fdeflate_tpu.tables import HUFFMAN_CODES, HUFFMAN_LENGTHS
+
+    trained = TreeProfile(HUFFMAN_LENGTHS, HUFFMAN_CODES)
+    with pytest.raises(ValueError, match="class-separated"):
+        P.zlib_decode_step(8, 2048, tree=trained)
+    with pytest.raises(ValueError, match="class-separated"):
+        P.fused_zlib_roundtrip(8, 2048, tree=trained, device="cpu")
+    P.zlib_encode_step(8, tree=trained)          # any <= 12-bit tree encodes
+    P.zlib_decode_step(8, 2048, tree=P.sep_profile())

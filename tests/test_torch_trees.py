@@ -39,8 +39,9 @@ def test_encode_tokens_match_assign_kernel_tables():
     ln = t.len_tok.numpy()
     for s in range(29):
         assert ln[s] == _tok12(_unpack16(lentab, s)), s
-    assert t.zlit_tok == PA._C0 | (PA._L0 << 13)
-    assert t.t285_tok == PA._C285 | ((PA._L285 + 1) << 13)
+    # The kernels' zero-literal and 285-run tokens, taken from the tables.
+    assert int(t.lit_tok[0]) == PA._C0 | (PA._L0 << 13)
+    assert int(t.len_tok[28]) + (1 << 13) == PA._C285 | ((PA._L285 + 1) << 13)
     assert (t.eof_code, t.eof_bits) == (int(HUFFMAN_CODES[256]),
                                         int(HUFFMAN_LENGTHS[256]))
 
@@ -56,7 +57,8 @@ def test_runtime_tree_tokens_match_runtime_tables():
         assert t.lit_tok[b] == _tok12(_unpack16(ztab, _zigzag(b))), b
     for s in range(29):
         assert t.len_tok[s] == _tok12(_unpack16(ltab, s)), s
-    assert (t.zlit_tok, t.t285_tok) == (int(zlit), int(t285))
+    assert (int(t.lit_tok[0]), int(t.len_tok[28]) + (1 << 13)) == (
+        int(zlit), int(t285))
 
 
 def test_header_words_match_jax():
@@ -87,8 +89,8 @@ def test_canonical_meta_matches_jax(which):
     key = None if which == "trained" else tuple(int(x) for x in lens)
     jb, jk, jp = PD.canonical_meta(key)
     pb, pk, pp = trees.canonical_meta(lens)
-    assert tuple(pb) == tuple(jb) and tuple(pk) == tuple(jk)
-    np.testing.assert_array_equal(pp, jp)
+    assert tuple(pb.tolist()) == tuple(jb) and tuple(pk.tolist()) == tuple(jk)
+    np.testing.assert_array_equal(pp.numpy(), jp)
 
 
 @pytest.mark.parametrize("which", sorted(LENGTH_SETS))
@@ -98,7 +100,7 @@ def test_decode_table_is_the_canonical_rule_on_every_peek(which):
     lens = LENGTH_SETS[which]()
     key = None if which == "trained" else tuple(int(x) for x in lens)
     bounds, kvals, packed = PD.canonical_meta(key)
-    dtab = trees.decode_table(lens)
+    dtab = trees.decode_table(lens).numpy()
     for peek in range(4096):
         r12 = PD._bitrev12_np(peek)
         L = 1 + sum(r12 >= bounds[l] for l in range(1, 12))
