@@ -44,19 +44,36 @@ process per source, all at once) and drives the port's paths:
      64 MiB buffer with a length mask, at a size that is not a multiple of
      1024 and on an unaligned view: equal to zlib.adler32, K7 equal to its
      plain version, K7 and plain times.
+10.  The blocked layout at the headline geometry:
+     ``fused_ultrafast_roundtrip_v2`` (K1 into lane windows, K3 on each
+     window; K2 must not launch), every stream decoded with both checks,
+     encode, decode and whole times.
+11.  The A/B chain at C = 2048 (S = 512, inside the v1 pack's S <= 630):
+     tokens -> ``pack_tokens`` -> K9 pack_v1 -> ``decode_blocked(
+     light=False)`` (K8 decode2_canon) -> checks.  K9's windows equal K1's,
+     K8's bytes and exit bits equal K3's on the same windows (clean and
+     corrupted), K8 and K9 equal their plain versions at full size; times of
+     K8, K9 and their plain versions beside K1 and K3 at the same C.
+12.  K10 combine_grouped (``combine(..., group=8)``) at the headline
+     geometry: the encode through it gives 16 streams that zlib.decompress
+     takes back; K10 equals K2 and its plain version; K10 and K2 times.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
-run.  Output: progress lines, then the kernel JSON line, the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed
-check raises, so the exit code is nonzero; without CUDA it exits 1 and
-prints no result.  It imports nothing of JAX.
+run.  Every kernel's row carries its bound (``bound_ms``, ``bound_by``:
+bytes over 3.35 TB/s or int32 operations over 16.75 TOP/s, counted from
+this run's inputs, for the work the kernel's function needs) and
+``library_ms`` (null: no single PyTorch call computes any of these
+functions).  Output: progress lines, then the
+kernel JSON line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
+code is nonzero; without CUDA it exits 1 and prints no result.  It imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -66,8 +83,64 @@ import zlib
 import numpy as np
 
 BATCH, LENGTH, CHUNKS = 16, 1 << 20, 512   # bench.py's headline geometry
+AB_CHUNKS = 2048                            # the A/B chain: S = 512 <= 630
+GROUP = 8                                   # K10's lanes per staging
 KERNEL_REPS, PLAIN_REPS = 10, 3
 FOREIGN_MB = 8                              # bench.py's foreign leg size
+CHECKSUM_BYTES = 64 << 20                   # adler32_pallas phase's buffer
+
+# The least time the card could take for a kernel's work (``bound_ms``):
+# the larger of its bytes over the H100 SXM's 3.35 TB/s of HBM3 and its
+# integer operations over the card's int32 rate.  The H100 SXM's published
+# peak is 67 TFLOP/s of float32 outside the tensor cores, i.e.
+# 128 float32 lanes per SM and an FMA counted as two; an SM has 64 int32
+# lanes, so 67 / 4 = 16.75 TOP/s of int32.  Bytes count each input read
+# once and each output written once; operations count what the kernel's
+# function needs on this run's data, not what its algorithm does (K9's
+# quadratic pair tests and K6's and K8's compare chains are not counted:
+# the same function has linear or table-lookup forms), with the per-item
+# costs stated at each kernel's count.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a kernel's work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
+               work) -> dict:
+    """One entry of the kernel JSON line; ``work`` = (bytes, operations)
+    that the kernel's function needs, whatever algorithm the kernel uses.
+    ``library_ms`` is None: no single PyTorch call computes any of the
+    port's kernels' functions (each needs bit shifts around a scatter, or
+    a decode loop)."""
+    bound_ms, bound_by = bound(*work)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def used_words(torch, chunk_bits) -> int:
+    """Window words that hold payload, summed over lanes."""
+    return int(((chunk_bits.to(torch.int64) + 31) >> 5).sum())
+
+
+def out_bytes(xs) -> int:
+    """Bytes of a kernel's output tensors."""
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def symbol_count(torch, data, lengths, S: int) -> int:
+    """Deflate symbols the lanes decode (literals and run symbols; the
+    token grammar is tree-independent)."""
+    from fdeflate_tpu_torch.ops.assign_pack import token_symbols
+
+    return int((token_symbols(data, lengths, S) >= 0).sum())
 
 
 def nvidia_smi() -> str:
@@ -387,12 +460,16 @@ def sep_phase(torch, P, dev, data, lengths, streams_in, streams_trained,
           f"GiB/s); decode_sep (K6): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms; K3 with the sep table on the same streams {k3_ms:.4f} ms "
           f"(bytes == input: {k3_same}) [{card}]", flush=True)
-    return {"name": "decode_sep", "route": "cuda",
-            "source": "fdeflate_tpu_torch/csrc/decode_sep.cu",
-            "replaces": "fdeflate_tpu/ops/pallas_decode2.py:704 (_kernel_sep) "
-                        "+ fdeflate_tpu/ops/repack.py:126 (_slab_kernel)",
-            "launches": launches["decode_sep"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+    L = B * CHUNKS
+    nw = int(((eof.to(torch.int64) + 31) >> 5).sum())
+    syms = symbol_count(torch, data, lengths, N // CHUNKS)
+    # per symbol, K3's count of the same function: peek, look up, three
+    # fields, shift, count, store (8)
+    work = (4 * nw + 8 * L + 4 * 96 + B * N, 8 * syms)
+    return kernel_row("decode_sep", "fdeflate_tpu_torch/csrc/decode_sep.cu",
+                      "fdeflate_tpu/ops/pallas_decode2.py:704 (_kernel_sep) "
+                      "+ fdeflate_tpu/ops/repack.py:126 (_slab_kernel)",
+                      launches["decode_sep"], err, ms, plain_ms, work)
 
 
 def adaptive_phase(torch, P, dev, data, lengths, card):
@@ -475,7 +552,7 @@ def checksum_phase(torch, P, dev, card):
     from fdeflate_tpu_torch.ops.adler32_pallas import (adler32_tiles,
                                                        adler32_tiles_plain)
 
-    n = 64 << 20
+    n = CHECKSUM_BYTES
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     buf = torch.randint(0, 256, (n,), generator=gen, dtype=torch.uint8,
@@ -513,11 +590,253 @@ def checksum_phase(torch, P, dev, card):
           f"({n / ms / 1e6:.3f} GB/s), plain {plain_ms:.4f} ms; "
           f"adler32_pallas (K7 + fold) {whole_ms:.4f} ms; host zlib.adler32 "
           f"{host_s * 1e3:.4f} ms [{card}]", flush=True)
-    return {"name": "adler32_tiles", "route": "cuda",
-            "source": "fdeflate_tpu_torch/csrc/adler32_tiles.cu",
-            "replaces": "fdeflate_tpu/ops/adler32_pallas.py:32 (_tile_kernel)",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+    # per byte: plain sum, weighted sum, weight (3)
+    work = (n - 12345 + out_bytes(adler32_tiles(buf, lt)), 3 * (n - 12345))
+    return kernel_row("adler32_tiles",
+                      "fdeflate_tpu_torch/csrc/adler32_tiles.cu",
+                      "fdeflate_tpu/ops/adler32_pallas.py:32 (_tile_kernel)",
+                      launches, err, ms, plain_ms, work)
+
+
+def v2_phase(torch, P, dev, data, lengths, card):
+    """Phase 10, the blocked-layout roundtrip at the headline geometry:
+    ``fused_ultrafast_roundtrip_v2`` with K1 and K3 counted and K2 held at
+    no launch, every stream decoded to its input with both checks, and the
+    encode, decode and whole times."""
+    from fdeflate_tpu_torch.ops.assign_pack import assign_pack
+    from fdeflate_tpu_torch.ops.decode2 import decode2, decode_blocked
+    from fdeflate_tpu_torch.ops.repack import combine
+    from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_blocked
+    from fdeflate_tpu_torch.parallel.device_pipeline import _checks
+
+    B, N = data.shape
+    S = N // CHUNKS
+    step = P.fused_ultrafast_roundtrip_v2(CHUNKS, N, device=dev)
+    kernels = {"assign_pack": assign_pack, "decode2": decode2,
+               "combine": combine}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out, bpos_ok, ck_ok = step(data, lengths)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"v2 path ({B} x {N} B, C={CHUNKS}, fused_ultrafast_roundtrip_v2): "
+          f"{wall:.3f} s wall; launches {launches}", flush=True)
+    if not (launches["assign_pack"] > 0 and launches["decode2"] > 0):
+        raise AssertionError(f"a kernel of the v2 path was not launched: {launches}")
+    if launches["combine"] != 0:
+        raise AssertionError("the v2 path launched K2 (it has no linear words)")
+    if not torch.equal(out, data):
+        raise AssertionError("v2: decoded bytes differ from the input")
+    if not (bool(bpos_ok.all()) and bool(ck_ok.all())):
+        raise AssertionError(f"v2: bpos_ok {bpos_ok.tolist()} ck_ok {ck_ok.tolist()}")
+
+    win, cb, adler = encode_ultrafast_blocked(data, lengths, CHUNKS)
+
+    def decode():
+        o, bp = decode_blocked(win, S // 4)
+        return _checks(o.reshape(B, N), bp.reshape(B, CHUNKS), cb, lengths,
+                       adler, CHUNKS)
+
+    enc_ms = cuda_ms(torch, lambda: encode_ultrafast_blocked(
+        data, lengths, CHUNKS), KERNEL_REPS)
+    dec_ms = cuda_ms(torch, decode, KERNEL_REPS)
+    whole_ms = cuda_ms(torch, lambda: step(data, lengths), KERNEL_REPS)
+    mib = B * N / 2**20
+    print(f"v2 decoded == input, bpos_ok all, ck_ok all; encode "
+          f"(encode_ultrafast_blocked) {enc_ms:.4f} ms, decode "
+          f"(decode_blocked + checks) {dec_ms:.4f} ms, whole step "
+          f"{whole_ms:.4f} ms ({mib / whole_ms * 1e3 / 1024:.3f} GiB/s) "
+          f"[{card}]", flush=True)
+
+
+def ab_phase(torch, P, dev, data, lengths, card):
+    """Phase 11, the A/B chain at C = 2048: assign_tokens -> pack_tokens ->
+    K9 -> ``decode_blocked(light=False)`` (K8) -> checks, with K8 and K9
+    counted.  K9's windows equal K1's, K8's bytes and exit bits equal K3's
+    on the same windows, each kernel equals its plain version (full size,
+    and K8 on corrupted windows).  Returns the rows of K8 and K9."""
+    from fdeflate_tpu_torch.ops.adler32 import adler32_batch
+    from fdeflate_tpu_torch.ops.assign_pack import (assign_pack,
+                                                    assign_tokens, wwin)
+    from fdeflate_tpu_torch.ops.decode2 import (canon_tables, decode2,
+                                                decode2_canon,
+                                                decode2_canon_plain,
+                                                decode_blocked)
+    from fdeflate_tpu_torch.ops.pack import (encode_blocked_v1, pack_blocked,
+                                             pack_blocked_plain, pack_tokens,
+                                             token_offsets)
+    from fdeflate_tpu_torch.parallel.device_pipeline import _checks
+    from fdeflate_tpu_torch.trees import trained_tables
+
+    B, N = data.shape
+    C = AB_CHUNKS
+    S, L = N // C, B * C
+    T, ww = S // 4, wwin(S)
+    t = trained_tables(str(dev))
+    kernels = {"pack_v1": pack_blocked, "decode2_canon": decode2_canon}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    win, bits = encode_blocked_v1(data, lengths, C, t)
+    out, bpos = decode_blocked(win, T, light=False)
+    bpos_ok, ck_ok = _checks(out.reshape(B, N), bpos.reshape(B, C),
+                             bits.reshape(B, C), lengths,
+                             adler32_batch(data, lengths), C)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"A/B chain ({B} x {N} B, C={C}, S={S}): {wall:.3f} s wall; "
+          f"launches {launches}", flush=True)
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the A/B chain was not launched: {launches}")
+    if not torch.equal(out.reshape(B, N), data):
+        raise AssertionError("A/B chain: decoded bytes differ from the input")
+    if not (bool(bpos_ok.all()) and bool(ck_ok.all())):
+        raise AssertionError(f"A/B: bpos_ok {bpos_ok.tolist()} ck_ok {ck_ok.tolist()}")
+    k1_win, k1_bits = assign_pack(data, lengths, C, t)
+    if not (torch.equal(win, k1_win) and torch.equal(bits, k1_bits)):
+        raise AssertionError("K9's windows differ from K1's at C = 2048")
+    starts = torch.zeros(L, 1, dtype=torch.int32, device=dev)
+    k3 = decode2(win, starts, t.dtab, S, 1)
+    if not (torch.equal(out, k3[0]) and torch.equal(bpos, k3[1].reshape(L))):
+        raise AssertionError("K8's bytes or exit bits differ from K3's")
+
+    v, nb, _ = assign_tokens(data, lengths, S, t)
+    tok = pack_tokens(v, nb, token_offsets(nb, C), C)
+    meta, packed = canon_tables(str(dev))
+    err9 = check_equal(torch, "pack_v1", (pack_blocked(tok, ww),),
+                       (pack_blocked_plain(tok, ww),))
+    corrupt = win.clone()
+    corrupt[::997, 7] ^= 0x5A5A5A5A
+    corrupt[5::1001, 0] ^= 0x7FFFFFFF
+    err8 = max(check_equal(torch, f"decode2_canon {label}",
+                           decode2_canon(w, T, meta, packed),
+                           decode2_canon_plain(w, T, meta, packed))
+               for label, w in (("clean", win), ("corrupted", corrupt)))
+    got = decode2_canon(corrupt, T, meta, packed)
+    want = decode2(corrupt, starts, t.dtab, S, 1)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1].reshape(L))):
+        raise AssertionError("K8 differs from K3 on corrupted windows")
+    print(f"A/B decoded == input, bpos_ok all, ck_ok all; K9 windows == K1's; "
+          f"K8 bytes and exit bits == K3's (clean and corrupted); K8, K9 == "
+          f"plain at full size: ok", flush=True)
+
+    ms = {
+        "pack_v1": cuda_ms(torch, lambda: pack_blocked(tok, ww), KERNEL_REPS),
+        "decode2_canon": cuda_ms(torch, lambda: decode2_canon(
+            win, T, meta, packed), KERNEL_REPS),
+        "assign_pack": cuda_ms(torch, lambda: assign_pack(data, lengths, C, t),
+                               KERNEL_REPS),
+        "decode2": cuda_ms(torch, lambda: decode2(win, starts, t.dtab, S, 1),
+                           KERNEL_REPS),
+        "chain encode": cuda_ms(torch, lambda: encode_blocked_v1(
+            data, lengths, C, t), PLAIN_REPS),
+    }
+    plain = {
+        "pack_v1": cuda_ms(torch, lambda: pack_blocked_plain(tok, ww),
+                           PLAIN_REPS),
+        "decode2_canon": cuda_ms(torch, lambda: decode2_canon_plain(
+            win, T, meta, packed), PLAIN_REPS),
+    }
+    print(f"A/B at C={C}: K9 pack_v1 {ms['pack_v1']:.4f} ms (plain "
+          f"{plain['pack_v1']:.4f}), K1 assign_pack {ms['assign_pack']:.4f} "
+          f"ms; K8 decode2_canon {ms['decode2_canon']:.4f} ms (plain "
+          f"{plain['decode2_canon']:.4f}), K3 decode2 on the same windows "
+          f"{ms['decode2']:.4f} ms; chain encode (tokens + K9) "
+          f"{ms['chain encode']:.4f} ms [{card}]", flush=True)
+    nw = used_words(torch, bits)
+    syms = symbol_count(torch, data, lengths, S)
+    return [
+        # The function is the lane windows from the tokens, linear work (K1
+        # builds the same windows): per token, three fields (3); per pair,
+        # merge, split into two words, two ORs (5).
+        kernel_row("pack_v1", "fdeflate_tpu_torch/csrc/pack_v1.cu",
+                   "fdeflate_tpu/ops/pallas_pack.py:35 (_kernel)",
+                   launches["pack_v1"], err9, ms["pack_v1"], plain["pack_v1"],
+                   (4 * L * S + 4 * L * ww, 3 * L * S + 5 * L * (S // 2))),
+        # per symbol, K3's count of the same contract: peek, look up, three
+        # fields, shift, count, store (8)
+        kernel_row("decode2_canon", "fdeflate_tpu_torch/csrc/decode2_canon.cu",
+                   "fdeflate_tpu/ops/pallas_decode2.py:166 (_kernel)",
+                   launches["decode2_canon"], err8, ms["decode2_canon"],
+                   plain["decode2_canon"],
+                   (4 * nw + 4 * (32 + 512) + B * N + 4 * L, 8 * syms)),
+    ]
+
+
+def grouped_phase(torch, P, dev, data, lengths, streams_in, card):
+    """Phase 12, K10 at the headline geometry: the encode with
+    ``combine(..., group=8)`` (K10 counted) gives 16 streams that
+    zlib.decompress takes back; K10 equals K2 and its plain version on
+    K1's windows; times of the K10 launch alone (its slab lanes found
+    beforehand), of the whole ``combine(group=8)`` call, of its torch lane
+    search and of K2.  Returns K10's row, timed as the launch alone."""
+    from fdeflate_tpu_torch.ops.assign_pack import assign_pack
+    from fdeflate_tpu_torch.ops.repack import (combine, combine_grouped,
+                                               combine_plain, slab_lanes)
+    from fdeflate_tpu_torch.ops.ultrafast import (_encode, lane_starts,
+                                                  stream_words)
+    from fdeflate_tpu_torch.trees import trained_tables
+
+    B, N = data.shape
+    t = trained_tables(str(dev))
+
+    def k10(win, bits, pos0, b, w):
+        return combine(win, bits, pos0, b, w, group=GROUP)
+
+    torch.cuda.synchronize()
+    combine_grouped.launches = 0
+    words, total_bits, adler, _s, _e = _encode(data, lengths, CHUNKS, t,
+                                               assign_pack, k10)
+    streams = P.finalize_streams(words, total_bits, adler)
+    torch.cuda.synchronize()
+    launches = combine_grouped.launches
+    if launches == 0:
+        raise AssertionError("combine_grouped was not launched")
+    n_ok = sum(zlib.decompress(s) == streams_in[i] for i, s in enumerate(streams))
+    if n_ok != B:
+        raise AssertionError(f"K10 path: {n_ok}/{B} streams through zlib")
+    win, bits = assign_pack(data, lengths, CHUNKS, t)
+    pos0 = lane_starts(bits, B, CHUNKS, t.header_bits)[0].reshape(-1).to(
+        torch.int32)
+    W = stream_words(N, t)
+    got = combine(win, bits, pos0, B, W, group=GROUP)
+    if not torch.equal(got, combine(win, bits, pos0, B, W)):
+        raise AssertionError("K10 differs from K2")
+    err = check_equal(torch, "combine_grouped", (got,),
+                      (combine_plain(win, bits, pos0, B, W),))
+    lanes = slab_lanes(bits, pos0, B, W)
+    if not torch.equal(combine_grouped(win, bits, pos0, B, W, GROUP,
+                                       lanes=lanes), got):
+        raise AssertionError("K10 with its slab lanes given differs")
+    ms = cuda_ms(torch, lambda: combine_grouped(win, bits, pos0, B, W, GROUP,
+                                                lanes=lanes), KERNEL_REPS)
+    call_ms = cuda_ms(torch, lambda: combine(win, bits, pos0, B, W,
+                                             group=GROUP), KERNEL_REPS)
+    search_ms = cuda_ms(torch, lambda: slab_lanes(bits, pos0, B, W),
+                        KERNEL_REPS)
+    k2_ms = cuda_ms(torch, lambda: combine(win, bits, pos0, B, W), KERNEL_REPS)
+    plain_ms = cuda_ms(torch, lambda: combine_plain(win, bits, pos0, B, W),
+                       PLAIN_REPS)
+    print(f"K10 combine_grouped (group={GROUP}): launches {launches}, "
+          f"{n_ok}/{B} streams through zlib.decompress, == K2 == plain; "
+          f"K10 launch alone {ms:.4f} ms; combine(group={GROUP}) whole "
+          f"{call_ms:.4f} ms, its torch lane search alone {search_ms:.4f} "
+          f"ms; K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
+          flush=True)
+    nw = used_words(torch, bits)
+    L = B * CHUNKS
+    # per payload word: shift, split, two ORs (4)
+    return kernel_row("combine_grouped",
+                      "fdeflate_tpu_torch/csrc/combine_grouped.cu",
+                      "fdeflate_tpu/ops/repack.py:306 (_combine_kernel_grouped)",
+                      launches, err, ms, plain_ms,
+                      (4 * nw + 8 * L + 8 * lanes[0].numel()
+                       + 4 * words.numel(), 4 * nw))
 
 
 def main() -> int:
@@ -535,10 +854,8 @@ def main() -> int:
     from fdeflate_tpu_torch.ops.ultrafast import _encode, encode_ultrafast_batch
     from fdeflate_tpu_torch.parallel.device_pipeline import (_decode_verify,
                                                              decode_verify)
+    from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
     from fdeflate_tpu_torch.trees import trained_tables
-
-    os.environ.pop("JAX_PLATFORMS", None)   # bench.py imports jax if set
-    from bench import make_idat_corpus
 
     card = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -630,6 +947,21 @@ def main() -> int:
 
     # ---- 3. times at the main path's shapes (card: see the line above) ----
     res = run_kernels(torch, t, data, lengths, CHUNKS)
+    L = BATCH * CHUNKS
+    win, bits = assign_pack(data, lengths, CHUNKS, t)
+    nw = used_words(torch, bits)
+    syms = symbol_count(torch, data, lengths, LENGTH // CHUNKS)
+    work = {
+        # 4 operations per byte: classify, look up, shift, OR
+        "assign_pack": (BATCH * LENGTH + 4 * BATCH + out_bytes((win, bits))
+                        + 4 * (256 + 29), 4 * BATCH * LENGTH),
+        # per payload word: shift, split, two ORs
+        "combine": (4 * nw + 8 * L + 4 * words.numel(), 4 * nw),
+        # per symbol: peek, look up, three fields, shift, count, store
+        "decode2": (4 * nw + 8 * L + 4 * 4096 + BATCH * LENGTH, 8 * syms),
+    }
+    print(f"work at the main path: {L} lanes, {nw} payload words, {syms} "
+          f"symbols", flush=True)
     rows = []
     sources = {
         "assign_pack": ("fdeflate_tpu_torch/csrc/assign_pack.cu",
@@ -645,10 +977,10 @@ def main() -> int:
         ms = cuda_ms(torch, kern, KERNEL_REPS)
         plain_ms = cuda_ms(torch, plain, PLAIN_REPS)
         src, repl = sources[kname]
-        rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": launches[kname],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        print(f"{kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        rows.append(kernel_row(kname, src, repl, launches[kname], err, ms,
+                               plain_ms, work[kname]))
+        print(f"{kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']}) "
               f"[{card}]", flush=True)
 
     enc = P.zlib_encode_step(CHUNKS)
@@ -778,6 +1110,15 @@ def main() -> int:
     errs["validate_headers"] = max(errs["validate_headers"], check_equal(
         torch, "validate_headers (text6 8 MiB)",
         validate_headers(wd8, c8, n8), validate_headers_plain(wd8, c8, n8)))
+    nrec = int((got[0] != 0).sum())
+    L8, n8c = args8[1].numel(), c8.numel()
+    work.update({
+        # per record: two table lookups, field extracts, store (16)
+        "inflate_records": (4 * wd8.numel() + 4 * L8 * (64 + 160) + 32 * L8
+                            + out_bytes(got), 16 * nrec),
+        # per candidate: ~20 code-length reads and checks of 4 operations
+        "validate_headers": (4 * wd8.numel() + 8 * n8c + 9 * n8c, 80 * n8c),
+    })
     foreign_fns = {
         "inflate_records": (lambda: inflate_records(*args8, K),
                             lambda: inflate_records_plain(*args8, K), 1,
@@ -797,10 +1138,8 @@ def main() -> int:
         ms = cuda_ms(torch, kern, KERNEL_REPS)
         plain_ms = cuda_ms(torch, plain, reps, warm=False)
         src, repl = sources[kname]
-        rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": launches[kname],
-                     "max_abs_err": errs[kname], "ms": ms,
-                     "plain_ms": plain_ms})
+        rows.append(kernel_row(kname, src, repl, launches[kname], errs[kname],
+                               ms, plain_ms, work[kname]))
         print(f"{kname} (text6 {FOREIGN_MB} MiB, {shape}): kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms (one run) [{card}]"
               if reps == 1 else f"{kname} (text6 {FOREIGN_MB} MiB, {shape}): "
@@ -816,6 +1155,11 @@ def main() -> int:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      adaptive_errs[row["name"]])
     rows.append(checksum_phase(torch, P, dev, card))
+
+    # ---- 10-12. the blocked layout: v2 roundtrip, A/B chain, K10 ---------
+    v2_phase(torch, P, dev, data, lengths, card)
+    rows += ab_phase(torch, P, dev, data, lengths, card)
+    rows.append(grouped_phase(torch, P, dev, data, lengths, streams_in, card))
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,7 +1,7 @@
 """fdeflate_tpu_torch — the PyTorch/CUDA port of fdeflate_tpu for Hopper GPUs.
 
 The JAX package ``fdeflate_tpu`` is the reference; this package gives
-bit-identical outputs.  Three slices are ported:
+bit-identical outputs.  Four slices are ported:
 
 * the standard-zlib, fixed-geometry roundtrip of PNG IDAT streams (the
   benchmark's headline path):
@@ -22,12 +22,18 @@ bit-identical outputs.  Three slices are ported:
   (tree built on the device, K1 and K3 with its runtime tables), and the
   checksum entry point ``adler32_pallas`` (K7 adler32_tiles)
 
-K1-K7 are hand-written CUDA kernels (``csrc/``) launched for CUDA tensors;
-CPU tensors take their plain PyTorch versions.  The package imports
-``torch`` and never ``jax``; it reuses the JAX package's jax-free host
-modules (``fdeflate_tpu.tables``, ``fdeflate_tpu.models.ultrafast``,
-``fdeflate_tpu.ops.septree`` and the host helpers of
-``fdeflate_tpu.ops.inflate``, ``ops.pallas_inflate``).
+* the blocked layout (slice 4): ``fused_ultrafast_roundtrip_v2``
+  (``encode_ultrafast_blocked``: K1 into lane windows; ``decode_blocked``:
+  K3 on each window), and the A/B kernels of that layout: K8 decode2_canon
+  (``decode_blocked(light=False)``), K9 pack_v1 (``ops/pack.py``) and K10
+  combine_grouped (``combine(..., group>1)``)
+
+K1-K10 are hand-written CUDA kernels (``csrc/``) launched for CUDA
+tensors; CPU tensors take their plain PyTorch versions.  The package
+imports ``torch`` and nothing of ``jax`` or of the JAX package: the host
+modules it needs are its own copies (``errors``, ``tables``, ``huffman``,
+``ops/septree``, ``ops/inflate_host``), held equal to the originals by
+tests/test_torch_hostcopies.py.
 
 Public API (the caller names the device):
 
@@ -35,6 +41,8 @@ Public API (the caller names the device):
     zlib_encode_step(C, tree=None)(data, lengths)
         -> words, ..., chunk_starts, eof_pos
     fused_zlib_roundtrip(C, N, tree=None, device=...)(data, lengths)
+    fused_ultrafast_roundtrip_v2(C, N, device=...)(data, lengths)
+        -> out, bpos_ok, ck_ok
     fused_adaptive_roundtrip(C, N, device=...)(data, lengths)
         -> out, bpos_ok, ck_ok, total_bits
     adler32_pallas(data, length=None) -> int64 0-d checksum tensor
@@ -44,12 +52,12 @@ Public API (the caller names the device):
         -> bytes, or None where the block-parallel path cannot decode
 """
 
-from fdeflate_tpu.ops.septree import sep_profile
-
 from .ops.adler32_pallas import adler32_pallas
+from .ops.septree import sep_profile
 from .ops.ultrafast import compress_batch_ultra_fast, finalize_streams
 from .parallel.device_pipeline import (
     fused_adaptive_roundtrip,
+    fused_ultrafast_roundtrip_v2,
     fused_zlib_roundtrip,
     zlib_decode_step,
     zlib_encode_step,
@@ -68,6 +76,7 @@ __all__ = [
     "decompress_foreign",
     "finalize_streams",
     "fused_adaptive_roundtrip",
+    "fused_ultrafast_roundtrip_v2",
     "fused_zlib_roundtrip",
     "sep_profile",
     "try_foreign",

@@ -46,6 +46,12 @@ _SIGNATURES = {
     "fdt_inflate_records": [_P] * 11 + [_I, _I, _P],
     # words, W, cands, n_bits, good, end, L, stream
     "fdt_validate_headers": [_P, _L, _P, _L, _P, _P, _I, _P],
+    # win, meta, packed, out, bpos, L, wwin, T, stream
+    "fdt_decode2_canon": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # tok, win, L, S, wwin, stream
+    "fdt_pack_v1": [_P, _P, _I, _I, _I, _P],
+    # win, chunk_bits, pos0, lo, hi, words, B, wwin, W, K, stream
+    "fdt_combine_grouped": [_P] * 6 + [_I, _I, _I, _I, _P],
 }
 
 build_seconds: float | None = None  # wall time of this process's nvcc run

@@ -285,4 +285,103 @@ FDT_HD int32_t decode_sep_lane(const uint32_t* row, int64_t W, int64_t start,
   return pos;
 }
 
+// K8: decode one lane's window of the trained tree, T output words from bit
+// 0 of `win` (wwin words; words at or past wwin read as 0).
+//
+// Semantics of pallas_decode2._kernel (the unrolled body): T word steps of
+// up to 4 sub-steps.  A sub-step first takes pending run bytes (zeros)
+// into the word; if the word still has room and no run is pending it
+// decodes one symbol: code length L = 1 + #{l < 12: r12 >= bounds[l]} on
+// the bit-reversed 12-bit peek r12, canonical index kvals[L] +
+// (r12 >> (12 - L)), entry packed[index] (val | extra << 9 | cls << 13; an
+// index outside the 512-entry table reads 0, a zero literal).  A literal
+// fills a byte; a length symbol sets a run of base + extra bits and
+// consumes its 1 distance bit unchecked; anything else (EOB) consumes
+// nothing, so the lane stalls.  The run left over when the last word is
+// full is dropped.  Returns the bits consumed.
+FDT_HD int32_t decode_canon_lane(const uint32_t* win, int wwin,
+                                 const int32_t* bounds, const int32_t* kvals,
+                                 const int32_t* packed, uint32_t* dst,
+                                 int T) {
+  int wnext = 0;
+  auto fetch = [&]() -> uint64_t {
+    uint64_t v = wnext < wwin ? win[wnext] : 0u;
+    ++wnext;
+    return v;
+  };
+  uint64_t buf = fetch();
+  int nbuf = 32;
+  int32_t pos = 0;
+  int run = 0;  // run bytes not yet written
+  for (int u = 0; u < T; ++u) {
+    uint32_t word = 0;
+    int filled = 0;
+    for (int s = 0; s < 4; ++s) {
+      int take = run < 4 - filled ? run : 4 - filled;
+      filled += take;
+      run -= take;
+      if (filled == 4 || run != 0) continue;
+      if (nbuf < 32) {  // a sub-step consumes at most 12 + 5 + 1 bits
+        buf |= fetch() << nbuf;
+        nbuf += 32;
+      }
+      uint32_t bits = static_cast<uint32_t>(buf);
+      int r12 = bitrev12(bits);
+      int L = 1;
+      for (int l = 1; l < kMaxL; ++l) L += r12 >= bounds[l];
+      int idx = kvals[L] + (r12 >> (kMaxL - L));
+      int e = (idx >= 0 && idx < 512) ? packed[idx] : 0;
+      int val = e & 0x1FF;
+      int cls = e >> 13;
+      int n = 0;
+      if (cls == 0) {
+        word |= static_cast<uint32_t>(val) << (8 * filled);
+        ++filled;
+        n = L;
+      } else if (cls == 2) {
+        int extra = (e >> 9) & 0xF;
+        run = val + static_cast<int>((bits >> L) & ((1u << extra) - 1));
+        n = L + extra + 1;
+      }
+      buf >>= n;
+      nbuf -= n;
+      pos += n;
+    }
+    int take = run < 4 - filled ? run : 4 - filled;
+    run -= take;
+    dst[u] = word;
+  }
+  return pos;
+}
+
+// K9: one pair of packed byte tokens (tok = v | nb << 13 | rel << 18, rel
+// the first token's lane-relative bit offset) -> its window word `wi`
+// (-3 for an empty pair) and the low and high words of its bits shifted to
+// rel & 31 (pallas_pack._kernel's pair decode, `hi` in its
+// (vp >> 1) >> (31 - sh) form).
+FDT_HD void pack_pair(int32_t t0, int32_t t1, int* wi, uint32_t* lo,
+                      uint32_t* hi) {
+  int n0 = (t0 >> 13) & 0x1F;
+  int n1 = (t1 >> 13) & 0x1F;
+  uint32_t vp = static_cast<uint32_t>(t0 & 0x1FFF) |
+                (static_cast<uint32_t>(t1 & 0x1FFF) << n0);
+  int rel = t0 >> 18;
+  uint32_t sh = static_cast<uint32_t>(rel & 31);
+  *lo = vp << sh;
+  *hi = (vp >> 1) >> (31 - sh);
+  *wi = n0 + n1 > 0 ? rel >> 5 : -3;
+}
+
+// K9: window word `w` of a lane, the all-pairs select-accumulate of
+// pallas_pack._kernel over the lane's P decoded pairs:
+// OR_p (wi_p == w ? lo_p : 0) | (wi_p == w - 1 ? hi_p : 0).
+FDT_HD uint32_t pack_v1_word(const int* wi, const uint32_t* lo,
+                             const uint32_t* hi, int P, int w) {
+  uint32_t acc = 0;
+  for (int p = 0; p < P; ++p) {
+    acc |= (wi[p] == w ? lo[p] : 0u) | (wi[p] == w - 1 ? hi[p] : 0u);
+  }
+  return acc;
+}
+
 }  // namespace fdt

@@ -21,9 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fdeflate_tpu.tables import LENGTH_TO_LEN_EXTRA, LENGTH_TO_SYMBOL
-
 from .. import _build
+from ..tables import LENGTH_TO_LEN_EXTRA, LENGTH_TO_SYMBOL
 from ..trees import NB_SHIFT, TreeTables
 
 _TOK_MASK = (1 << NB_SHIFT) - 1

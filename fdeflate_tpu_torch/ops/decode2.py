@@ -1,4 +1,5 @@
-"""K3 decode2: fixed-geometry decode straight from linear stream words.
+"""K3 decode2 and K8 decode2_canon: fixed-geometry decode, and
+``decode_blocked``, the decode of lane windows.
 
 JAX counterparts: the TPU kernel
 ``fdeflate_tpu/ops/pallas_decode2.py:_kernel_light`` (via ``decode_blocked``,
@@ -15,14 +16,34 @@ writes exactly S = N / C bytes to ``out[b, k*S : (k+1)*S]`` (standard
 overrunning the lane is cut at S with all its bits counted; on EOB the lane
 stalls and writes zeros to its end.  Words at or past W read as 0.  The
 decode table is ``trees.decode_table`` (one entry per 12-bit peek).
+
+K8 (``decode2_canon``) is the counterpart of the TPU kernel
+``pallas_decode2.py:_kernel``, the unrolled body that ``decode_blocked``
+runs with ``light=False``: the same contract on lane windows, with the
+canonical compare chain and the 512-entry symbol table of
+``canonical_meta`` in place of K3's 4096-entry peek table.  The CUDA kernel
+is ``csrc/decode2_canon.cu``; ``decode2_canon_plain`` is its plain
+version, a loop over word steps and sub-steps vectorised across lanes.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
-from ..trees import CLS_LEN, CLS_LIT, MAXL
+from ..tables import HUFFMAN_LENGTHS
+from ..trees import (
+    CLS_LEN,
+    CLS_LIT,
+    MAXL,
+    TAB_PAD,
+    TreeTables,
+    _bitrev,
+    canonical_meta,
+    trained_tables,
+)
 
 _MASK32 = 0xFFFFFFFF
 
@@ -109,3 +130,131 @@ def decode2(words: torch.Tensor, chunk_starts: torch.Tensor,
 
 
 decode2.launches = 0
+
+
+@functools.lru_cache(maxsize=8)
+def canon_tables(device: str = "cpu"):
+    """K8's tables of the trained tree on ``device``: (meta int32[32]:
+    bounds at 0..12, kvals at 16..28; packed int32[512])."""
+    bounds, kvals, packed = canonical_meta(torch.from_numpy(HUFFMAN_LENGTHS))
+    meta = torch.zeros(32, dtype=torch.int64)
+    meta[: MAXL + 1] = bounds
+    meta[16 : 16 + MAXL + 1] = kvals
+    dev = torch.device(device)
+    return meta.to(torch.int32).to(dev), packed.to(torch.int32).to(dev)
+
+
+def decode2_canon_plain(win: torch.Tensor, T: int, meta: torch.Tensor,
+                        packed: torch.Tensor):
+    """Plain PyTorch K8: T word steps of four sub-steps, every lane at once
+    (``fdt::decode_canon_lane``).  Returns (out u8[L, 4T], bpos int32[L])."""
+    L, ww = win.shape
+    dev = win.device
+    # Two zero words past each row: reads at or past wwin see zeros.
+    w64 = torch.cat([win.to(torch.int64) & _MASK32,
+                     torch.zeros(L, 2, dtype=torch.int64, device=dev)], dim=1)
+    bounds = meta.to(torch.int64)[:MAXL]
+    kvals = meta.to(torch.int64)[16 : 16 + MAXL + 1]
+    tab = torch.cat([packed.to(torch.int64),
+                     torch.zeros(1, dtype=torch.int64, device=dev)])
+    rows = torch.arange(L, device=dev)
+    pos = torch.zeros(L, dtype=torch.int64, device=dev)
+    run = torch.zeros(L, dtype=torch.int64, device=dev)
+    out = torch.zeros(L, T, dtype=torch.int64, device=dev)
+    for u in range(T):
+        word = torch.zeros(L, dtype=torch.int64, device=dev)
+        filled = torch.zeros(L, dtype=torch.int64, device=dev)
+        for _s in range(4):
+            take = torch.minimum(run, 4 - filled)
+            filled += take
+            run -= take
+            need = (filled < 4) & (run == 0)
+            wi = (pos >> 5).clamp(max=ww)
+            sh = pos & 31
+            bits = w64[rows, wi] >> sh
+            bits |= torch.where(sh > 0, (w64[rows, wi + 1] << (32 - sh))
+                                & _MASK32, 0)
+            r12 = _bitrev(bits & ((1 << MAXL) - 1), MAXL)
+            Lc = 1 + (r12[:, None] >= bounds[None, 1:MAXL]).sum(dim=1)
+            idx = kvals[Lc] + (r12 >> (MAXL - Lc))
+            e = tab[torch.where((idx >= 0) & (idx < TAB_PAD), idx, TAB_PAD)]
+            val = e & 0x1FF
+            extra = (e >> 9) & 0xF
+            cls = e >> 13
+            is_lit = need & (cls == CLS_LIT)
+            is_run = need & (cls == CLS_LEN)
+            word |= torch.where(is_lit, val << (8 * filled), 0)
+            filled += is_lit.to(torch.int64)
+            run = torch.where(is_run, val + ((bits >> Lc) & ((1 << extra) - 1)),
+                              run)
+            pos += torch.where(is_lit, Lc, torch.where(is_run, Lc + extra + 1, 0))
+        run -= torch.minimum(run, 4 - filled)
+        out[:, u] = word
+    # int64 -> int32 keeps the low 32 bits; the words' bytes are the output.
+    out = out.to(torch.int32).view(torch.uint8).reshape(L, 4 * T)
+    return out, pos.to(torch.int32)
+
+
+def decode2_canon(win: torch.Tensor, T: int, meta: torch.Tensor,
+                  packed: torch.Tensor):
+    """K8 on ``win``'s device: (out u8[L, 4T], bpos int32[L]).
+
+    ``win`` int32[L, wwin] lane windows (bit 0 at each lane's chunk start;
+    words past ``wwin`` read as 0), ``meta``/``packed`` from
+    ``canon_tables``.  CPU tensors take ``decode2_canon_plain``; CUDA
+    tensors launch ``csrc/decode2_canon.cu``.
+    """
+    L, ww = win.shape
+    if meta.shape != (32,) or packed.shape != (TAB_PAD,):
+        raise ValueError("decode2_canon needs meta[32] and packed[512]")
+    if win.device.type == "cpu":
+        return decode2_canon_plain(win, T, meta, packed)
+    _build.require_cuda(win, meta, packed)
+    win = win.to(torch.int32).contiguous()
+    out = torch.empty(L, 4 * T, dtype=torch.uint8, device=win.device)
+    bpos = torch.empty(L, dtype=torch.int32, device=win.device)
+    if L == 0 or T == 0:
+        return out, bpos.zero_()
+    err = _build.library().fdt_decode2_canon(
+        win.data_ptr(), meta.to(torch.int32).contiguous().data_ptr(),
+        packed.to(torch.int32).contiguous().data_ptr(), out.data_ptr(),
+        bpos.data_ptr(), L, ww, T,
+        torch.cuda.current_stream(win.device).cuda_stream)
+    _build.check(err, "decode2_canon")
+    decode2_canon.launches += 1
+    return out, bpos
+
+
+decode2_canon.launches = 0
+
+
+def decode_blocked(win: torch.Tensor, T: int, U: int = 32, lane_major=None,
+                   light: bool = True, tables: TreeTables | None = None,
+                   R: int | None = None, fast: bool | None = None):
+    """Decode fixed-geometry lane windows (JAX ``pallas_decode2.
+    decode_blocked`` :1012).  Returns (out u8[L, 4T], bpos int32[L]).
+
+    ``win`` int32[L, wwin]: lane ``b * C + k``'s window, bit 0 at its chunk
+    start (the port's row layout; JAX takes ``[LB, wwin, 8, 128]``).
+    ``out`` is in standard byte order (``out.reshape(B, N)``) where JAX
+    returns the TPU kernel's words, step- or lane-major.
+
+    ``light=True``, with any ``fast``: K3 on each row from bit 0, with the
+    trained tree's table or, given ``tables`` (a ``trees.TreeTables``, as
+    ``ops/adaptive.encode_adaptive_blocked`` returns; JAX takes its
+    (meta, tabp) rows), that tree's.  ``fast`` picks a body of the one TPU
+    kernel ``_kernel_light``, whose counterpart is K3.  ``light=False``: K8,
+    the trained tree only; ``tables`` then raises ValueError (JAX asserts).
+    ``U``, ``R`` and ``lane_major`` size the TPU kernel's grid and output
+    block; they are accepted and ignored.
+    """
+    L, _ww = win.shape
+    if not light:
+        if tables is not None:
+            raise ValueError("runtime tables need the light kernel")
+        meta, packed = canon_tables(str(win.device))
+        return decode2_canon(win, T, meta, packed)
+    t = trained_tables(str(win.device)) if tables is None else tables
+    starts = torch.zeros(L, 1, dtype=torch.int32, device=win.device)
+    out, bpos = decode2(win, starts, t.dtab, 4 * T, 1)
+    return out, bpos.reshape(L)

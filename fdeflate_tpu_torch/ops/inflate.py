@@ -6,8 +6,9 @@ JAX counterpart: ``fdeflate_tpu/ops/inflate.py`` — ``materialize``,
 record-kernel engine (``decompress_batch``, which routes big streams to
 block discovery first, is in ``parallel/discovery.py``).  The symbol phase is K4
 (``ops/inflate_records.py``); the host parses the framing and block headers
-between launches with the JAX package's jax-free helpers
-(``_StreamState``, ``_advance_headers``, ``_parse_dynamic_lengths``).
+between launches with the port's copies of the JAX package's host
+helpers (``ops/inflate_host.py``: ``_StreamState``, ``_advance_headers``,
+``_parse_dynamic_lengths``).
 
 Where the JAX sequential path re-decodes a stream on its XLA engine
 (``decode_symbols``) after any record-kernel anomaly, the port has no
@@ -28,11 +29,10 @@ import functools
 import numpy as np
 import torch
 
-from fdeflate_tpu import errors as E
-from fdeflate_tpu.ops import inflate as host
-from fdeflate_tpu.ops.pallas_inflate import _CLS_EOB, _LIT_BASE, _canonical_order
-from fdeflate_tpu.tables import FIXED_CODE_LENGTHS
-
+from .. import errors as E
+from ..tables import FIXED_CODE_LENGTHS
+from . import inflate_host as host
+from .inflate_host import _CLS_EOB, _LIT_BASE, _canonical_order
 from .inflate_records import (
     DONE_BAD_DIST,
     DONE_BAD_LITLEN,

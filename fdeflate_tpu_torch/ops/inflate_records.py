@@ -8,7 +8,8 @@ version, one decode step of every live lane per iteration.
 
 A lane decodes one block from absolute bit ``start`` of the flat stream
 words; words at or past its ``wend`` read as 0.  Its trees are the
-``(meta i32[64], tab i32[160])`` rows of ``pallas_inflate.foreign_meta``
+``(meta i32[64], tab i32[160])`` rows of ``foreign_meta`` (the port's
+copy of ``pallas_inflate.foreign_meta``, ``ops/inflate_host.py``)
 (``pack_tables`` stacks them, one row per lane).  A record is at most two
 literals, a match, EOB or an error (``REC_*``); records are step-major,
 ``recs[u, lane]``, zero past a lane's last record.
@@ -31,14 +32,8 @@ import functools
 import numpy as np
 import torch
 
-from fdeflate_tpu.ops.pallas_inflate import (
-    REC_ERR,
-    REC_LITS,
-    REC_MATCH,
-    foreign_meta,
-)
-
 from .. import _build
+from .inflate_host import REC_ERR, REC_LITS, REC_MATCH, foreign_meta
 
 NO_LIMIT = 1 << 62          # bit_end / out0 that never stops a lane
 DONE_SLOTS, DONE_EOB, DONE_BAD_LITLEN, DONE_BAD_DIST = 0, 1, 2, 3

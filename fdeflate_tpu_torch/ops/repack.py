@@ -1,10 +1,13 @@
-"""K2 combine: lane windows -> linear stream words.
+"""K2 combine and K10 combine_grouped: lane windows -> linear stream words.
 
-JAX counterpart: the TPU kernel ``fdeflate_tpu/ops/repack.py:_combine_kernel``
-(via ``linear_from_rows``, called by ``ops/ultrafast_kernel.py``
-``_pack_linear_words``), which places every lane window at its stream bit
-offset.  The CUDA kernel is ``csrc/combine.cu``; ``combine_plain`` is its
-plain version.
+JAX counterparts: the TPU kernels ``fdeflate_tpu/ops/repack.py``
+``_combine_kernel`` and ``_combine_kernel_grouped`` (via
+``linear_from_rows`` with ``group=1`` and ``group > 1``, called by
+``ops/ultrafast_kernel.py`` ``_pack_linear_words``), which place every lane
+window at its stream bit offset.  The CUDA kernels are ``csrc/combine.cu``
+(one block per lane, atomic ORs) and ``csrc/combine_grouped.cu`` (one block
+per 1024-word output slab, its lanes staged ``group`` at a time);
+``combine_plain`` is the plain version of both.
 
 ``pos0[lane]`` is the absolute bit at which lane ``b * C + k`` starts in
 stream ``b``: the header bits plus the exclusive prefix sum of the stream's
@@ -17,6 +20,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+
+SLAB = 1024          # words per output slab (K10's block)
+_MAX_GROUP = 32
 
 
 def combine_plain(win: torch.Tensor, chunk_bits: torch.Tensor,
@@ -42,23 +48,54 @@ def combine_plain(win: torch.Tensor, chunk_bits: torch.Tensor,
     return words.reshape(B, W + 1)[:, :W].to(torch.int32)
 
 
+def slab_lanes(chunk_bits: torch.Tensor, pos0: torch.Tensor, B: int,
+               W: int):
+    """(lo, hi) int32[B * nslabs]: the lanes [lo[s], hi[s]) that can touch
+    1024-word output slab s (``nslabs = ceil(W / 1024)`` per stream), found
+    by searches over the lanes' first and last payload words (JAX's
+    ``searchsorted`` over origin slabs, ``repack.py:408-411``).  Lanes must
+    start in order along each stream, as ``lane_starts`` gives them."""
+    L = pos0.shape[0]
+    C = L // B
+    dev = pos0.device
+    nslabs = -(-W // SLAB)
+    base = torch.arange(L, device=dev) // C * (nslabs * SLAB)
+    p = pos0.to(torch.int64)
+    first = base + (p >> 5)
+    last = base + ((p + chunk_bits.to(torch.int64).clamp(min=1) - 1) >> 5)
+    last = last.cummax(dim=0).values
+    s0 = torch.arange(B * nslabs, device=dev) * SLAB
+    lo = torch.searchsorted(last, s0, side="left")
+    hi = torch.searchsorted(first, s0 + SLAB, side="left")
+    return lo.to(torch.int32), hi.to(torch.int32)
+
+
 def combine(win: torch.Tensor, chunk_bits: torch.Tensor, pos0: torch.Tensor,
-            B: int, W: int) -> torch.Tensor:
-    """K2 on ``win``'s device: int32[B, W] stream words, payload placed.
+            B: int, W: int, group: int = 1) -> torch.Tensor:
+    """K2 (``group=1``) or K10 (``group > 1``) on ``win``'s device:
+    int32[B, W] stream words, payload placed.
 
     ``win`` int32[L, wwin], ``chunk_bits`` / ``pos0`` int32[L], L = B * C.
-    CPU tensors take ``combine_plain``; CUDA tensors launch
-    ``csrc/combine.cu`` into a zeroed word buffer.
+    ``group`` is the counterpart of ``linear_from_rows(group=)``: the lanes
+    K10 stages at a time (1..32, and 2 * group * min(wwin, 1025) words of
+    shared memory at most 227 KiB).  CPU tensors take ``combine_plain``;
+    CUDA tensors launch ``csrc/combine.cu`` into a zeroed word buffer, or
+    ``csrc/combine_grouped.cu``, which writes every word.
     """
     L, ww = win.shape
     if L % B or chunk_bits.shape != (L,) or pos0.shape != (L,):
         raise ValueError("combine needs win[B*C, wwin], chunk_bits/pos0[B*C]")
+    if not 1 <= group <= _MAX_GROUP or 8 * group * min(ww, SLAB + 1) > 227 << 10:
+        raise ValueError(f"combine: group {group} outside 1..{_MAX_GROUP} or "
+                         "over the shared memory of a block")
     if win.device.type == "cpu":
         return combine_plain(win, chunk_bits, pos0, B, W)
     _build.require_cuda(win, chunk_bits, pos0)
     win = win.contiguous()
     chunk_bits = chunk_bits.to(torch.int32).contiguous()
     pos0 = pos0.to(torch.int32).contiguous()
+    if group > 1:
+        return combine_grouped(win, chunk_bits, pos0, B, W, group)
     words = torch.zeros(B, W, dtype=torch.int32, device=win.device)
     if L == 0:
         return words
@@ -72,3 +109,25 @@ def combine(win: torch.Tensor, chunk_bits: torch.Tensor, pos0: torch.Tensor,
 
 
 combine.launches = 0
+
+
+def combine_grouped(win, chunk_bits, pos0, B: int, W: int, group: int,
+                    lanes=None):
+    """K10 (``combine`` with ``group > 1`` on CUDA tensors): one block per
+    output slab, lanes staged ``group`` at a time.  ``lanes``: the slabs'
+    ``slab_lanes``, found here when not given (given, the call is the
+    launch alone)."""
+    lo, hi = slab_lanes(chunk_bits, pos0, B, W) if lanes is None else lanes
+    words = torch.empty(B, W, dtype=torch.int32, device=win.device)
+    if words.numel() == 0:
+        return words
+    err = _build.library().fdt_combine_grouped(
+        win.data_ptr(), chunk_bits.data_ptr(), pos0.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), words.data_ptr(), B, win.shape[1], W,
+        group, torch.cuda.current_stream(win.device).cuda_stream)
+    _build.check(err, "combine_grouped")
+    combine_grouped.launches += 1
+    return words
+
+
+combine_grouped.launches = 0

@@ -17,7 +17,9 @@ at every lane boundary, so lane k decodes exactly S bytes from bit
 ``ceil(total_bits / 32)`` and are zero past it; W is the JAX XLA path's.
 ``compress_batch_ultra_fast`` encodes each stream in one lane (C = 1), as
 the JAX one does, and its index is the JAX symbol-boundary index
-(``symbol_index``).
+(``symbol_index``).  ``encode_ultrafast_blocked`` (JAX
+``encode_ultrafast_blocked`` :578) stops after K1: lane windows, chunk bits
+and Adler-32, no linear words.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ def encode_ultrafast_batch(data: torch.Tensor, lengths: torch.Tensor,
       data: u8[B, N], zero past ``lengths``; N % num_chunks == 0 and
         S = N / num_chunks a multiple of 8.
       lengths: i32[B] logical lengths.
-      tree: a ``fdeflate_tpu.ops.septree.TreeProfile`` (codes of at most 12
+      tree: an ``ops/septree.TreeProfile`` (codes of at most 12
         bits, its own canned header), as the JAX ``tree=``; None keeps the
         trained tree.
 
@@ -105,6 +107,32 @@ def _encode(data, lengths, C: int, t: TreeTables, k1, k2):
     adler = adler32_batch(data, lengths)
     return (words, total_bits.to(torch.int32), adler,
             pos0.to(torch.int32), eof_pos.to(torch.int32))
+
+
+def encode_ultrafast_blocked(data: torch.Tensor, lengths: torch.Tensor,
+                             num_chunks: int, lut_matmul=None,
+                             kernel_pack=None, kernel_assign=None):
+    """Fixed-geometry, lane-blocked encode with the trained tree: K1 only.
+
+    Returns (win int32[B * C, wwin(S)], chunk_bits int32[B, C], adler
+    int64[B]).  Lane ``b * C + k``'s window holds its payload bits from
+    bit 0 and zeros past them: no zlib header, no EOF.  JAX returns
+    ``[LB, blocked_wpad(S), 8, 128]`` windows; their extra words are zero.
+
+    ``lut_matmul``, ``kernel_pack`` and ``kernel_assign`` pick among the
+    JAX package's XLA and Pallas paths, which give the same windows; the
+    port has one path (K1 on CUDA tensors, its plain version on CPU
+    tensors) and accepts and ignores them.  None of them selects K9: JAX's
+    ``kernel_pack=True`` is the linear pack ``pack_blocked_pallas_v2``,
+    which K1 holds; the quadratic pack is ``ops/pack.py``'s alone.
+    """
+    B, N = data.shape
+    C = num_chunks
+    if N % C or (N // C) % 8:
+        raise ValueError("encode_ultrafast_blocked needs (N / C) % 8 == 0")
+    win, chunk_bits = assign_pack(data, lengths, C,
+                                  trained_tables(str(data.device)))
+    return win, chunk_bits.reshape(B, C), adler32_batch(data, lengths)
 
 
 def symbol_index(data: torch.Tensor, lengths: torch.Tensor, num_chunks: int,

@@ -1,9 +1,10 @@
-"""Standard-zlib encode and decode legs, their fused roundtrip, and the
-adaptive-tree roundtrip.
+"""Standard-zlib encode and decode legs, their fused roundtrip, the
+blocked-layout roundtrip and the adaptive-tree roundtrip.
 
 JAX counterpart: ``fdeflate_tpu/parallel/device_pipeline.py``
-``zlib_encode_step``, ``zlib_decode_step``, ``fused_zlib_roundtrip`` and
-``fused_adaptive_roundtrip``, with the same signatures and returns except
+``zlib_encode_step``, ``zlib_decode_step``, ``fused_zlib_roundtrip``,
+``fused_ultrafast_roundtrip_v2`` and ``fused_adaptive_roundtrip``, with the
+same signatures and returns except
 the decoded output: here it is u8[B, N] in standard byte order, where JAX
 returns the TPU kernel's step-major ``out_sm i32[LB, T, 8, 128]``.
 
@@ -16,8 +17,9 @@ or, for a ``tree=`` profile, K6 (ops/decode_sep.py) with that tree's own
   * ``ck_ok[b]``: the decode-side Adler-32 (ops/adler32.adler_lanes) equals
     the encoder's.
 
-``tree``: a ``fdeflate_tpu.ops.septree.TreeProfile``.  The encode takes
-any tree of codes up to 12 bits; the decode needs a class-separated one
+``tree``: an ``ops/septree.TreeProfile`` (or any object with its
+``lens``, ``codes``, ``header_bytes`` and ``header_bits``).  The encode
+takes any tree of codes up to 12 bits; the decode needs a class-separated one
 (``sep_profile()``) and raises ValueError for another at step
 construction.  (The JAX decode leg decodes every profile with the
 canonical kernel tree's rows; the port decodes with the tree it is given.)
@@ -32,9 +34,13 @@ import torch
 
 from ..ops.adaptive import encode_adaptive_blocked
 from ..ops.adler32 import adler_lanes
-from ..ops.decode2 import decode2
+from ..ops.decode2 import decode2, decode_blocked
 from ..ops.decode_sep import decode_sep
-from ..ops.ultrafast import device_of, encode_ultrafast_batch
+from ..ops.ultrafast import (
+    device_of,
+    encode_ultrafast_batch,
+    encode_ultrafast_blocked,
+)
 from ..trees import TreeTables, sep_tables, trained_tables
 
 
@@ -117,6 +123,50 @@ def fused_zlib_roundtrip(C: int, N: int, wwin: int | None = None, U: int = 32,
     return step
 
 
+def _blocked_roundtrip(C: int, N: int, encode, device, name: str):
+    """The blocked-layout roundtrip step on ``device``: ``encode(data,
+    lengths) -> (win, chunk_bits, adler, tables)`` into lane windows,
+    ``decode_blocked`` (K3 on each window from bit 0, with ``tables``, or
+    the trained tree's when None), then both checks, exit bits against
+    ``chunk_bits``.  fn(data, lengths) -> (out u8[B, N], bpos_ok bool[B],
+    ck_ok bool[B], chunk_bits int32[B, C])."""
+    dev = device_of(device)
+    if N % C or (N // C) % 8:
+        raise ValueError(f"{name} needs (N / C) % 8 == 0")
+    S = N // C
+
+    def step(data, lengths):
+        data = torch.as_tensor(data).to(dev)
+        lengths = torch.as_tensor(lengths).to(dev, torch.int32)
+        B = data.shape[0]
+        win, chunk_bits, adler, tables = encode(data, lengths)
+        out, bp = decode_blocked(win, S // 4, tables=tables)
+        out = out.reshape(B, N)
+        bpos_ok, ck_ok = _checks(out, bp.reshape(B, C), chunk_bits, lengths,
+                                 adler, C)
+        return out, bpos_ok, ck_ok, chunk_bits
+
+    return step
+
+
+def fused_ultrafast_roundtrip_v2(C: int, N: int, U: int = 32,
+                                 R: int | None = None, *, device):
+    """Blocked-layout roundtrip on ``device``: ``encode_ultrafast_blocked``
+    (K1 into lane windows), ``decode_blocked`` (K3 on each window from bit
+    0), then both checks, exit bits against ``chunk_bits``.
+
+    fn(data u8[B, N], lengths i32[B]) -> (out u8[B, N], bpos_ok bool[B],
+    ck_ok bool[B]); JAX returns the kernel's step-major ``out_sm`` where
+    ``out`` is in standard byte order.  A ragged stream's last lane decodes
+    its zero-padded window to zero bytes (the trained tree's zero literal
+    is the all-zero 2-bit code), so the checksum covers it exactly.
+    """
+    step = _blocked_roundtrip(
+        C, N, lambda d, ln: (*encode_ultrafast_blocked(d, ln, C), None),
+        device, "fused_ultrafast_roundtrip_v2")
+    return lambda data, lengths: step(data, lengths)[:3]
+
+
 def fused_adaptive_roundtrip(C: int, N: int, U: int = 8, *, device):
     """Adaptive-tree roundtrip on ``device``: the batch's own tree built on
     the device, K1 into lane windows with its tokens, K3 on each window
@@ -128,23 +178,16 @@ def fused_adaptive_roundtrip(C: int, N: int, U: int = 8, *, device):
     decode from zero bits, whose symbol in this tree need not be a zero
     byte, so ``ck_ok`` (unmasked, as in JAX) may fail for ragged streams.
     """
-    dev = device_of(device)
-    if N % C or (N // C) % 8:
-        raise ValueError("fused_adaptive_roundtrip needs (N / C) % 8 == 0")
-    S = N // C
 
-    def step(data, lengths):
-        data = torch.as_tensor(data).to(dev)
-        lengths = torch.as_tensor(lengths).to(dev, torch.int32)
-        B = data.shape[0]
+    def encode(data, lengths):
         win, chunk_bits, adler, _lens, t = encode_adaptive_blocked(
             data, lengths, C)
-        # Each lane's window is a one-lane stream of S bytes from bit 0.
-        starts = torch.zeros(B * C, 1, dtype=torch.int32, device=dev)
-        out, bp = decode2(win, starts, t.dtab, S, 1)
-        out = out.reshape(B, N)
-        bpos_ok, ck_ok = _checks(out, bp.reshape(B, C), chunk_bits, lengths,
-                                 adler, C)
+        return win, chunk_bits, adler, t
+
+    step = _blocked_roundtrip(C, N, encode, device, "fused_adaptive_roundtrip")
+
+    def roundtrip(data, lengths):
+        out, bpos_ok, ck_ok, chunk_bits = step(data, lengths)
         return out, bpos_ok, ck_ok, chunk_bits.sum()
 
-    return step
+    return roundtrip

@@ -11,8 +11,8 @@ that ``ops/`` does not import ``parallel/``.
 Every bit offset of the stream is screened as a possible dynamic-block
 header (stage 1, elementwise torch over all offsets); the survivors' code
 length sections are decoded by K5 (stage 2, ``ops/validate_headers.py``);
-the host parses each validated header (the JAX package's
-``_parse_dynamic_lengths``); K4 (``ops/inflate_records.py``) decodes every
+the host parses each validated header (``_parse_dynamic_lengths``, the
+port's copy in ``ops/inflate_host.py``); K4 (``ops/inflate_records.py``) decodes every
 candidate block in its own lane, reading straight from the stream words;
 the host walks the chain of blocks whose end-of-block exit is the next
 confirmed header; one materialize and an Adler-32 on the device finish the
@@ -30,9 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fdeflate_tpu import errors as E
-from fdeflate_tpu.ops import inflate as host
-
+from .. import errors as E
+from ..ops import inflate_host as host
 from ..ops.adler32 import adler32_batch
 from ..ops.inflate import WINDOW, decompress_sequential, pad_words
 from ..ops.inflate import materialize as _materialize

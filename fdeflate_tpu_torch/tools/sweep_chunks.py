@@ -15,7 +15,6 @@ compressed size; then the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import os
 import statistics
 import subprocess
 
@@ -27,6 +26,7 @@ from fdeflate_tpu_torch.ops.repack import combine
 from fdeflate_tpu_torch.ops.ultrafast import (encode_ultrafast_batch,
                                               lane_starts, stream_words)
 from fdeflate_tpu_torch.parallel.device_pipeline import decode_verify
+from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 from fdeflate_tpu_torch.trees import trained_tables
 
 BATCH, LENGTH = 16, 1 << 20
@@ -81,8 +81,6 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sweep_chunks: CUDA is not available")
-    os.environ.pop("JAX_PLATFORMS", None)   # bench.py imports jax if set
-    from bench import make_idat_corpus
 
     dev = torch.device("cuda")
     t = trained_tables(str(dev))

@@ -1,8 +1,8 @@
 """Huffman tree -> the port's encode and decode tables.
 
-The codec's parameters are its Huffman tree.  ``tree_tables`` turns the
-numpy code/length vectors the JAX package holds (``tables.HUFFMAN_CODES`` /
-``HUFFMAN_LENGTHS``, or a ``septree.TreeProfile``'s) into the tensors the
+The codec's parameters are its Huffman tree.  ``tree_tables`` turns
+numpy code/length vectors (``tables.HUFFMAN_CODES`` / ``HUFFMAN_LENGTHS``,
+or an ``ops/septree.TreeProfile``'s) into the tensors the
 port's kernels take as runtime inputs, on one device; ``code_tables`` does
 the same for code/length tensors already on the device (the adaptive tree,
 built there with no host round trip).  ``sep_tables`` gives the
@@ -39,13 +39,25 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fdeflate_tpu.models.ultrafast import STREAM_HEADER, STREAM_HEADER_BITS
-from fdeflate_tpu.tables import (
+from .tables import (
     HUFFMAN_CODES,
     HUFFMAN_LENGTHS,
     LEN_SYM_TO_LEN_BASE,
     LEN_SYM_TO_LEN_EXTRA,
 )
+
+# Canned 54-byte stream prefix of the trained tree (``STREAM_HEADER`` and
+# ``STREAM_HEADER_BITS`` of fdeflate_tpu/models/ultrafast.py:40-46): zlib
+# magic, BFINAL=1/BTYPE=dynamic, and the code-length-encoded trained tree
+# (286 litlen codes + one 1-bit distance code).  The final byte contributes
+# only its low 5 bits.
+STREAM_HEADER = bytes(
+    [120, 1, 237, 192, 3, 160, 36, 89, 150, 198, 241, 255, 119, 238, 141, 200,
+     204, 167, 114, 75, 99, 174, 109, 219, 182, 109, 219, 182, 109, 219, 182,
+     109, 105, 140, 158, 150, 74, 175, 158, 50, 51, 34, 238, 249, 118, 183,
+     106, 122, 166, 135, 59, 107, 213, 15]
+)
+STREAM_HEADER_BITS = 53 * 8 + 5
 
 MAXL = 12            # longest code the fixed-geometry codec takes
 CLS_LIT, CLS_EOB, CLS_LEN = 0, 1, 2
@@ -215,7 +227,9 @@ def trained_tables(device: str = "cpu") -> TreeTables:
 
 @functools.lru_cache(maxsize=8)
 def profile_tables(profile, device: str = "cpu") -> TreeTables:
-    """A ``fdeflate_tpu.ops.septree.TreeProfile``'s tables on ``device``:
+    """A tree profile's tables on ``device`` (``ops/septree.TreeProfile``,
+    or any object with ``codes``, ``lens``, ``header_bytes`` and
+    ``header_bits``):
     its codes and lengths, its canned header (built once per profile and
     device)."""
     return tree_tables(profile.codes, profile.lens, profile.header_bytes,

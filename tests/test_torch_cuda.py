@@ -22,15 +22,34 @@ from fdeflate_tpu_torch.ops.adler32_pallas import (
     adler32_tiles,
     adler32_tiles_plain,
 )
-from fdeflate_tpu_torch.ops.assign_pack import assign_pack, assign_pack_plain
-from fdeflate_tpu_torch.ops.decode2 import decode2, decode2_plain
+from fdeflate_tpu_torch.ops.assign_pack import (
+    assign_pack,
+    assign_pack_plain,
+    assign_tokens,
+    wwin,
+)
+from fdeflate_tpu_torch.ops.decode2 import (
+    canon_tables,
+    decode2,
+    decode2_canon,
+    decode2_canon_plain,
+    decode2_plain,
+)
 from fdeflate_tpu_torch.ops.decode_sep import decode_sep, decode_sep_plain
 from fdeflate_tpu_torch.ops.inflate_records import (
     NO_LIMIT,
     inflate_records,
     inflate_records_plain,
 )
-from fdeflate_tpu_torch.ops.repack import combine, combine_plain
+from fdeflate_tpu_torch.ops.pack import (
+    encode_blocked_v1,
+    pack_blocked,
+    pack_blocked_plain,
+    pack_tokens,
+    token_offsets,
+)
+from fdeflate_tpu_torch.ops.repack import (combine, combine_grouped,
+                                           combine_plain, slab_lanes)
 from fdeflate_tpu_torch.ops.validate_headers import (
     validate_headers,
     validate_headers_plain,
@@ -113,6 +132,85 @@ def test_decode2_matches_plain(dev, name, corrupt):
         assert torch.equal(got[0], data)
 
 
+@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decode2_canon_matches_plain(dev, name, corrupt):
+    """K8 on K1's lane windows: bytes and exit bits equal its plain version
+    and K3 on the same windows."""
+    data, lengths, C = _inputs(dev, name)
+    B, N = data.shape
+    S = N // C
+    win, _bits = assign_pack_plain(data, lengths, C, trained_tables(str(dev)))
+    if corrupt:
+        win[1, 3] ^= 0x5A5A5A5A
+        win[-1, 0] ^= 0x7FFFFFFF
+    meta, packed = canon_tables(str(dev))
+    before = decode2_canon.launches
+    got = decode2_canon(win, S // 4, meta, packed)
+    assert decode2_canon.launches == before + 1
+    want = decode2_canon_plain(win, S // 4, meta, packed)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    starts = torch.zeros(win.shape[0], 1, dtype=torch.int32, device=dev)
+    k3 = decode2(win, starts, trained_tables(str(dev)).dtab, S, 1)
+    assert torch.equal(got[0], k3[0]) and torch.equal(got[1], k3[1].reshape(-1))
+    if not corrupt:
+        assert torch.equal(got[0].reshape(B, N), data)
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+def test_pack_v1_matches_plain(dev, name):
+    """K9 on the lanes' tokens (S <= 630) and on random token words."""
+    data, lengths, C = _inputs(dev, name)
+    B, N = data.shape
+    C = max(C, N // 512)
+    S = N // C
+    t = trained_tables(str(dev))
+    v, nb, _ = assign_tokens(data, lengths, S, t)
+    tok = pack_tokens(v, nb, token_offsets(nb, C), C)
+    before = pack_blocked.launches
+    got = pack_blocked(tok, wwin(S))
+    assert pack_blocked.launches == before + 1
+    assert torch.equal(got, pack_blocked_plain(tok, wwin(S)))
+    assert torch.equal(got, assign_pack(data, lengths, C, t)[0])
+    assert torch.equal(encode_blocked_v1(data, lengths, C, t)[0], got)
+    noise = torch.randint(-2**31, 2**31 - 1, (64, S), dtype=torch.int32,
+                          device=dev, generator=torch.Generator(dev).manual_seed(5))
+    assert torch.equal(pack_blocked(noise, 40), pack_blocked_plain(noise, 40))
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+@pytest.mark.parametrize("group", [2, 8, 32])
+def test_combine_grouped_matches_plain(dev, name, group):
+    """K10 equals K2 and the plain version, lanes crossing slab ends."""
+    data, lengths, C = _inputs(dev, name)
+    t = trained_tables(str(dev))
+    B, N = data.shape
+    win, bits = assign_pack_plain(data, lengths, C, t)
+    pos0 = lane_starts(bits, B, C, 32037)[0].reshape(-1).to(torch.int32)
+    W = 1024 + stream_words(N, t)
+    before = combine_grouped.launches
+    got = combine(win, bits, pos0, B, W, group=group)
+    assert combine_grouped.launches == before + 1
+    assert torch.equal(got, combine_plain(win, bits, pos0, B, W))
+    assert torch.equal(got, combine(win, bits, pos0, B, W))
+    lanes = slab_lanes(bits, pos0, B, W)
+    assert torch.equal(combine_grouped(win, bits, pos0, B, W, group,
+                                       lanes=lanes), got)
+
+
+def test_v2_roundtrip_on_the_card(dev):
+    data, lengths, C = _inputs(dev, "lanes2048_B4_N65536_C512")
+    out, bpos_ok, ck_ok = P.fused_ultrafast_roundtrip_v2(
+        C, data.shape[1], device=dev)(data, lengths)
+    assert torch.equal(out, data)
+    assert bool(bpos_ok.all()) and bool(ck_ok.all())
+    data, lengths, C = _inputs(dev, "ragged_B3_N8192_C4")
+    out, bpos_ok, ck_ok = P.fused_ultrafast_roundtrip_v2(
+        C, data.shape[1], device=dev)(data, lengths)
+    assert torch.equal(out, data)
+    assert bool(bpos_ok.all()) and bool(ck_ok.all())
+
+
 def test_fused_roundtrip_on_the_card(dev):
     data, lengths, C = _inputs(dev, "lanes2048_B4_N65536_C512")
     out, bpos_ok, ck_ok = fused_zlib_roundtrip(C, data.shape[1], device=dev)(
@@ -193,7 +291,7 @@ def _lanes(z: bytes, dev, corrupt: bool):
     the payload flipped after the tables were parsed)."""
     words = PD.stage_words(z, device=dev)
     lanes = PD._scan_parse(z, words_dev=words, device=dev)
-    from fdeflate_tpu.ops.pallas_inflate import foreign_meta
+    from fdeflate_tpu_torch.ops.inflate_host import foreign_meta
     from fdeflate_tpu_torch.ops.inflate_records import pack_tables
 
     meta, tab = pack_tables([foreign_meta(l[3][: l[4]], l[3][288:320])

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from fdeflate_tpu import errors as E
+from fdeflate_tpu_torch import errors as PE
 from fdeflate_tpu.ops import inflate as I
 from fdeflate_tpu.parallel import discovery as D
 from fdeflate_tpu_torch import decompress_foreign, try_foreign, try_foreign_batch
@@ -83,7 +84,7 @@ FOREIGN = ["zlib6", "stored", "fixed", "tiny", "empty", "backrefs",
 def _outcome(fn, *args, **kw):
     try:
         return fn(*args, **kw)
-    except E.DecompressionError as err:
+    except (E.DecompressionError, PE.DecompressionError) as err:
         return err
 
 
@@ -207,9 +208,9 @@ def test_decompress_foreign_matches_jax(jax_ref, name):
     if isinstance(want, bytes):
         assert got == want == zlib.decompress(STREAMS[name])
     else:
-        assert type(got) is type(want)
+        assert type(got).__name__ == type(want).__name__
 
 
 def test_decompress_foreign_rejects_a_bad_header():
-    with pytest.raises(E.BadZlibHeader):
+    with pytest.raises(PE.BadZlibHeader):
         decompress_foreign(b"\x00\x00" + STREAMS["zlib6"][2:], device="cpu")

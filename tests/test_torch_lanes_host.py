@@ -1,8 +1,8 @@
 """The kernels' per-lane code, built for the host, against the plain versions.
 
 ``fdeflate_tpu_torch/csrc/lanes.cuh`` holds the whole sequential work of a
-K1, a K3 and a K6 lane as plain C++, ``csrc/inflate_lanes.cuh`` that of a K4 and
-a K5 lane.  The CUDA kernels run it one lane per thread; here g++ builds
+K1, a K3, a K6 and a K8 lane and of a K9 window word as plain C++,
+``csrc/inflate_lanes.cuh`` that of a K4 and a K5 lane.  The CUDA kernels run it one lane per thread; here g++ builds
 the same headers into a small host library with the kernels' lane loop
 around them, so the bit machines are held against the plain PyTorch
 versions on every tier-1 run, with no card.  The launch configuration,
@@ -28,9 +28,18 @@ from fdeflate_tpu.ops.pallas_inflate import foreign_meta
 from fdeflate_tpu.parallel.discovery import scan_stage1
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack_plain, wwin
 from fdeflate_tpu.ops.septree import sep_profile
-from fdeflate_tpu_torch.ops.decode2 import decode2_plain
+from fdeflate_tpu_torch.ops.decode2 import (
+    canon_tables,
+    decode2_canon_plain,
+    decode2_plain,
+)
 from fdeflate_tpu_torch.ops.decode_sep import decode_sep_plain
 from fdeflate_tpu_torch.ops.inflate import fixed_meta_tab, pad_words
+from fdeflate_tpu_torch.ops.pack import (
+    pack_blocked_plain,
+    pack_tokens,
+    token_offsets,
+)
 from fdeflate_tpu_torch.ops.inflate_records import (
     NO_LIMIT,
     inflate_records_plain,
@@ -43,7 +52,8 @@ from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "fdeflate_tpu_torch" / "csrc"
 
 # The kernels' lane loops (assign_pack.cu, decode2.cu, decode_sep.cu,
-# inflate_records.cu, validate_headers.cu), serial on the host.
+# inflate_records.cu, validate_headers.cu, decode2_canon.cu, pack_v1.cu),
+# serial on the host.
 _HARNESS = r"""
 #include <algorithm>
 #include "lanes.cuh"
@@ -89,6 +99,25 @@ extern "C" void decode_sep_lanes(const uint32_t* words, const int32_t* starts,
     int b = lane / C, k = lane % C;
     bpos[lane] = fdt::decode_sep_lane(words + (int64_t)b * W, W, starts[lane],
         meta, vals, (uint32_t*)(out + (int64_t)b * N + (int64_t)k * S), S);
+  }
+}
+extern "C" void decode_canon_lanes(const uint32_t* win, const int32_t* meta,
+    const int32_t* packed, uint32_t* out, int32_t* bpos, int L, int wwin,
+    int T) {
+  for (int64_t lane = 0; lane < L; ++lane)
+    bpos[lane] = fdt::decode_canon_lane(win + lane * wwin, wwin, meta,
+        meta + 16, packed, out + lane * T, T);
+}
+extern "C" void pack_v1_lanes(const int32_t* tok, uint32_t* win, int L, int S,
+    int wwin) {
+  int wi[315];
+  uint32_t lo[315], hi[315];
+  for (int64_t lane = 0; lane < L; ++lane) {
+    for (int p = 0; p < S / 2; ++p)
+      fdt::pack_pair(tok[lane * S + 2 * p], tok[lane * S + 2 * p + 1],
+                     wi + p, lo + p, hi + p);
+    for (int w = 0; w < wwin; ++w)
+      win[lane * wwin + w] = fdt::pack_v1_word(wi, lo, hi, S / 2, w);
   }
 }
 extern "C" void decode_lanes(const uint32_t* words, const int32_t* starts,
@@ -230,6 +259,63 @@ def test_decode_sep_lane_matches_plain(lib, seed0, corrupt):
         assert torch.equal(out, want_out), seed
         if not corrupt:
             assert torch.equal(out, data), seed
+
+
+@pytest.mark.parametrize("seed0", SEEDS)
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decode_canon_lane_matches_plain(lib, seed0, corrupt):
+    """K8's lane machine on K1's windows: clean, ragged and empty lanes,
+    and windows with flipped words (EOB stalls, runs over the lane end)."""
+    t = trained_tables()
+    meta, packed = canon_tables()
+    for seed in range(seed0, seed0 + 6):
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        S = N // C
+        if S % 4:
+            continue
+        win, _bits = assign_pack_plain(data, lengths, C, t)
+        if corrupt:
+            rng = np.random.default_rng(seed)
+            for _ in range(4):
+                win[int(rng.integers(0, B * C)), int(rng.integers(
+                    0, win.shape[1]))] ^= int(rng.integers(1, 2**31))
+        L, ww = win.shape
+        out = torch.empty(L, S, dtype=torch.uint8)
+        bpos = torch.empty(L, dtype=torch.int32)
+        lib.decode_canon_lanes(_ptr(win), _ptr(meta), _ptr(packed), _ptr(out),
+                               _ptr(bpos), L, ww, S // 4)
+        want_out, want_bpos = decode2_canon_plain(win, S // 4, meta, packed)
+        assert torch.equal(bpos, want_bpos), seed
+        assert torch.equal(out, want_out), seed
+        if not corrupt:
+            assert torch.equal(out.reshape(B, N), data), seed
+
+
+@pytest.mark.parametrize("seed0", SEEDS)
+def test_pack_v1_lane_matches_plain(lib, seed0):
+    """K9's pair decode and window words, on every lane's tokens and on
+    random token words (garbage pairs, negative offsets)."""
+    from fdeflate_tpu_torch.ops.assign_pack import assign_tokens
+
+    t = trained_tables()
+    for seed in range(seed0, seed0 + 6):
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        S = N // C
+        if S > 630:
+            continue
+        v, nb, _ = assign_tokens(data, lengths, S, t)
+        toks = [pack_tokens(v, nb, token_offsets(nb, C), C)]
+        rng = np.random.default_rng(seed)
+        toks.append(torch.from_numpy(rng.integers(
+            -2**31, 2**31, (3, S), dtype=np.int64).astype(np.int32)))
+        for tok in toks:
+            L = tok.shape[0]
+            ww = wwin(S) + seed % 3
+            win = torch.empty(L, ww, dtype=torch.int32)
+            lib.pack_v1_lanes(_ptr(tok.contiguous()), _ptr(win), L, S, ww)
+            assert torch.equal(win, pack_blocked_plain(tok, ww)), seed
 
 
 def _foreign_stream(seed: int) -> bytes:

@@ -1,8 +1,11 @@
-"""Guards of the port: no JAX, no silent CPU path, launches counted on CUDA only."""
+"""Guards of the port: no JAX and nothing of the JAX package, no silent CPU
+path, launches counted on CUDA only."""
 
 from __future__ import annotations
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 import zlib
@@ -14,10 +17,16 @@ import torch
 import fdeflate_tpu_torch as P
 from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack
-from fdeflate_tpu_torch.ops.decode2 import decode2
+from fdeflate_tpu_torch.ops.decode2 import (
+    canon_tables,
+    decode2,
+    decode2_canon,
+    decode_blocked,
+)
 from fdeflate_tpu_torch.ops.decode_sep import decode_sep
 from fdeflate_tpu_torch.ops.inflate_records import inflate_records
-from fdeflate_tpu_torch.ops.repack import combine
+from fdeflate_tpu_torch.ops.pack import encode_blocked_v1, pack_blocked
+from fdeflate_tpu_torch.ops.repack import combine, combine_grouped
 from fdeflate_tpu_torch.ops.validate_headers import validate_headers
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
@@ -59,16 +68,66 @@ full = np.full(2, 1024, np.int32)
 out, bpos_ok, ck_ok, total = P.fused_adaptive_roundtrip(4, 1024, device="cpu")(data, full)
 assert np.array_equal(out.numpy(), data) and bool(bpos_ok.all()) and bool(ck_ok.all())
 assert int(P.adler32_pallas(torch.from_numpy(data[1]), 700)) == zlib.adler32(data[1, :700].tobytes())
-print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")))
+# the blocked layout: the v2 roundtrip, K8's and K9's chains, K10's combine
+out, bpos_ok, ck_ok = P.fused_ultrafast_roundtrip_v2(4, 1024, device="cpu")(data, lengths)
+assert np.array_equal(out.numpy(), data) and bool(bpos_ok.all()) and bool(ck_ok.all())
+from fdeflate_tpu_torch.ops.decode2 import decode_blocked
+from fdeflate_tpu_torch.ops.pack import encode_blocked_v1
+from fdeflate_tpu_torch.ops.repack import combine
+from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_blocked, lane_starts
+from fdeflate_tpu_torch.trees import trained_tables
+d, ln = torch.from_numpy(data), torch.from_numpy(lengths)
+win, cb, _a = encode_ultrafast_blocked(d, ln, 4)
+assert torch.equal(encode_blocked_v1(d, ln, 4, trained_tables())[0], win)
+assert torch.equal(decode_blocked(win, 64, light=False)[0].reshape(2, 1024), d)
+pos0 = lane_starts(cb, 2, 4, 0)[0].reshape(-1).to(torch.int32)
+assert torch.equal(combine(win, cb.reshape(-1), pos0, 2, 400, group=4),
+                   combine(win, cb.reshape(-1), pos0, 2, 400))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "fdeflate_tpu", "bench")))
 """
+
+_BANNED = ("fdeflate_tpu", "jax", "jaxlib", "bench")
 
 
 def test_port_runs_without_importing_jax():
+    """The CPU slices in a fresh process load no module of jax, of the JAX
+    package or of its benchmark."""
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
     res = subprocess.run([sys.executable, "-c", _CPU_SLICE], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+def test_import_loads_nothing_of_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    code = ("import sys, fdeflate_tpu_torch; print(sorted(m for m in "
+            f"sys.modules if m.split('.')[0] in {_BANNED!r}))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+def _imported_names(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_import_names_the_jax_package():
+    """No import under fdeflate_tpu_torch/ or in chip_smoke.py names
+    fdeflate_tpu, jax or bench (the port keeps its own copies)."""
+    root = pathlib.Path(ROOT)
+    files = sorted((root / "fdeflate_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    bad = [(str(f.relative_to(root)), name) for f in files
+           for name in _imported_names(f)
+           if name.split(".")[0] in _BANNED]
+    assert len(files) > 20 and bad == []
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -111,11 +170,19 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
         decode_sep(words, starts, sm, sv, 64, 2)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         adler32_tiles(data.reshape(-1), lane[:1])
+    cmeta, packed = (x.to(meta) for x in canon_tables())
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        decode2_canon(win, 4, cmeta, packed)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        pack_blocked(torch.empty(4, 64, dtype=torch.int32, device=meta), 26)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        combine(win, bits, bits, 2, 40, group=4)
 
 
 def test_cpu_path_counts_no_launches():
     kernels = (assign_pack, combine, decode2, inflate_records,
-               validate_headers, decode_sep, adler32_tiles)
+               validate_headers, decode_sep, adler32_tiles, decode2_canon,
+               pack_blocked, combine_grouped)
     before = [k.launches for k in kernels]
     data = np.zeros((2, 512), np.uint8)
     out, bpos_ok, ck_ok = P.fused_zlib_roundtrip(4, 512, device="cpu")(
@@ -132,6 +199,15 @@ def test_cpu_path_counts_no_launches():
     assert bool(bpos_ok.all()) and bool(ck_ok.all())
     assert int(P.adler32_pallas(torch.from_numpy(data[0]))) == zlib.adler32(
         data[0].tobytes())
+    _o, bpos_ok, ck_ok = P.fused_ultrafast_roundtrip_v2(
+        4, 512, device="cpu")(data, lengths)
+    assert bool(bpos_ok.all()) and bool(ck_ok.all())
+    d = torch.from_numpy(data)
+    win, bits = encode_blocked_v1(d, torch.from_numpy(lengths), 4,
+                                  trained_tables())
+    decode_blocked(win, 32, light=False)
+    combine(win, bits, torch.arange(8, dtype=torch.int32) * 32, 2, 64,
+            group=2)
     assert [k.launches for k in kernels] == before
 
 
