@@ -23,6 +23,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fdeflate_tpu_torch"
@@ -132,6 +134,23 @@ def check(err: int, name: str) -> None:
     """Raise if a launch returned a nonzero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` (a CUDA tensor's device), as
+    the pointer a launch takes.  ``torch.cuda.current_stream(device)``
+    builds a Python Stream object first, about as much host time as the
+    rest of a wrapper; this is the raw getter that PyTorch's own generated
+    kernels launch with."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def i32(x):
+    """``x`` as a contiguous int32 tensor; ``x`` itself when it is one (no
+    dispatch: a launch's host time shows in its measured time)."""
+    if x.dtype == torch.int32 and x.is_contiguous():
+        return x
+    return x.to(torch.int32).contiguous()
 
 
 def require_cuda(*tensors) -> None:

@@ -3,57 +3,63 @@
 // Replaces two TPU kernels: fdeflate_tpu/ops/pallas_assign.py:_kernel
 // (per-lane run state machine + literal lookup -> one token per byte) and
 // fdeflate_tpu/ops/pallas_pack.py:_kernel_v2 (pair-combine + OR of each
-// pair into the lane window).  On the TPU the two are separate because
-// Mosaic has no per-lane bit accumulator; here one thread walks its lane's
-// S bytes in 8-byte steps and shifts each token straight into a 64-bit
-// accumulator (fdt::assign_pack_lane), so no token array ever reaches
-// device memory.
+// pair into the lane window).  No token array reaches device memory: the
+// tokens go straight into the window's bits.
 //
-// Bound on the H100: per-thread serial steps (~S byte decisions per lane)
-// and the latency of strided 8-byte loads, not bandwidth (16 MiB in,
-// ~27 MiB of windows out at the bench geometry).  One thread per lane gives
-// B*C = 8192 threads there: 128 blocks of 64, about one block per SM.
-// Literal and length tokens sit in shared memory.
+// Bound on the H100: bytes (the stream in once, the windows out once:
+// 16 MiB and ~27 MiB at 16 x 1 MiB, C = 512), if the card is kept busy.
+// One thread per lane could not: its 2048 serial byte decisions and
+// strided loads left ~2 warps on each SM and nothing to hide latency.  So
+// one warp works on a lane, 8 lanes to a block (fdt::assign_pack_group in
+// lanes.cuh, with the warp's operations of warp.cuh):
+//   * the warp stages the lane's bytes in shared memory with coalesced
+//     cp.async copies, fdt::kApTile (2048) bytes at a time;
+//   * each thread classifies its own 8-byte groups (a byte's run
+//     membership needs only its group and the byte before it), and a warp
+//     scan of fdt::RunSeg gives every thread the run length entering its
+//     segment, hence its run state and its count mod 258;
+//   * pass 1 counts each segment's bits, a warp scan gives each thread its
+//     bit offset, pass 2 writes the tokens into a window tile in shared
+//     memory (segment edge words by shared atomicOr);
+//   * the warp stores the tile's full words with coalesced 4-byte stores
+//     and carries the partial word, run length and bit offset to the next
+//     tile; the zeros past the payload go out the same way.
+// A block holds 8 x (2048 + 4 * fdt::kApBufWords) bytes plus the token
+// tables, ~44 KiB, so 5 blocks (40 warps) fit an SM.
 #include <cuda_runtime.h>
 
 #include "lanes.cuh"
+#include "warp.cuh"
 
 namespace {
 
-__global__ void assign_pack_kernel(const uint8_t* __restrict__ data,
-                                   const int32_t* __restrict__ lengths,
-                                   const int32_t* __restrict__ lit_tok_g,
-                                   const int32_t* __restrict__ len_tok_g,
-                                   uint32_t* __restrict__ win,
-                                   int32_t* __restrict__ chunk_bits, int B,
-                                   int N, int C, int wwin) {
-  __shared__ int32_t lit_tok[256];
-  __shared__ int32_t len_tok[32];
+constexpr int kWarps = 8;
+constexpr int kTables = 4 * (256 + 32);
+constexpr int kWarpBytes = (fdt::kApTile + 4 * fdt::kApBufWords + 15) / 16 * 16;
+constexpr int kSmem = kTables + kWarps * kWarpBytes;
+
+__global__ void __launch_bounds__(32 * kWarps)
+assign_pack_kernel(const uint8_t* __restrict__ data,
+                   const int32_t* __restrict__ lengths,
+                   const int32_t* __restrict__ lit_tok_g,
+                   const int32_t* __restrict__ len_tok_g,
+                   uint32_t* __restrict__ win, int32_t* __restrict__ chunk_bits,
+                   int B, int N, int C, int wwin) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* lit_tok = reinterpret_cast<int32_t*>(smem);
+  int32_t* len_tok = lit_tok + 256;
   for (int i = threadIdx.x; i < 256; i += blockDim.x) lit_tok[i] = lit_tok_g[i];
   for (int i = threadIdx.x; i < 29; i += blockDim.x) len_tok[i] = len_tok_g[i];
   __syncthreads();
-  // The zero literal's token, and symbol 285's with its 1-bit distance code
-  // (the tables may be an adaptive tree's, built on the card: no host read).
-  const int32_t zlit = lit_tok[0];
-  const int32_t t285 = len_tok[28] + (1 << fdt::kNbShift);
 
-  int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= static_cast<int64_t>(B) * C) return;
-  int b = static_cast<int>(lane / C);
-  int k = static_cast<int>(lane % C);
-  int S = N / C;
-  const uint8_t* src = data + static_cast<int64_t>(b) * N +
-                       static_cast<int64_t>(k) * S;
-  int len = lengths[b];
-  int base = k * S;
-  int al = min(max(len / 8 * 8 - base, 0), S);
-  int ln = min(max(len - base, 0), S);
-  // The 8-byte-chunk rule's carry entering the lane: the previous lane's
-  // last byte is zero (pallas_assign.blocked_input).
-  bool prev_run = k > 0 && src[-1] == 0;
-  chunk_bits[lane] = fdt::assign_pack_lane(
-      src, S, al, ln, prev_run, lit_tok, len_tok, zlit, t285,
-      win + lane * wwin, wwin);
+  const int warp = threadIdx.x >> 5;
+  const int64_t lane_id = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (lane_id >= static_cast<int64_t>(B) * C) return;  // the whole warp
+  uint8_t* tile = smem + kTables + warp * kWarpBytes;
+  fdt::assign_pack_group(fdt::WarpGroup(32, threadIdx.x & 31), data, lengths,
+                         N, C, lane_id, lit_tok, len_tok, tile,
+                         reinterpret_cast<uint32_t*>(tile + fdt::kApTile), win,
+                         wwin, chunk_bits);
 }
 
 }  // namespace
@@ -62,10 +68,10 @@ extern "C" int fdt_assign_pack(const void* data, const void* lengths,
                                const void* lit_tok, const void* len_tok,
                                void* win, void* chunk_bits,
                                int B, int N, int C, int wwin, void* stream) {
-  const int threads = 64;
   int64_t L = static_cast<int64_t>(B) * C;
-  int blocks = static_cast<int>((L + threads - 1) / threads);
-  assign_pack_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int blocks = static_cast<int>((L + kWarps - 1) / kWarps);
+  assign_pack_kernel<<<blocks, 32 * kWarps, kSmem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
       static_cast<const int32_t*>(lit_tok), static_cast<const int32_t*>(len_tok),
       static_cast<uint32_t*>(win),

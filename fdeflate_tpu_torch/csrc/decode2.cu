@@ -3,43 +3,100 @@
 // Replaces fdeflate_tpu/ops/pallas_decode2.py:_kernel_light and folds in
 // fdeflate_tpu/ops/repack.py:_slab_kernel with the XLA log-shift and bit
 // shift of repack.stage_blocked_from_linear.  Those exist because Mosaic
-// cannot read per lane at a dynamic offset; a CUDA thread can, so each
-// thread starts its bit reader at chunk_starts[lane] in the linear words
-// and decodes exactly S bytes into out[b, k*S : (k+1)*S] (fdt::decode_lane).
-// The TPU kernel's canonical compare chain and select-reduce symbol scans
-// become one lookup in a 4096-entry table (class, value, extra bits, code
-// length per 12-bit peek) held in 16 KiB of shared memory.
+// cannot read per lane at a dynamic offset; here each lane starts its bit
+// reader at chunk_starts[lane] in the linear words and decodes exactly S
+// bytes into out[b, k*S : (k+1)*S].  The TPU kernel's canonical compare
+// chain and select-reduce symbol scans become one lookup in a 4096-entry
+// table (class, value, extra bits, code length per 12-bit peek) held in
+// 16 KiB of shared memory.
 //
-// Bound on the H100: the serial decode chain per thread (one table lookup
-// and one shift per symbol, ~S symbols per lane) and its latency; bytes
-// move as 32-bit stores.  One thread per lane: 128 blocks of 64 threads at
-// the bench geometry, about one block per SM.
+// Bound on the H100: bytes (the words in, S bytes per lane out), if the
+// card is kept busy.  A lane is a serial chain of ~S/1.5 dependent table
+// lookups; one thread per lane left ~2 warps per SM and ~550 cycles per
+// symbol.  So m threads decode a lane, speculatively (fdt::decode2_group
+// in lanes.cuh, with the warp's operations of warp.cuh): m =
+// fdt::dec_threads(S), about 64 output bytes a thread, 32 at S = 2048 and
+// fewer for shorter lanes, whose 32 / m lanes then share a warp;
+//   * the group stages the words a span can read in shared memory with
+//     coalesced cp.async copies;
+//   * the span's hint (the distance to the next lane's start, or for a
+//     stream's last lane the staged words' last nonzero one) is split into
+//     m sub-ranges; thread i decodes from its sub-range's start to its
+//     first symbol boundary past the next, and while its start differs
+//     from thread i-1's exit it decodes again from that exit.  Huffman
+//     codes resynchronise within a few symbols, so one or two such rounds
+//     are typical; the worst case is m, never a wrong answer;
+//   * a scan of the segments' byte counts gives each thread its output
+//     offset; each decodes its segment once more, writing literal bytes
+//     into a zeroed output tile in shared memory, cut at S; the thread
+//     that fills the lane gives bpos;
+//   * the group stores the tile with 16-byte (or 4-byte) coalesced stores.
+// Lanes longer than fdt::kDecTile (2048) bytes go tile by tile, a run
+// crossing a tile edge carrying its zeros on.  A block is 32 warps, each
+// with 2 KiB of output tile and ~3 KiB of staged words (split between its
+// lanes), and the table: ~192 KiB, one block to an SM.  Blocks loop over
+// lanes, so the table is loaded once per SM, and 4224 warps take the 8192
+// lanes of 16 x 1 MiB at C = 512 in two rounds (8 warps to a block, 3
+// blocks to an SM, took three).
+#include <atomic>
+
 #include <cuda_runtime.h>
 
 #include "lanes.cuh"
+#include "warp.cuh"
 
 namespace {
 
-__global__ void decode_kernel(const uint32_t* __restrict__ words,
-                              const int32_t* __restrict__ chunk_starts,
-                              const int32_t* __restrict__ dtab_g,
-                              uint8_t* __restrict__ out,
-                              int32_t* __restrict__ bpos, int B, int W, int N,
-                              int C) {
-  __shared__ int32_t dtab[1 << fdt::kMaxL];
-  for (int i = threadIdx.x; i < (1 << fdt::kMaxL); i += blockDim.x)
-    dtab[i] = dtab_g[i];
+constexpr int kWarps = 32;
+constexpr int kTable = 4 << fdt::kMaxL;
+constexpr int kWarpBytes = fdt::dec_warp_bytes();
+constexpr int kSmem = kTable + kWarps * kWarpBytes;
+constexpr int kMaxDevices = 64;
+
+__global__ void __launch_bounds__(32 * kWarps, 1)
+decode_kernel(const uint32_t* __restrict__ words,
+              const int32_t* __restrict__ chunk_starts,
+              const int32_t* __restrict__ dtab_g, uint8_t* __restrict__ out,
+              int32_t* __restrict__ bpos, int B, int W, int N, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* dtab = reinterpret_cast<int32_t*>(smem);
+  for (int i = threadIdx.x; i < (1 << fdt::kMaxL); i += blockDim.x) dtab[i] = dtab_g[i];
   __syncthreads();
 
-  int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= static_cast<int64_t>(B) * C) return;
-  int b = static_cast<int>(lane / C);
-  int k = static_cast<int>(lane % C);
-  int S = N / C;
-  uint32_t* dst = reinterpret_cast<uint32_t*>(
-      out + static_cast<int64_t>(b) * N + static_cast<int64_t>(k) * S);
-  bpos[lane] = fdt::decode_lane(words + static_cast<int64_t>(b) * W, W,
-                                chunk_starts[lane], dtab, dst, S);
+  const int m = fdt::dec_threads(N / C), per_warp = 32 / m;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const fdt::WarpGroup g(m, lane);
+  uint8_t* tile = smem + kTable + warp * kWarpBytes +
+                  (lane / m) * fdt::dec_lane_bytes(m);
+  uint32_t* sw = reinterpret_cast<uint32_t*>(tile + fdt::dec_tile(m));
+  const int64_t L = static_cast<int64_t>(B) * C;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps * per_warp;
+  for (int64_t lane_id =
+           (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * per_warp + lane / m;
+       lane_id < L; lane_id += step) {
+    fdt::decode2_group(g, words, W, chunk_starts, N, C, lane_id, dtab,
+                       fdt::dec_tile(m), tile, sw, out, bpos);
+  }
+}
+
+// Blocks resident on device `dev` at once; sets the kernel's shared-memory
+// limit there first.  Kept per device; a race recomputes the same value.
+cudaError_t grid_cap(int dev, int* cap) {
+  static std::atomic<int> caps[kMaxDevices];
+  if (dev >= 0 && dev < kMaxDevices && (*cap = caps[dev].load()) > 0)
+    return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  int sms = 0, per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel,
+                                                        32 * kWarps, kSmem);
+  if (err != cudaSuccess) return err;
+  *cap = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev >= 0 && dev < kMaxDevices) caps[dev].store(*cap);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -47,10 +104,16 @@ __global__ void decode_kernel(const uint32_t* __restrict__ words,
 extern "C" int fdt_decode2(const void* words, const void* chunk_starts,
                            const void* dtab, void* out, void* bpos, int B,
                            int W, int N, int C, void* stream) {
-  const int threads = 64;
-  int64_t L = static_cast<int64_t>(B) * C;
-  int blocks = static_cast<int>((L + threads - 1) / threads);
-  decode_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int dev = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = grid_cap(dev, &cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t L = static_cast<int64_t>(B) * C;
+  const int64_t per_block = static_cast<int64_t>(kWarps) * (32 / fdt::dec_threads(N / C));
+  const int64_t need = (L + per_block - 1) / per_block;
+  const int blocks = static_cast<int>(need < cap ? need : cap);
+  decode_kernel<<<blocks, 32 * kWarps, kSmem,
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words),
       static_cast<const int32_t*>(chunk_starts),
       static_cast<const int32_t*>(dtab), static_cast<uint8_t*>(out),

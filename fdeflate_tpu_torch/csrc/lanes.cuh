@@ -1,11 +1,17 @@
-// Per-lane bit machines of the fixed-geometry codec.
+// Bit machines of the fixed-geometry codec.
 //
 // A lane is one S-byte chunk of one stream (lane = stream * C + chunk).
-// Each function below is the whole sequential work of one lane; the
-// kernels in assign_pack.cu, decode2.cu and decode_sep.cu run one lane per
-// thread.  The functions are plain C++ (device intrinsics only behind
-// __CUDA_ARCH__, with a host equivalent), so the same source also compiles
-// for the host.
+// K1 (assign_pack.cu) and K3 (decode2.cu) put a group of m threads on a
+// lane: the pieces in their sections below are one thread's work (a
+// segment of the lane), and assign_pack_group and decode2_group put them
+// together with the group's collectives, written once over a policy of
+// warp operations (warp.cuh): shuffles on the card, loops over m thread
+// slots on the host.  K6, K8 and K9 (decode_sep.cu, decode2_canon.cu,
+// pack_v1.cu) run one lane or window word per thread with the whole-lane
+// functions further down.  Everything here is plain C++ (device
+// intrinsics only behind __CUDA_ARCH__, with a host equivalent), so the
+// same source also compiles for the host, where
+// tests/test_torch_lanes_host.py runs it.
 #pragma once
 
 #include <stdint.h>
@@ -13,11 +19,16 @@
 
 #ifdef __CUDACC__
 #define FDT_HD __host__ __device__ __forceinline__
+#define FDT_GROUP __device__
 #else
 #define FDT_HD inline
+#define FDT_GROUP
 #endif
 
 namespace fdt {
+
+FDT_HD int imin(int a, int b) { return a < b ? a : b; }
+FDT_HD int imax(int a, int b) { return a > b ? a : b; }
 
 constexpr int kNbShift = 13;   // token = v | nbits << 13
 constexpr int kMaxL = 12;      // longest code; decode peeks 12 bits
@@ -32,34 +43,44 @@ FDT_HD uint64_t load8(const uint8_t* p) {
 #endif
 }
 
-// LSB-first bit accumulator that writes full 32-bit words to `out`.
-struct BitWriter {
-  uint64_t acc = 0;
-  int nacc = 0;
-  int wi = 0;
-  int32_t total = 0;
-  uint32_t* out;
+FDT_HD int clz64(uint64_t x) {  // x != 0
+#ifdef __CUDA_ARCH__
+  return __clzll(static_cast<long long>(x));
+#else
+  return __builtin_clzll(x);
+#endif
+}
 
-  FDT_HD explicit BitWriter(uint32_t* o) : out(o) {}
+FDT_HD int ctz64(uint64_t x) {  // x != 0
+#ifdef __CUDA_ARCH__
+  return __ffsll(static_cast<long long>(x)) - 1;
+#else
+  return __builtin_ctzll(x);
+#endif
+}
 
-  FDT_HD void put(int32_t tok) {  // nbits <= 13, so acc never holds > 44
-    int nb = tok >> kNbShift;
-    acc |= static_cast<uint64_t>(tok & ((1 << kNbShift) - 1)) << nacc;
-    nacc += nb;
-    total += nb;
-    if (nacc >= 32) {
-      out[wi++] = static_cast<uint32_t>(acc);
-      acc >>= 32;
-      nacc -= 32;
-    }
-  }
-};
+FDT_HD int ctz32(uint32_t x) {  // x != 0
+#ifdef __CUDA_ARCH__
+  return __ffs(static_cast<int>(x)) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+// OR into a word that another thread of the warp may also OR into.
+FDT_HD void or_word(uint32_t* p, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  atomicOr(p, v);
+#else
+  *p |= v;
+#endif
+}
 
 // Tokens closing a zero run whose `tail` bytes follow its literal zero and
 // its 258-byte blocks: <= 4 literal zeros, or the length symbol (RFC 1951
 // closed form, tail in 5..257), its extra bits and the 1-bit distance code.
-FDT_HD void put_tail(BitWriter& w, int tail, const int32_t* len_tok,
-                     int32_t zlit) {
+template <class Sink>
+FDT_HD void put_tail(Sink& w, int tail, const int32_t* len_tok, int32_t zlit) {
   if (tail <= 4) {
     for (int i = 0; i < tail; ++i) w.put(zlit);
     return;
@@ -70,36 +91,113 @@ FDT_HD void put_tail(BitWriter& w, int tail, const int32_t* len_tok,
   w.put((x & ((1 << e) - 1)) | ((e + 1) << kNbShift));
 }
 
-// K1: tokenize one lane and pack its bits from bit 0 of `win`.
+// ---- K1, a group of threads per lane --------------------------------------
 //
-// Semantics of ops/ultrafast_kernel._assign_tokens with split_S == S:
-// 8-byte-chunk run membership (whole zero chunks; zeros ending a chunk;
-// zeros opening a chunk while a run is live), membership only below the
-// lane's 8-aligned length `al`, literals below its length `ln`, runs cut at
-// the lane end.  A run emits a literal zero, one 285-token per further 258
-// bytes, then its tail.  Writes all `wwin` words (zeros past the payload)
-// and returns the payload bit count.
-FDT_HD int32_t assign_pack_lane(const uint8_t* src, int S, int al, int ln,
-                                bool prev_run, const int32_t* lit_tok,
-                                const int32_t* len_tok, int32_t zlit,
-                                int32_t t285, uint32_t* win, int wwin) {
-  BitWriter w(win);
-  bool in_run = false;
-  int cnt = 0;  // run bytes after the opening literal zero, mod 258
-  for (int j = 0; j < S && j < ln; j += 8) {
-    uint64_t x = load8(src + j);
-    int t = 8, l = 8;  // first nonzero byte; zero bytes at the chunk end
-    for (int i = 7; i >= 0; --i) {
-      if ((x >> (8 * i)) & 0xFF) t = i;
-    }
+// Semantics of ops/ultrafast_kernel._assign_tokens with split_S == S (and
+// of ops/assign_pack.runs, its readable statement): 8-byte-group run
+// membership (whole zero groups; zeros ending a group; zeros opening a
+// group whose previous byte is zero), membership only below the lane's
+// 8-aligned length `al`, literals below its length `ln`, runs cut at the
+// lane end.  A run emits a literal zero, one 285-token per further 258
+// bytes, and its tail before the byte that ends it (or at the lane end).
+//
+// A byte's membership depends only on its group and the byte before the
+// group, so each thread classifies its own groups.  What crosses thread
+// edges is the run length entering a segment (a scan of RunSeg) and the
+// bit offset (a scan of the segments' bit counts).  The lane's bytes are
+// staged kApTile at a time; the run length, the bit offset and the partial
+// last word carry from tile to tile (assign_pack_group).
+
+constexpr int kApTile = 2048;  // lane bytes staged per tile
+
+// Window words a tile of T bytes can touch, its bits starting at bit rel
+// of a word: at most 13 bits per byte, plus a run tail owed by the
+// previous tile.
+FDT_HD constexpr int ap_buf_words(int rel, int T) {
+  return (rel + 13 * T + 64 + 31) / 32 + 1;
+}
+constexpr int kApBufWords = ap_buf_words(31, kApTile);
+
+// A thread's groups [g0, g1) of a tile of G groups split over m threads.
+FDT_HD void seg_groups(int G, int m, int i, int* g0, int* g1) {
+  int gpt = (G + m - 1) / m;
+  int a = i * gpt;
+  *g0 = a < G ? a : G;
+  *g1 = a + gpt < G ? a + gpt : G;
+}
+
+// Run summary of a segment: all its bytes members, and the member bytes
+// that end it.  run_combine is the scan step: the run length entering the
+// right segment's end, from the left one's.  (An empty segment is the
+// identity {true, 0}; the carry from an earlier tile enters as
+// {false, run}.)
+struct RunSeg {
+  bool all;
+  int32_t trail;
+};
+
+FDT_HD RunSeg run_combine(RunSeg l, RunSeg r) {
+  return r.all ? RunSeg{l.all, l.trail + r.trail} : r;
+}
+
+// Member mask (bit i = byte i) of the group `x`; `prev_run`: the byte
+// before the group is zero; only the first `below` bytes may be members.
+FDT_HD uint32_t group_members(uint64_t x, bool prev_run, int below) {
+  uint32_t m = 0xFFu;
+  if (x != 0) {
+    int t = ctz64(x) >> 3;  // first nonzero byte
+    int l = clz64(x) >> 3;  // zero bytes at the group end
+    m = (prev_run ? (1u << t) - 1 : 0u) | ((0xFFu << (8 - l)) & 0xFFu);
+  }
+  below = below < 0 ? 0 : below > 8 ? 8 : below;
+  return m & ((1u << below) - 1);
+}
+
+// Whether the run rule's carry enters group g0 of the staged tile: the
+// byte before it is zero (`prev0`: the byte before the tile).
+FDT_HD bool seg_prev_run(const uint8_t* tile, int g0, bool prev0) {
+  return g0 == 0 ? prev0 : tile[8 * g0 - 1] == 0;
+}
+
+// K1 classification: the RunSeg of groups [g0, g1) of the staged tile;
+// `below`: al minus the tile's lane offset; `prev0`: the byte before the
+// tile is zero.
+FDT_HD RunSeg classify_segment(const uint8_t* tile, int g0, int g1, int below,
+                               bool prev0) {
+  RunSeg r{true, 0};
+  bool prev = seg_prev_run(tile, g0, prev0);
+  for (int g = g0; g < g1; ++g) {
+    uint64_t x = load8(tile + 8 * g);
+    uint32_t m = group_members(x, prev, below - 8 * g);
+    uint32_t inv = ~m & 0xFFu;
+    RunSeg s{true, 8};
+    if (inv) s = RunSeg{false, clz64(inv) - 56};  // bytes above the last non-member
+    r = run_combine(r, s);
+    prev = (x >> 56) == 0;
+  }
+  return r;
+}
+
+// K1 segment emit: the tokens of groups [g0, g1) in byte order into `w`
+// (BitCount or WordWriter), the run entering the segment `entering` bytes
+// long.  A run reaching the segment end owes its tail to the segment that
+// ends it (or to the lane end, run_end_tail).
+template <class Sink>
+FDT_HD void emit_segment(const uint8_t* tile, int g0, int g1, int below,
+                         int lit_below, bool prev0, int32_t entering,
+                         const int32_t* lit_tok, const int32_t* len_tok,
+                         Sink& w) {
+  const int32_t zlit = lit_tok[0];
+  const int32_t t285 = len_tok[28] + (1 << kNbShift);  // + distance bit
+  bool in_run = entering > 0;
+  int cnt = in_run ? (entering - 1) % 258 : 0;  // run bytes after the first
+  bool prev = seg_prev_run(tile, g0, prev0);
+  for (int g = g0; g < g1; ++g) {
+    uint64_t x = load8(tile + 8 * g);
+    uint32_t m = group_members(x, prev, below - 8 * g);
+    prev = (x >> 56) == 0;
     for (int i = 0; i < 8; ++i) {
-      if ((x >> (8 * i)) & 0xFF) l = 7 - i;
-    }
-    bool czero = t == 8;
-    for (int i = 0; i < 8; ++i) {
-      int pos = j + i;
-      bool member = (czero || (i < t && prev_run) || i >= 8 - l) && pos < al;
-      if (member) {
+      if ((m >> i) & 1) {
         if (!in_run) {
           w.put(zlit);
           in_run = true;
@@ -113,96 +211,453 @@ FDT_HD int32_t assign_pack_lane(const uint8_t* src, int S, int al, int ln,
           put_tail(w, cnt, len_tok, zlit);
           in_run = false;
         }
-        if (pos < ln) w.put(lit_tok[(x >> (8 * i)) & 0xFF]);
+        if (8 * g + i < lit_below) w.put(lit_tok[(x >> (8 * i)) & 0xFF]);
       }
     }
-    prev_run = czero || l > 0;
   }
-  if (in_run) put_tail(w, cnt, len_tok, zlit);
-  int wi = w.wi;
-  if (w.nacc > 0) win[wi++] = static_cast<uint32_t>(w.acc);
-  for (; wi < wwin; ++wi) win[wi] = 0;
-  return w.total;
 }
 
-// Little-endian byte sink for one lane's S output bytes (S % 4 == 0).
-struct ByteSink {
-  uint32_t* dst;
-  uint32_t cur = 0;
-  int fill = 0;  // bytes held in cur
-  int wi = 0;
-  int n = 0;     // bytes written so far
+// The tail of a run `run` bytes long that reaches the lane end.
+template <class Sink>
+FDT_HD void run_end_tail(Sink& w, int32_t run, const int32_t* lit_tok,
+                         const int32_t* len_tok) {
+  if (run > 0) put_tail(w, (run - 1) % 258, len_tok, lit_tok[0]);
+}
 
-  FDT_HD explicit ByteSink(uint32_t* d) : dst(d) {}
+// Pass 1 sink: counts bits.
+struct BitCount {
+  int32_t total = 0;
+  FDT_HD void put(int32_t tok) { total += tok >> kNbShift; }
+};
 
-  FDT_HD void put(uint32_t v) {
-    cur |= v << (8 * fill);
-    ++n;
-    if (++fill == 4) {
-      dst[wi++] = cur;
-      cur = 0;
-      fill = 0;
+// Pass 2 sink: LSB-first bits into a zeroed word buffer from bit `bit`.
+// The segment's first and last words may be shared with its neighbours
+// (or_word); the words between are its own (plain stores).
+struct WordWriter {
+  uint32_t* buf;
+  uint64_t acc = 0;
+  int nacc;
+  int wi;
+  bool first = true;
+
+  FDT_HD WordWriter(uint32_t* b, int32_t bit)
+      : buf(b), nacc(bit & 31), wi(bit >> 5) {}
+
+  FDT_HD void put(int32_t tok) {  // nbits <= 13, so acc never holds > 44
+    acc |= static_cast<uint64_t>(tok & ((1 << kNbShift) - 1)) << nacc;
+    nacc += tok >> kNbShift;
+    if (nacc >= 32) {
+      if (first) {
+        or_word(buf + wi, static_cast<uint32_t>(acc));
+        first = false;
+      } else {
+        buf[wi] = static_cast<uint32_t>(acc);
+      }
+      ++wi;
+      acc >>= 32;
+      nacc -= 32;
     }
   }
 
-  FDT_HD void zeros(int k) {
-    for (; k > 0 && fill != 0; --k) put(0);
-    for (; k >= 4; k -= 4) {
-      dst[wi++] = 0;
-      n += 4;
-    }
-    fill += k;
-    n += k;
+  FDT_HD void finish() {
+    if (nacc > 0) or_word(buf + wi, static_cast<uint32_t>(acc));
   }
 };
 
-// K3: decode one lane of S bytes starting at absolute bit `start` of the
-// stream row `row` (W words; words at or past W read as 0).
+// K1 lane `lane` (stream lane / C, chunk lane % C) of data u8[B, N] with
+// lengths i32[B] -> win[lane, :wwin] and chunk_bits[lane], by the group g
+// (warp.cuh) of m threads.  Per tile of kApTile bytes: stage the bytes in
+// `tile` and zero the window words in `buf` (kApBufWords; the partial word
+// carried in), classify each thread's groups and scan the run state, count
+// each thread's bits and scan the bit offsets, emit into `buf` (segment
+// edge words OR'd), close a run at the lane end, store the full words and
+// carry the partial one.  Then zero the window past the payload.
+template <class G>
+FDT_GROUP void assign_pack_group(const G& g, const uint8_t* data,
+                                 const int32_t* lengths, int N, int C,
+                                 int64_t lane, const int32_t* lit_tok,
+                                 const int32_t* len_tok, uint8_t* tile,
+                                 uint32_t* buf, uint32_t* win, int wwin,
+                                 int32_t* chunk_bits) {
+  const int m = g.m;
+  const int b = static_cast<int>(lane / C), k = static_cast<int>(lane % C);
+  const int S = N / C, base = k * S, len = lengths[b];
+  const uint8_t* src = data + static_cast<int64_t>(b) * N + base;
+  const int al = imin(imax(len / 8 * 8 - base, 0), S);
+  const int ln = imin(imax(len - base, 0), S);
+  uint32_t* dst = win + lane * wwin;
+  const bool v16 = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  // The group rule's carry entering the lane: the previous lane's last
+  // byte is zero (pallas_assign.blocked_input).
+  bool prev = k > 0 && src[-1] == 0;
+  int32_t carry_run = 0, bitpos = 0;
+  uint32_t carry_word = 0;
+  typename G::template Var<int> g0, g1;
+  typename G::template Var<RunSeg> seg;
+  typename G::template Var<int32_t> ent, off;
+  auto comb = [](RunSeg l, RunSeg r) { return run_combine(l, r); };
+  auto plus = [](int32_t l, int32_t r) { return l + r; };
+  for (int toff = 0; toff < S; toff += kApTile) {
+    const int T = imin(kApTile, S - toff), NG = T >> 3;
+    const uint8_t* s = src + toff;
+    const int rel = bitpos & 31, nwb = ap_buf_words(rel, T);
+    const int below = al - toff, lit_below = ln - toff;
+    g.each([&](int i) {
+      if (v16) {
+        for (int j = i; j < (T >> 4); j += m)
+          g.copy(tile + 16 * j, s + 16 * j, 16);
+        if ((T & 15) && i == 0) g.copy(tile + T - 8, s + T - 8, 8);
+      } else {
+        for (int j = i; j < NG; j += m) g.copy(tile + 8 * j, s + 8 * j, 8);
+      }
+      for (int j = i; j < nwb; j += m) buf[j] = j == 0 ? carry_word : 0u;
+      seg_groups(NG, m, i, &g0[i], &g1[i]);
+    });
+    g.wait();
+
+    g.each([&](int i) {
+      seg[i] = classify_segment(tile, g0[i], g1[i], below, prev);
+    });
+    const RunSeg in_tile = g.excl_scan(seg, RunSeg{true, 0}, comb);
+    const RunSeg carry{false, carry_run};
+    g.each([&](int i) { ent[i] = run_combine(carry, seg[i]).trail; });
+    carry_run = run_combine(carry, in_tile).trail;
+
+    g.each([&](int i) {
+      BitCount c;
+      emit_segment(tile, g0[i], g1[i], below, lit_below, prev, ent[i],
+                   lit_tok, len_tok, c);
+      off[i] = c.total;
+    });
+    int32_t tile_bits = g.excl_scan(off, 0, plus);
+    g.each([&](int i) {
+      WordWriter w(buf, rel + off[i]);
+      emit_segment(tile, g0[i], g1[i], below, lit_below, prev, ent[i],
+                   lit_tok, len_tok, w);
+      w.finish();
+    });
+    const bool last = toff + T >= S;
+    if (last) {  // a run reaching the lane end closes here
+      BitCount tc;
+      run_end_tail(tc, carry_run, lit_tok, len_tok);
+      g.sync();
+      if (tc.total) {
+        g.each([&](int i) {
+          if (i) return;
+          WordWriter tw(buf, rel + tile_bits);
+          run_end_tail(tw, carry_run, lit_tok, len_tok);
+          tw.finish();
+        });
+      }
+      tile_bits += tc.total;
+    }
+    g.sync();
+
+    const int32_t newbit = bitpos + tile_bits;
+    const int nfull = (newbit >> 5) - (bitpos >> 5);
+    const int nout = last ? ((newbit + 31) >> 5) - (bitpos >> 5) : nfull;
+    uint32_t* d = dst + (bitpos >> 5);
+    g.each([&](int i) {
+      for (int j = i; j < nout; j += m) d[j] = buf[j];
+    });
+    carry_word = buf[nfull];
+    prev = tile[T - 1] == 0;
+    bitpos = newbit;
+    g.sync();
+  }
+  g.each([&](int i) {
+    for (int j = ((bitpos + 31) >> 5) + i; j < wwin; j += m) dst[j] = 0;
+    if (i == 0) chunk_bits[lane] = bitpos;
+  });
+}
+
+// ---- K3, a group of threads per lane --------------------------------------
 //
 // Semantics of pallas_decode2._kernel_light: literals; zero runs of length
 // base + extra bits with the 1 distance bit consumed unchecked; a run that
-// overruns the lane is cut at S with all its bits counted; on EOB the lane
-// stalls (consumes nothing more, writes zeros to the lane end).  Returns
-// the exit bit relative to `start`.
-FDT_HD int32_t decode_lane(const uint32_t* row, int64_t W, int64_t start,
-                           const int32_t* dtab, uint32_t* dst, int S) {
-  int64_t wnext = start >> 5;
-  auto fetch = [&]() -> uint64_t {
-    uint64_t v = (wnext >= 0 && wnext < W) ? row[wnext] : 0u;
-    ++wnext;
-    return v;
-  };
-  int sh = static_cast<int>(start & 31);
-  uint64_t buf = fetch() >> sh;
-  int nbuf = 32 - sh;
-  int32_t pos = 0;
-  ByteSink out(dst);
-  while (out.n < S) {
-    if (nbuf < 32) {
-      buf |= fetch() << nbuf;
-      nbuf += 32;
+// overruns the lane is cut at S with all its bits counted; on EOB (or any
+// entry that is neither a literal nor a run) the lane stalls and writes
+// zeros to its end; words at or past W (or before 0) read as 0.  The lane
+// is decoded a tile of output bytes at a time (a run crossing a tile edge
+// carries its zeros on), each tile by spans: a span stages the words it
+// can read and splits a hint of its bit length into m sub-ranges, one per
+// thread.  Thread i decodes from its sub-range's first bit to its first
+// symbol boundary at or past the next one (decode_segment); while a
+// thread's start differs from the previous thread's exit it decodes again
+// from that exit (sync rounds); at the fixed point every segment is the
+// serial decode's, and a second decode of each segment writes its literal
+// bytes at its scanned byte offset.  A span that falls short of the tile
+// (a hint too short) is followed by another from where it ended
+// (decode2_group).
+//
+// Every code is <= 12 bits and a run symbol <= 18 bits for >= 3 bytes
+// (the entries of trees.decode_table), so a lane that has written n bytes
+// has consumed <= 12 n bits: a symbol starting past rel0 + 12 (want - 1)
+// is never reached before the span's `want` bytes are written.  That
+// bounds the words a span stages and the bits a thread may read.
+
+constexpr int kDecTile = 2048;  // output bytes staged per warp
+
+// Words a span staged from bit rel0 of its first word reads (its bits
+// start in a word at rel0; peek32 reads two words).
+FDT_HD constexpr int dec_words(int32_t rel0, int32_t want) {
+  return ((rel0 + 12 * (want - 1)) >> 5) + 2;
+}
+
+// K3's geometry, chosen from S alone: m threads decode a lane, about 64
+// output bytes each (~40 symbols; fewer and the sync rounds outgrow the
+// work), m a power of two up to 32, so a warp holds 32 / m lanes.  Each
+// lane stages dec_tile(m) output bytes (S <= dec_tile(m) when m < 32) and
+// the words a span of them can read.
+FDT_HD constexpr int dec_threads(int S) {
+  int m = 1;
+  while (m < 32 && 64 * m < S) m <<= 1;
+  return m;
+}
+FDT_HD constexpr int dec_tile(int m) { return kDecTile / (32 / m); }
+FDT_HD constexpr int dec_lane_bytes(int m) {
+  return (dec_tile(m) + 4 * dec_words(31, dec_tile(m)) + 15) / 16 * 16;
+}
+FDT_HD constexpr int dec_warp_bytes() {  // the most over every m
+  int most = 0;
+  for (int m = 1; m <= 32; m <<= 1) {
+    int x = (32 / m) * dec_lane_bytes(m);
+    most = x > most ? x : most;
+  }
+  return most;
+}
+
+FDT_HD uint32_t peek32(const uint32_t* sw, int32_t p) {
+  int i = p >> 5, sh = p & 31;
+  uint32_t lo = sw[i] >> sh;
+  return sh ? lo | (sw[i + 1] << (32 - sh)) : lo;
+}
+
+// How a segment decode ended.
+enum : int {
+  kSegStop = 0,   // at a symbol boundary at or past `stop`
+  kSegFill = 1,   // the span's bytes are all written (o0 + n >= want)
+  kSegStall = 2,  // EOB or another non-literal, non-run entry
+  kSegOff = 3,    // a symbol start past pmax (never reached in order)
+};
+
+struct SegDec {
+  int32_t exit;  // bit after the last symbol (at the stall: its start)
+  int32_t n;     // bytes decoded, runs uncut
+  int end;
+};
+
+// K3 segment decode: symbols from bit p of the staged words until a
+// boundary at or past `stop` (at least one symbol), a stall, a start past
+// pmax, or o0 + n >= want.  With `out`, literal bytes land at out[o0 + n]
+// (runs are zeros, already there).
+FDT_HD SegDec decode_segment(const uint32_t* sw, int32_t p, int32_t stop,
+                             int32_t pmax, int32_t o0, int32_t want,
+                             const int32_t* dtab, uint8_t* out) {
+  int32_t n = 0;
+  int end = kSegStop;
+  do {
+    if (p > pmax) {
+      end = kSegOff;
+      break;
     }
-    int32_t e = dtab[buf & ((1u << kMaxL) - 1)];
+    uint32_t bits = peek32(sw, p);
+    int32_t e = dtab[bits & ((1u << kMaxL) - 1)];
     int L = (e >> 16) & 0x1F;
     int cls = (e >> 13) & 3;
     int val = e & 0x1FF;
     if (cls == 0) {
-      out.put(static_cast<uint32_t>(val));
+      if (out) out[o0 + n] = static_cast<uint8_t>(val);
+      n += 1;
     } else if (cls == 2) {
       int extra = (e >> 9) & 0xF;
-      int run = val + static_cast<int>((buf >> L) & ((1u << extra) - 1));
+      n += val + static_cast<int>((bits >> L) & ((1u << extra) - 1));
       L += extra + 1;
-      out.zeros(run < S - out.n ? run : S - out.n);
     } else {
-      break;  // EOB: stall
+      end = kSegStall;
+      break;
     }
-    buf >>= L;
-    nbuf -= L;
-    pos += L;
-  }
-  out.zeros(S - out.n);
-  return pos;
+    p += L;
+    if (o0 + n >= want) {
+      end = kSegFill;
+      break;
+    }
+  } while (p < stop);
+  return {p, n, end};
 }
+
+// K3 sync round, thread i's part: whether its segment no longer counts
+// (an earlier segment ended the span, or the bytes before it fill it:
+// `pre` bytes before it, `room` left in the span), and whether it must
+// decode again from the previous segment's exit (it started elsewhere).
+FDT_HD bool seg_dead(int i, bool ended_before, int32_t pre, int32_t room) {
+  return i > 0 && (ended_before || pre >= room);
+}
+
+FDT_HD bool seg_redo(int i, bool dead, int32_t start, int32_t prev_exit) {
+  return i > 0 && !dead && start != prev_exit;
+}
+
+// Thread i's sub-range start of a span of H bits from rel0.
+FDT_HD int32_t sub_start(int32_t rel0, int32_t H, int i, int m) {
+  return rel0 + static_cast<int32_t>(static_cast<int64_t>(H) * i / m);
+}
+
+// The span hint: a lane's first span takes the distance to the next
+// lane's start (`next_span` > 0, scaled to the tile when the lane has
+// several) or, for a stream's last lane, the bits up to the staged words'
+// last nonzero one (`lastnz`, -1 if none); later spans the lane's bits
+// per byte so far times the bytes still wanted.  Only where threads start
+// depends on it, never the result.
+FDT_HD int64_t lane_hint(int64_t next_span, int S, int T, int lastnz, int nw,
+                         int32_t rel0) {
+  if (next_span > 0) return S > T ? next_span * T / S : next_span;
+  return static_cast<int64_t>(lastnz >= 0 ? lastnz + 1 : nw) * 32 - rel0;
+}
+
+FDT_HD int64_t rate_hint(int64_t bits_done, int64_t bytes_done, int32_t want) {
+  return bytes_done > 0 ? (bits_done * want + bytes_done - 1) / bytes_done
+                        : 12LL * want;
+}
+
+FDT_HD int32_t clamp_hint(int64_t H, int32_t rel0, int32_t pmax) {
+  int64_t hi = static_cast<int64_t>(pmax) - rel0 + 1;
+  return static_cast<int32_t>(H < 1 ? 1 : H > hi ? hi : H);
+}
+
+// K3 lane `lane` (stream lane / C, chunk lane % C; W words per stream)
+// -> out[b, k*S : (k+1)*S] and bpos[lane], by the group g (warp.cuh) of m
+// threads, with `tile` (tcap output bytes) and `sw` (dec_words(31, tcap)
+// words) in shared memory.  Per tile: zero it; per span: stage its words,
+// split the hint, decode every segment, sync rounds until each thread
+// starts at its predecessor's exit, the write pass at the scanned byte
+// offsets, and the span's end (filled, stalled, or short: another span);
+// store the tile.
+template <class G>
+FDT_GROUP void decode2_group(const G& g, const uint32_t* words, int64_t W,
+                             const int32_t* chunk_starts, int N, int C,
+                             int64_t lane, const int32_t* dtab, int tcap,
+                             uint8_t* tile, uint32_t* sw, uint8_t* out,
+                             int32_t* bpos) {
+  const int m = g.m;
+  const int b = static_cast<int>(lane / C), k = static_cast<int>(lane % C);
+  const int S = N / C;
+  const uint32_t* row = words + static_cast<int64_t>(b) * W;
+  const int64_t start = chunk_starts[lane];
+  const int64_t next_span = k + 1 < C ? chunk_starts[lane + 1] - start : -1;
+  uint8_t* dst = out + static_cast<int64_t>(b) * N + static_cast<int64_t>(k) * S;
+  typename G::template Var<int32_t> st, stop, pre, px;
+  typename G::template Var<int> nz;
+  typename G::template Var<SegDec> s, wr;
+  typename G::template Var<bool> flag, dead, redo;
+  auto plus = [](int32_t l, int32_t r) { return l + r; };
+  int64_t P = start;
+  int32_t pend = 0;  // zeros a run owes the next tile
+  bool stalled = false, spanned = false;
+  for (int toff = 0; toff < S; toff += tcap) {
+    const int T = imin(tcap, S - toff);
+    g.each([&](int i) {
+      for (int j = i; j < (T + 15) >> 4; j += m) g.zero16(tile + 16 * j);
+    });
+    g.sync();
+    int32_t o = imin(pend, T);
+    pend -= o;
+    while (o < T && !stalled) {
+      const int32_t rel0 = static_cast<int32_t>(P & 31);
+      const int64_t w0 = P >> 5;
+      const int nw = dec_words(rel0, T - o);
+      g.each([&](int i) {
+        for (int j = i; j < nw; j += m) {
+          const int64_t gi = w0 + j;
+          if (gi >= 0 && gi < W) g.copy(sw + j, row + gi, 4);
+          else sw[j] = 0u;
+        }
+      });
+      g.wait();
+      const int32_t pmax = rel0 + 12 * (T - o - 1);
+      int64_t H;
+      if (!spanned) {
+        g.each([&](int i) {
+          nz[i] = -1;
+          for (int j = i; j < nw; j += m) nz[i] = sw[j] ? j : nz[i];
+        });
+        H = lane_hint(next_span, S, T, g.max(nz), nw, rel0);
+        spanned = true;
+      } else {
+        H = rate_hint(P - start, toff + o, T - o);
+      }
+      const int32_t Hc = clamp_hint(g.hint(H), rel0, pmax);
+      g.each([&](int i) {
+        st[i] = sub_start(rel0, Hc, i, m);
+        stop[i] = sub_start(rel0, Hc, i + 1, m);
+        s[i] = decode_segment(sw, st[i], stop[i], pmax, o, T, dtab, nullptr);
+      });
+      int rounds = 0;
+      while (true) {  // sync rounds
+        g.each([&](int i) {
+          px[i] = s[i].exit;
+          pre[i] = s[i].n;
+          flag[i] = s[i].end != kSegStop;
+        });
+        g.up(px, 0);
+        g.excl_scan(pre, 0, plus);
+        const uint32_t ended = g.ballot(flag);
+        g.each([&](int i) {
+          dead[i] = seg_dead(i, (ended & ((1u << i) - 1)) != 0, pre[i], T - o);
+          redo[i] = seg_redo(i, dead[i], st[i], px[i]);
+        });
+        if (!g.any(redo)) break;
+        ++rounds;
+        g.each([&](int i) {
+          if (!redo[i]) return;
+          st[i] = px[i];
+          s[i] = decode_segment(sw, st[i], stop[i], pmax, o, T, dtab, nullptr);
+        });
+      }
+      g.each([&](int i) {
+        wr[i] = SegDec{st[i], 0, kSegStop};
+        if (!dead[i])
+          wr[i] = decode_segment(sw, st[i], stop[i], pmax, o + pre[i], T, dtab,
+                                 tile);
+        flag[i] = !dead[i] && wr[i].end == kSegFill;
+      });
+      const uint32_t fill = g.ballot(flag);
+      g.each([&](int i) {
+        flag[i] = !dead[i] && (wr[i].end == kSegStall || wr[i].end == kSegOff);
+      });
+      const uint32_t halt = g.ballot(flag);
+      const int64_t base = w0 << 5;
+      if (fill) {  // the lane's tile is full; a cut run owes the rest
+        const int j = ctz32(fill);
+        const SegDec f = g.bcast(wr, j);
+        P = base + f.exit;
+        pend = o + g.bcast(pre, j) + f.n - T;
+        o = T;
+      } else if (halt) {  // zeros to the lane end
+        P = base + g.bcast(wr, ctz32(halt)).exit;
+        stalled = true;
+      } else {  // every segment reached its stop: the hint was short
+        const SegDec l = g.bcast(wr, m - 1);
+        P = base + l.exit;
+        o += g.bcast(pre, m - 1) + l.n;
+      }
+      g.span_done(rounds, !fill && !halt);
+      g.sync();
+    }
+    uint8_t* d = dst + toff;
+    const int n =
+        (reinterpret_cast<uintptr_t>(d) & 15) == 0 && (T & 15) == 0 ? 16 : 4;
+    g.each([&](int i) {
+      for (int j = i; j < T / n; j += m) g.store(d + n * j, tile + n * j, n);
+    });
+    g.sync();
+  }
+  g.each([&](int i) {
+    if (i == 0) bpos[lane] = static_cast<int32_t>(P - start);
+  });
+}
+
+// ---- K6, K8, K9: one lane (or window word) per thread ---------------------
 
 FDT_HD int bitrev12(uint32_t x) {
 #ifdef __CUDA_ARCH__

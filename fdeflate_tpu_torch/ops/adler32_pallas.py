@@ -60,7 +60,7 @@ def adler32_tiles(data: torch.Tensor, length: torch.Tensor):
     err = _build.library().fdt_adler32_tiles(
         data.data_ptr(), n, length.data_ptr(), sums.data_ptr(),
         wsums.data_ptr(), tiles,
-        torch.cuda.current_stream(data.device).cuda_stream)
+        _build.stream(data.device))
     _build.check(err, "adler32_tiles")
     adler32_tiles.launches += 1
     return sums, wsums

@@ -210,7 +210,7 @@ def assign_pack(data: torch.Tensor, lengths: torch.Tensor, C: int,
     data = data.contiguous()
     if data.data_ptr() % 8:  # the kernel loads 8 bytes at a time
         data = data.clone()
-    lengths = lengths.to(torch.int32).contiguous()
+    lengths = _build.i32(lengths)
     win = torch.empty(L, ww, dtype=torch.int32, device=data.device)
     chunk_bits = torch.empty(L, dtype=torch.int32, device=data.device)
     if L == 0:
@@ -219,7 +219,7 @@ def assign_pack(data: torch.Tensor, lengths: torch.Tensor, C: int,
         data.data_ptr(), lengths.data_ptr(), t.lit_tok.data_ptr(),
         t.len_tok.data_ptr(), win.data_ptr(),
         chunk_bits.data_ptr(), B, N, C, ww,
-        torch.cuda.current_stream(data.device).cuda_stream)
+        _build.stream(data.device))
     _build.check(err, "assign_pack")
     assign_pack.launches += 1
     return win, chunk_bits

@@ -114,8 +114,8 @@ def decode2(words: torch.Tensor, chunk_starts: torch.Tensor,
     if words.device.type == "cpu":
         return decode2_plain(words, chunk_starts, dtab, N, C)
     _build.require_cuda(words, chunk_starts, dtab)
-    words = words.to(torch.int32).contiguous()
-    chunk_starts = chunk_starts.to(torch.int32).contiguous()
+    words = _build.i32(words)
+    chunk_starts = _build.i32(chunk_starts)
     out = torch.empty(B, N, dtype=torch.uint8, device=words.device)
     bpos = torch.empty(B, C, dtype=torch.int32, device=words.device)
     if B * C == 0:
@@ -123,7 +123,7 @@ def decode2(words: torch.Tensor, chunk_starts: torch.Tensor,
     err = _build.library().fdt_decode2(
         words.data_ptr(), chunk_starts.data_ptr(), dtab.data_ptr(),
         out.data_ptr(), bpos.data_ptr(), B, W, N, C,
-        torch.cuda.current_stream(words.device).cuda_stream)
+        _build.stream(words.device))
     _build.check(err, "decode2")
     decode2.launches += 1
     return out, bpos
@@ -219,7 +219,7 @@ def decode2_canon(win: torch.Tensor, T: int, meta: torch.Tensor,
         win.data_ptr(), meta.to(torch.int32).contiguous().data_ptr(),
         packed.to(torch.int32).contiguous().data_ptr(), out.data_ptr(),
         bpos.data_ptr(), L, ww, T,
-        torch.cuda.current_stream(win.device).cuda_stream)
+        _build.stream(win.device))
     _build.check(err, "decode2_canon")
     decode2_canon.launches += 1
     return out, bpos

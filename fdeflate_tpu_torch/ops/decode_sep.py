@@ -121,7 +121,7 @@ def decode_sep(words: torch.Tensor, chunk_starts: torch.Tensor,
     err = _build.library().fdt_decode_sep(
         words.data_ptr(), chunk_starts.data_ptr(), meta.data_ptr(),
         vals.data_ptr(), out.data_ptr(), bpos.data_ptr(), B, W, N, C,
-        torch.cuda.current_stream(words.device).cuda_stream)
+        _build.stream(words.device))
     _build.check(err, "decode_sep")
     decode_sep.launches += 1
     return out, bpos

@@ -209,7 +209,7 @@ def inflate_records(words, start, wend, bit_end, out0, meta, tab, K: int):
     err = _build.library().fdt_inflate_records(
         words.data_ptr(), *(x.data_ptr() for x in lane_in), meta.data_ptr(),
         tab.data_ptr(), recs.data_ptr(), bpos.data_ptr(), nout.data_ptr(),
-        done.data_ptr(), L, K, torch.cuda.current_stream(dev).cuda_stream)
+        done.data_ptr(), L, K, _build.stream(dev))
     _build.check(err, "inflate_records")
     inflate_records.launches += 1
     return recs, bpos, nout, done

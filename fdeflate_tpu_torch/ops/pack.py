@@ -118,7 +118,7 @@ def pack_blocked(tok: torch.Tensor, wwin: int) -> torch.Tensor:
         return win
     err = _build.library().fdt_pack_v1(
         tok.data_ptr(), win.data_ptr(), L, S, wwin,
-        torch.cuda.current_stream(tok.device).cuda_stream)
+        _build.stream(tok.device))
     _build.check(err, "pack_v1")
     pack_blocked.launches += 1
     return win

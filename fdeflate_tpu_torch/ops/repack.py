@@ -102,7 +102,7 @@ def combine(win: torch.Tensor, chunk_bits: torch.Tensor, pos0: torch.Tensor,
     err = _build.library().fdt_combine(
         win.data_ptr(), chunk_bits.data_ptr(), pos0.data_ptr(),
         words.data_ptr(), B, L // B, ww, W,
-        torch.cuda.current_stream(win.device).cuda_stream)
+        _build.stream(win.device))
     _build.check(err, "combine")
     combine.launches += 1
     return words
@@ -124,7 +124,7 @@ def combine_grouped(win, chunk_bits, pos0, B: int, W: int, group: int,
     err = _build.library().fdt_combine_grouped(
         win.data_ptr(), chunk_bits.data_ptr(), pos0.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), words.data_ptr(), B, win.shape[1], W,
-        group, torch.cuda.current_stream(win.device).cuda_stream)
+        group, _build.stream(win.device))
     _build.check(err, "combine_grouped")
     combine_grouped.launches += 1
     return words

@@ -142,7 +142,7 @@ def validate_headers(words, cands, n_bits: int):
     err = _build.library().fdt_validate_headers(
         words.data_ptr(), words.numel(), cands.data_ptr(), int(n_bits),
         good.data_ptr(), end.data_ptr(), L,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check(err, "validate_headers")
     validate_headers.launches += 1
     return good.bool(), end

@@ -57,6 +57,8 @@ from fdeflate_tpu_torch.ops.validate_headers import (
 from fdeflate_tpu_torch.parallel import discovery as PD
 from fdeflate_tpu_torch.ops.ultrafast import _encode, lane_starts, stream_words
 from fdeflate_tpu_torch.parallel.device_pipeline import fused_zlib_roundtrip
+from fdeflate_tpu_torch.tools.edges import (corrupt_words, k1_edge_inputs,
+                                            k1_long_lane, k3_edge_cases)
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 pytestmark = pytest.mark.cuda
@@ -101,6 +103,99 @@ def test_assign_pack_matches_plain(dev, name):
     assert assign_pack.launches == before + 1
     want = assign_pack_plain(data, lengths, C, t)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+K1_EDGES = [e[0] for e in k1_edge_inputs()]
+
+
+def _edge(dev, label):
+    (_l, d, lens, C), = [e for e in k1_edge_inputs() + [k1_long_lane()]
+                         if e[0] == label]
+    return (torch.from_numpy(d).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), C)
+
+
+@pytest.mark.parametrize("label", K1_EDGES + [k1_long_lane()[0]])
+def test_assign_pack_edges(dev, label):
+    """K1's warp at the edge geometries: runs on segment and tile edges,
+    S = 8, ragged and empty lanes, all zeros, no runs, C = 1 at 1 MiB."""
+    data, lengths, C = _edge(dev, label)
+    t = trained_tables(str(dev))
+    got = assign_pack(data, lengths, C, t)
+    want = assign_pack_plain(data, lengths, C, t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("label", K1_EDGES)
+def test_decode2_edges(dev, label):
+    """K3's warp on the edge batches: clean, corrupted at 64 words per
+    stream, an EOB in the middle of a lane, random chunk starts (wrong span
+    hints), S = 4."""
+    data, lengths, C = _edge(dev, label)
+    for _case, words, starts, dtab, N, C, want in k3_edge_cases(data, lengths, C):
+        before = decode2.launches
+        got = decode2(words, starts, dtab, N, C)
+        assert decode2.launches == before + 1
+        exp = decode2_plain(words, starts, dtab, N, C)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+        if want is not None:
+            assert torch.equal(got[0], want)
+
+
+@pytest.mark.parametrize("S", (64, 128, 256, 512, 1024, 2048))
+def test_decode2_lane_groups(dev, S):
+    """K3 with 32 / m lanes to a warp (m = 1..32 threads each, chosen from
+    S), on ragged streams, clean and with corrupted words: the groups of a
+    warp diverge and each must still equal the plain version."""
+    B, N = 3, 1 << 16
+    lengths = [N, N - 4000, 1234]
+    data = torch.from_numpy(_data(2, B, N, lengths)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    C = N // S
+    words, tb, _ad, starts, _eof = P.zlib_encode_step(C)(data, lens)
+    t = trained_tables(str(dev))
+    for w in (words, corrupt_words(words, tb, 64, seed=S)):
+        got = decode2(w, starts, t.dtab, N, C)
+        exp = decode2_plain(w, starts, t.dtab, N, C)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    assert torch.equal(decode2(words, starts, t.dtab, N, C)[0], data)
+
+
+def test_decode2_long_lanes(dev):
+    """K3 with lanes of several tiles: C = 1 at 1 MiB (bytes and exit bit
+    against the input and the encoder; the plain version loops once per
+    symbol) and S = 8192 against the plain version, clean and corrupted."""
+    data, lengths, C = _edge(dev, k1_long_lane()[0])
+    words, tb, _ad, starts, eof = P.zlib_encode_step(C)(data, lengths)
+    t = trained_tables(str(dev))
+    out, bpos = decode2(words, starts, t.dtab, data.shape[1], C)
+    assert torch.equal(out, data)
+    assert int(bpos[0, 0]) == int(eof[0]) - int(starts[0, 0])
+    data, lengths, C = _inputs(dev, "lanes2048_B4_N65536_C512")
+    C = 8
+    words, tb, _ad, starts, _eof = P.zlib_encode_step(C)(data, lengths)
+    for w in (words, corrupt_words(words, tb, 64, seed=5)):
+        got = decode2(w, starts, t.dtab, data.shape[1], C)
+        exp = decode2_plain(w, starts, t.dtab, data.shape[1], C)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+
+
+def test_decode2_adaptive_windows(dev):
+    """K3 on an adaptive tree's lane windows, whose zero bits need not
+    decode to a zero byte: clean and with corrupted words."""
+    from fdeflate_tpu_torch.ops.adaptive import encode_adaptive_blocked
+
+    data, lengths, C = _inputs(dev, "ragged_B3_N8192_C4")
+    win, _cb, _ad, _lens, ta = encode_adaptive_blocked(data, lengths, C)
+    S = data.shape[1] // C
+    zero = torch.zeros(win.shape[0], 1, dtype=torch.int32, device=dev)
+    bad = win.clone()
+    bad[::3, 5] ^= 0x5A5A5A5A
+    bad[1::2, -2] ^= 0x00F00F00
+    for w in (win, bad):
+        got = decode2(w, zero, ta.dtab, S, 1)
+        exp = decode2_plain(w, zero, ta.dtab, S, 1)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
 
 
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))

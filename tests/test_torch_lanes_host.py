@@ -1,13 +1,20 @@
 """The kernels' per-lane code, built for the host, against the plain versions.
 
-``fdeflate_tpu_torch/csrc/lanes.cuh`` holds the whole sequential work of a
-K1, a K3, a K6 and a K8 lane and of a K9 window word as plain C++,
-``csrc/inflate_lanes.cuh`` that of a K4 and a K5 lane.  The CUDA kernels run it one lane per thread; here g++ builds
-the same headers into a small host library with the kernels' lane loop
-around them, so the bit machines are held against the plain PyTorch
-versions on every tier-1 run, with no card.  The launch configuration,
-shared-memory tables and atomics are covered only on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+``fdeflate_tpu_torch/csrc/lanes.cuh`` holds, as plain C++, K1's and K3's
+lane code (a group of m threads per lane: K1's group classification, run
+scan and segment emit; K3's segment decode, sync rounds and span hints,
+put together by ``assign_pack_group`` and ``decode2_group``) and the
+whole sequential work of a K6 and a K8 lane and of a K9 window word;
+``csrc/inflate_lanes.cuh`` that of a K4 and a K5 lane.  Here g++ builds
+the same headers into a small host library: the lane loops around the
+one-lane machines, and K1's and K3's group code with ``HostGroup``
+(``csrc/warp.cuh``: m threads run in turn, collectives as loops; the
+kernels run the same code with ``WarpGroup``'s shuffles), for m = 32 as
+on the card at S = 2048, K3's own choice of m for each S, and 1, 2 and 5.
+So the bit machines and their orchestration are held against the plain
+PyTorch versions on every tier-1 run, with no card.  The launch
+configuration, cp.async staging, shuffles and shared-memory atomics are
+covered only on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -47,16 +54,26 @@ from fdeflate_tpu_torch.ops.inflate_records import (
 )
 from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch
 from fdeflate_tpu_torch.ops.validate_headers import validate_headers_plain
+from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
+from fdeflate_tpu_torch.tools.edges import (
+    corrupt_words,
+    k1_edge_inputs,
+    k1_long_lane,
+    mid_lane_bit,
+    splice_eob,
+)
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "fdeflate_tpu_torch" / "csrc"
 
-# The kernels' lane loops (assign_pack.cu, decode2.cu, decode_sep.cu,
-# inflate_records.cu, validate_headers.cu, decode2_canon.cu, pack_v1.cu),
-# serial on the host.
+# The kernels' lane loops (inflate_records.cu, validate_headers.cu,
+# decode_sep.cu, decode2_canon.cu, pack_v1.cu) and the group code of
+# assign_pack.cu and decode2.cu, serial on the host.
 _HARNESS = r"""
-#include <algorithm>
+#include <cstring>
+#include <vector>
 #include "lanes.cuh"
+#include "warp.cuh"
 #include "inflate_lanes.cuh"
 extern "C" void inflate_lanes(const uint32_t* words, const int64_t* start,
     const int64_t* wend, const int64_t* bit_end, const int64_t* out0,
@@ -76,21 +93,33 @@ extern "C" void validate_lanes(const uint32_t* words, int64_t W,
   for (int64_t i = 0; i < L; ++i)
     good[i] = fdt::validate_lane(rd, cands[i], n_bits, end + i);
 }
-extern "C" void assign_pack_lanes(const uint8_t* data, const int32_t* lengths,
+// K1's and K3's lane code with HostGroup (warp.cuh): m threads run in
+// turn, the same orchestration as the kernels'.
+extern "C" void assign_pack_warp(const uint8_t* data, const int32_t* lengths,
     const int32_t* lit, const int32_t* lent, uint32_t* win, int32_t* bits,
-    int B, int N, int C, int wwin) {
-  int S = N / C;
-  int32_t zlit = lit[0], t285 = lent[28] + (1 << fdt::kNbShift);
-  for (int64_t lane = 0; lane < (int64_t)B * C; ++lane) {
-    int b = lane / C, k = lane % C, base = k * S;
-    const uint8_t* src = data + (int64_t)b * N + base;
-    int al = std::min(std::max(lengths[b] / 8 * 8 - base, 0), S);
-    int ln = std::min(std::max(lengths[b] - base, 0), S);
-    bool prev_run = k > 0 && src[-1] == 0;
-    bits[lane] = fdt::assign_pack_lane(src, S, al, ln, prev_run, lit, lent,
-                                       zlit, t285, win + lane * wwin, wwin);
-  }
+    int B, int N, int C, int wwin, int m) {
+  std::vector<uint8_t> tile(fdt::kApTile);
+  std::vector<uint32_t> buf(fdt::kApBufWords);
+  fdt::HostGroup g{m};
+  for (int64_t lane = 0; lane < (int64_t)B * C; ++lane)
+    fdt::assign_pack_group(g, data, lengths, N, C, lane, lit, lent,
+                           tile.data(), buf.data(), win, wwin, bits);
 }
+// The hint is the kernel's times hnum / hden; tcap the output bytes staged
+// per lane (0: the kernel's, fdt::dec_tile(m)).  stats: HostGroup's.
+extern "C" void decode_warp(const uint32_t* words, const int32_t* starts,
+    const int32_t* dtab, uint8_t* out, int32_t* bpos, int B, int W, int N,
+    int C, int m, int tcap, int64_t hnum, int64_t hden, int64_t* stats) {
+  if (tcap == 0) tcap = fdt::dec_tile(m);
+  std::vector<uint8_t> tile(tcap + 16);
+  std::vector<uint32_t> sw(fdt::dec_words(31, tcap));
+  fdt::HostGroup g{m, hnum, hden, stats};
+  for (int64_t lane = 0; lane < (int64_t)B * C; ++lane)
+    fdt::decode2_group(g, words, W, starts, N, C, lane, dtab, tcap,
+                       tile.data(), sw.data(), out, bpos);
+}
+// K3's threads per lane for S bytes.
+extern "C" int dec_threads(int S) { return fdt::dec_threads(S); }
 extern "C" void decode_sep_lanes(const uint32_t* words, const int32_t* starts,
     const int32_t* meta, const int32_t* vals, uint8_t* out, int32_t* bpos,
     int B, int W, int N, int C) {
@@ -118,16 +147,6 @@ extern "C" void pack_v1_lanes(const int32_t* tok, uint32_t* win, int L, int S,
                      wi + p, lo + p, hi + p);
     for (int w = 0; w < wwin; ++w)
       win[lane * wwin + w] = fdt::pack_v1_word(wi, lo, hi, S / 2, w);
-  }
-}
-extern "C" void decode_lanes(const uint32_t* words, const int32_t* starts,
-    const int32_t* dtab, uint8_t* out, int32_t* bpos, int B, int W, int N,
-    int C) {
-  int S = N / C;
-  for (int64_t lane = 0; lane < (int64_t)B * C; ++lane) {
-    int b = lane / C, k = lane % C;
-    bpos[lane] = fdt::decode_lane(words + (int64_t)b * W, W, starts[lane],
-        dtab, (uint32_t*)(out + (int64_t)b * N + (int64_t)k * S), S);
   }
 }
 """
@@ -183,26 +202,79 @@ def _case(seed: int):
 SEEDS = range(0, 48, 6)
 
 
+def _assign_pack_warp(lib, data, lengths, C, t, m):
+    B, N = data.shape
+    ww = wwin(N // C)
+    win = torch.empty(B * C, ww, dtype=torch.int32)
+    bits = torch.empty(B * C, dtype=torch.int32)
+    data, lengths = data.contiguous(), lengths.to(torch.int32).contiguous()
+    lib.assign_pack_warp(_ptr(data), _ptr(lengths), _ptr(t.lit_tok),
+                         _ptr(t.len_tok), _ptr(win), _ptr(bits), B, N, C, ww,
+                         m)
+    return win, bits
+
+
+def _check_assign_pack(lib, data, lengths, C, t, m, label):
+    win, bits = _assign_pack_warp(lib, data, lengths, C, t, m)
+    want_win, want_bits = assign_pack_plain(data, lengths, C, t)
+    assert torch.equal(bits, want_bits), label
+    assert torch.equal(win, want_win), label
+
+
+def _decode_warp(lib, words, starts, dtab, N, C, m, hint=(1, 1), tcap=2048):
+    """K3's group code on the host, m threads to a lane and ``tcap`` output
+    bytes staged per lane (0: the kernel's for m): (out, bpos, stats)."""
+    B, W = words.shape
+    out = torch.empty(B, N, dtype=torch.uint8)
+    bpos = torch.empty(B, C, dtype=torch.int32)
+    stats = torch.zeros(4, dtype=torch.int64)
+    words = words.to(torch.int32).contiguous()
+    starts = starts.to(torch.int32).contiguous()
+    lib.decode_warp(_ptr(words), _ptr(starts), _ptr(dtab.contiguous()),
+                    _ptr(out), _ptr(bpos), B, W, N, C, m, tcap,
+                    ctypes.c_int64(hint[0]), ctypes.c_int64(hint[1]),
+                    _ptr(stats))
+    return out, bpos, stats
+
+
+def _check_decode(lib, words, starts, dtab, N, C, m, label, hint=(1, 1),
+                  want_data=None, tcap=2048):
+    """m = 0: the kernel's geometry for S (its m and staged tile)."""
+    if m == 0:
+        m, tcap = lib.dec_threads(N // C), 0
+    out, bpos, stats = _decode_warp(lib, words, starts, dtab, N, C, m, hint,
+                                    tcap)
+    want_out, want_bpos = decode2_plain(words, starts, dtab, N, C)
+    assert torch.equal(bpos, want_bpos), label
+    assert torch.equal(out, want_out), label
+    if want_data is not None:
+        assert torch.equal(out, want_data), label
+    assert int(stats[0]) <= m, label      # sync rounds: at most one per thread
+    return stats
+
+
+def _corrupt(words, total_bits, seed, B):
+    rng = np.random.default_rng(seed)
+    for _ in range(3):
+        b = int(rng.integers(0, B))
+        j = int(rng.integers(14, max(15, int(total_bits[b]) // 32)))
+        words[b, j] ^= int(rng.integers(1, 2**31))
+    return words
+
+
 @pytest.mark.parametrize("seed0", SEEDS)
 def test_assign_pack_lane_matches_plain(lib, seed0):
+    """K1's warp (32 threads) on the random seeds."""
     t = trained_tables()
     for seed in range(seed0, seed0 + 6):
         data, lengths, C = _case(seed)
-        B, N = data.shape
-        ww = wwin(N // C)
-        win = torch.empty(B * C, ww, dtype=torch.int32)
-        bits = torch.empty(B * C, dtype=torch.int32)
-        lib.assign_pack_lanes(_ptr(data), _ptr(lengths), _ptr(t.lit_tok),
-                              _ptr(t.len_tok), _ptr(win), _ptr(bits), B, N,
-                              C, ww)
-        want_win, want_bits = assign_pack_plain(data, lengths, C, t)
-        assert torch.equal(bits, want_bits), seed
-        assert torch.equal(win, want_win), seed
+        _check_assign_pack(lib, data, lengths, C, t, 32, seed)
 
 
 @pytest.mark.parametrize("seed0", SEEDS)
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_decode_lane_matches_plain(lib, seed0, corrupt):
+    """K3's warp (32 threads) on the random seeds, clean and corrupted."""
     t = trained_tables()
     for seed in range(seed0, seed0 + 6):
         data, lengths, C = _case(seed)
@@ -210,22 +282,209 @@ def test_decode_lane_matches_plain(lib, seed0, corrupt):
         words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
             data, lengths, C)
         if corrupt:
-            rng = np.random.default_rng(seed)
-            for _ in range(3):
-                b = int(rng.integers(0, B))
-                j = int(rng.integers(14, max(15, int(total_bits[b]) // 32)))
-                words[b, j] ^= int(rng.integers(1, 2**31))
-        W = words.shape[1]
-        out = torch.empty(B, N, dtype=torch.uint8)
-        bpos = torch.empty(B, C, dtype=torch.int32)
-        starts = starts.contiguous()
-        lib.decode_lanes(_ptr(words), _ptr(starts), _ptr(t.dtab), _ptr(out),
-                         _ptr(bpos), B, W, N, C)
-        want_out, want_bpos = decode2_plain(words, starts, t.dtab, N, C)
-        assert torch.equal(bpos, want_bpos), seed
-        assert torch.equal(out, want_out), seed
-        if not corrupt:
-            assert torch.equal(out, data), seed
+            words = _corrupt(words, total_bits, seed, B)
+        _check_decode(lib, words, starts, t.dtab, N, C, 32, seed,
+                      want_data=None if corrupt else data)
+
+
+THREADS = (1, 2, 5)   # besides the card's 32, run by the tests above
+# K3 also at the kernel's own geometry for each S (m = 0: dec_threads(S)
+# threads and dec_tile(m) staged bytes per lane).
+KERNEL_M = pytest.param(0, id="kernel")
+
+
+@pytest.mark.parametrize("m", THREADS)
+@pytest.mark.parametrize("seed0", SEEDS)
+def test_assign_pack_warp_threads(lib, m, seed0):
+    """K1's per-thread pieces with m threads to a lane."""
+    t = trained_tables()
+    for seed in range(seed0, seed0 + 6):
+        data, lengths, C = _case(seed)
+        _check_assign_pack(lib, data, lengths, C, t, m, seed)
+
+
+@pytest.mark.parametrize("m", THREADS + (KERNEL_M,))
+@pytest.mark.parametrize("seed0", SEEDS)
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decode_warp_threads(lib, m, seed0, corrupt):
+    """K3's group code with m threads to a lane, and at the kernel's own
+    choice of m for each S."""
+    t = trained_tables()
+    for seed in range(seed0, seed0 + 6):
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
+            data, lengths, C)
+        if corrupt:
+            words = _corrupt(words, total_bits, seed, B)
+        _check_decode(lib, words, starts, t.dtab, N, C, m, seed,
+                      want_data=None if corrupt else data)
+
+
+K1_EDGES = [e[0] for e in k1_edge_inputs()]
+
+
+@pytest.mark.parametrize("m", (1, 2, 5, 32))
+@pytest.mark.parametrize("label", K1_EDGES)
+def test_assign_pack_warp_edges(lib, m, label):
+    """Runs of 258n-1..258n+1 on segment and tile edges, whole-segment and
+    whole-tile runs, the ragged lane, lanes past the length, runs at k = 0,
+    S = 8, all zeros and no runs at all."""
+    (_l, d, lens, C), = [e for e in k1_edge_inputs() if e[0] == label]
+    _check_assign_pack(lib, torch.from_numpy(d),
+                       torch.tensor(lens, dtype=torch.int32), C,
+                       trained_tables(), m, label)
+
+
+@pytest.mark.parametrize("m", (5, 32))
+def test_assign_pack_warp_long_lane(lib, m):
+    """One 1 MiB lane (C = 1): 512 tiles, carries across every tile edge."""
+    label, d, lens, C = k1_long_lane()
+    _check_assign_pack(lib, torch.from_numpy(d),
+                       torch.tensor(lens, dtype=torch.int32), C,
+                       trained_tables(), m, label)
+
+
+def _edge_streams(label):
+    """(data, lengths, C, words, total_bits, starts) of a K1 edge batch."""
+    (_l, d, lens, C), = [e for e in k1_edge_inputs() if e[0] == label]
+    data = torch.from_numpy(d)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
+        data, lengths, C)
+    return data, lengths, C, words, total_bits, starts
+
+
+def _decode_edge_cases(kind):
+    """[(label, words, starts, dtab, N, C, hint, want_data)] for one kind."""
+    t = trained_tables()
+    cases = []
+    if kind in ("clean", "corrupted at 64 words", "hint too short",
+                "hint too long"):
+        for label in K1_EDGES:
+            data, lengths, C, words, tb, starts = _edge_streams(label)
+            want = data
+            if kind == "corrupted at 64 words":
+                words, want = corrupt_words(words, tb, 64, seed=len(label)), None
+            hint = {"hint too short": (1, 64), "hint too long": (64, 1)}.get(
+                kind, (1, 1))
+            cases.append((label, words, starts, t.dtab, data.shape[1], C, hint,
+                          want))
+    elif kind == "EOB spliced mid-lane":
+        for label in K1_EDGES[1:]:
+            data, lengths, C, words, tb, starts = _edge_streams(label)
+            S = data.shape[1] // C
+            for lane in (0, 1, C * data.shape[0] - 1):
+                if int(lengths[lane // C]) - (lane % C) * S <= S // 2 + 8:
+                    continue
+                bit = mid_lane_bit(data, lengths, C, t, starts, lane)
+                w = splice_eob(words, bit, lane // C, t.eof_code, t.eof_bits)
+                cases.append((f"{label} lane {lane}", w, starts, t.dtab,
+                              data.shape[1], C, (1, 1), None))
+    elif kind == "S = 4":
+        data, lengths, C, words, tb, starts = _edge_streams("S = 8")
+        win, _b = assign_pack_plain(data, lengths, C, t)
+        cases.append(("windows read 4 bytes", win,
+                      torch.zeros(win.shape[0], 1, dtype=torch.int32), t.dtab,
+                      4, 1, (1, 1), None))
+        rng = np.random.default_rng(44)
+        B, N = data.shape
+        st = np.sort(rng.integers(0, int(tb.min()), (B, N // 4)), axis=1)
+        cases.append(("linear, random starts", words,
+                      torch.from_numpy(st.astype(np.int32)), t.dtab, N,
+                      N // 4, (1, 1), None))
+    elif kind == "random starts":
+        data, lengths, C, words, tb, starts = _edge_streams(K1_EDGES[2])
+        rng = np.random.default_rng(45)
+        st = rng.integers(0, int(tb.max()) + 64, starts.shape)
+        cases.append(("unordered random starts", words,
+                      torch.from_numpy(st.astype(np.int32)), t.dtab,
+                      data.shape[1], C, (1, 1), None))
+    elif kind == "adaptive tree, corrupted windows":
+        from fdeflate_tpu_torch.ops.adaptive import encode_adaptive_blocked
+        data = torch.from_numpy(make_idat_corpus(2, 8192, seed=46))
+        lengths = torch.tensor([8192, 6001], dtype=torch.int32)
+        data[1, 6001:] = 0
+        clean, _cb, _ad, _lens, ta = encode_adaptive_blocked(data, lengths, 4)
+        win = clean.clone()
+        rng = np.random.default_rng(47)
+        for _ in range(6):
+            win[int(rng.integers(0, 8)), int(rng.integers(0, win.shape[1]))] ^= (
+                int(rng.integers(1, 2**31)))
+        zero = torch.zeros(win.shape[0], 1, dtype=torch.int32)
+        cases.append(("adaptive windows, clean", clean, zero, ta.dtab, 2048, 1,
+                      (1, 1), data.reshape(8, 2048)))
+        cases.append(("adaptive windows, corrupted", win, zero, ta.dtab, 2048,
+                      1, (1, 1), None))
+    elif kind == "several tiles":
+        data = torch.from_numpy(make_idat_corpus(2, 16384, seed=48))
+        lengths = torch.tensor([16384, 9999], dtype=torch.int32)
+        data[1, 9999:] = 0
+        words, tb, _ad, starts, _eof = encode_ultrafast_batch(data, lengths, 2)
+        cases.append(("S = 8192, clean", words, starts, t.dtab, 16384, 2,
+                      (1, 1), data))
+        cases.append(("S = 8192, corrupted", corrupt_words(words, tb, 64, 49),
+                      starts, t.dtab, 16384, 2, (1, 1), None))
+        cases.append(("S = 8192, short hint", words, starts, t.dtab, 16384, 2,
+                      (1, 100), data))
+    return cases
+
+
+DECODE_EDGES = ("clean", "corrupted at 64 words", "hint too short",
+                "hint too long", "EOB spliced mid-lane", "S = 4",
+                "random starts", "adaptive tree, corrupted windows",
+                "several tiles")
+
+
+@pytest.mark.parametrize("m", (1, 2, 5, 32, KERNEL_M))
+@pytest.mark.parametrize("kind", DECODE_EDGES)
+def test_decode_warp_edges(lib, m, kind):
+    """K3's warp on the K1 edge batches (clean, corrupted at 64 words per
+    stream, with a hint 64x too short or too long), EOB spliced into a
+    lane, S = 4, random chunk starts, an adaptive tree's windows whose
+    zero bits decode to bytes, and lanes of several tiles."""
+    short = 0
+    for label, words, starts, dtab, N, C, hint, want in _decode_edge_cases(kind):
+        stats = _check_decode(lib, words, starts, dtab, N, C, m,
+                              f"{kind}: {label}", hint, want)
+        short += int(stats[2])
+    if kind == "hint too short":
+        assert short > 0      # spans that fell short were followed on
+
+
+def test_decode_warp_resynchronises(lib):
+    """With the index's hint, the 32 threads of a clean lane agree within
+    a few sync rounds (the design's premise, not its correctness)."""
+    t = trained_tables()
+    data = torch.from_numpy(make_idat_corpus(4, 1 << 16, seed=50))
+    lengths = torch.full((4,), 1 << 16, dtype=torch.int32)
+    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(data, lengths, 32)
+    out, bpos, stats = _decode_warp(lib, words, starts, t.dtab, 1 << 16, 32,
+                                    32)
+    assert torch.equal(out, data)
+    assert int(stats[0]) <= 4, stats
+
+
+def test_dec_threads(lib):
+    """K3's threads per lane: ~64 output bytes each, a power of two, at
+    most a warp."""
+    S = (4, 8, 64, 68, 128, 256, 512, 1024, 1028, 2048, 4096, 1 << 20)
+    assert [lib.dec_threads(s) for s in S] == [1, 1, 1, 2, 2, 4, 8, 16, 32,
+                                                32, 32, 32]
+
+
+@pytest.mark.parametrize("C", (256, 512, 1024))
+def test_decode_warp_resynchronises_short_lanes(lib, C):
+    """At S = 256..1024 the kernel's m threads per lane (4..16, ~64 bytes
+    each) agree within a few sync rounds, as 32 do at S = 2048."""
+    t = trained_tables()
+    data = torch.from_numpy(make_idat_corpus(2, 1 << 18, seed=51))
+    lengths = torch.full((2,), 1 << 18, dtype=torch.int32)
+    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(data, lengths, C)
+    out, bpos, stats = _decode_warp(lib, words, starts, t.dtab, 1 << 18, C,
+                                    lib.dec_threads((1 << 18) // C), tcap=0)
+    assert torch.equal(out, data)
+    assert int(stats[0]) <= 4, stats
 
 
 @pytest.mark.parametrize("seed0", SEEDS)
