@@ -14,14 +14,20 @@ process per source, all at once) and drives the port's paths:
      258n-1..258n+1 on segment and tile edges, S = 8 and S = 4, lanes past
      the length, K1 on one 1 MiB lane at C = 1, K3 on streams with 64
      words corrupted each, an EOB spliced into a lane and random chunk
-     starts); the roundtrip through the public entry points
+     starts; K2 on lanes of 0 bits, lanes shorter than a word,
+     word-aligned starts, the last word's high half at W and trailing
+     words); the roundtrip through the public entry points
      (zlib.decompress of every stream, decoded bytes, exit bits,
      Adler-32), kernel and leg times.
 4.   K4 inflate_records and K5 validate_headers against their plain
      versions, bit for bit: blocks of a 1 MiB zlib-6 text stream, a Z_FIXED
      block, a block with one distance code and one with none, an invalid
-     distance code, a corrupted stream, a budget-exhausted run; K5 on all
-     stage-1 survivors of the stream and of random bytes.
+     distance code, a corrupted stream, a budget-exhausted run, and K4's
+     edge inputs of tools/edges.py (blocks at levels 1, 6, 9, IDAT and
+     Huffman-only with their false candidates, corrupted, too few slots,
+     too far, bit_end inside blocks, random starts: lanes ending with every
+     exit code 0-5); K5 on all stage-1 survivors of the stream and of
+     random bytes.
 5.   The foreign-stream path at the JAX bench's sizes through the entry
      points: 8 MiB word-salad text at zlib 6 and 8 MiB of IDAT bytes at
      zlib 1 through try_foreign, 16 x 1 MiB IDAT streams at zlib 1 through
@@ -33,8 +39,9 @@ process per source, all at once) and drives the port's paths:
 6.   Times with CUDA events: K4 and K5 against their plain versions at the
      path's shapes, the foreign leg split into stage 1, stage 2 (K5),
      record decode (host tables + K4 + readback) and stitch (materialize
-     + Adler-32), output GB/s
-     per stream kind, and host zlib.decompress on the same streams.
+     + Adler-32), output GB/s per stream kind, host zlib.decompress on the
+     same streams, and K4's work per stream (lanes, false candidates,
+     records, threads per lane, spans and sync rounds per span).
 7.   The septree profile: K6 decode_sep against its plain version on the
      small batches (clean and corrupted), the 16 x 1 MiB C = 512 roundtrip
      with ``tree=sep_profile()`` through the entry points (zlib.decompress
@@ -248,17 +255,21 @@ def run_kernels(torch, t, data, lengths, C):
 
 
 def edge_phase(torch, dev):
-    """Phase 1's edge inputs of K1's and K3's warps (tools/edges.py): K1
-    on all zeros, random bytes with no runs, runs of 258n-1..258n+1 on
-    segment and tile edges, S = 8, lanes past the length and one 1 MiB lane
-    at C = 1; K3 on each batch's streams clean, with 64 words corrupted per
-    stream, with an EOB spliced into a lane, from random chunk starts and,
-    at S = 4, on K1's windows and from random starts.  Every output is
-    held to the plain version's.  Returns the max abs errors."""
+    """Phase 1's edge inputs of K1's, K2's and K3's warps
+    (tools/edges.py): K1 on all zeros, random bytes with no runs, runs of
+    258n-1..258n+1 on segment and tile edges, S = 8, lanes past the length
+    and one 1 MiB lane at C = 1; K3 on each batch's streams clean, with 64
+    words corrupted per stream, with an EOB spliced into a lane, from
+    random chunk starts and, at S = 4, on K1's windows and from random
+    starts; K2 on lanes of 0 bits, lanes shorter than a word, word-aligned
+    starts, the last word's high half at W, trailing words and a mix.
+    Every output is held to the plain version's.  Returns the max abs
+    errors."""
     from fdeflate_tpu_torch.ops.assign_pack import assign_pack, assign_pack_plain
     from fdeflate_tpu_torch.ops.decode2 import decode2, decode2_plain
+    from fdeflate_tpu_torch.ops.repack import combine, combine_plain
     from fdeflate_tpu_torch.tools.edges import (k1_edge_inputs, k1_long_lane,
-                                                k3_edge_cases)
+                                                k2_edge_cases, k3_edge_cases)
     from fdeflate_tpu_torch.trees import trained_tables
 
     t = trained_tables(str(dev))
@@ -283,6 +294,16 @@ def edge_phase(torch, dev):
     print(f"assign_pack == plain on {len(k1_edge_inputs()) + 1} edge batches "
           f"(incl. C = 1 at 1 MiB); decode2 == plain on {len(k3_labels)} "
           f"edge cases {k3_labels}: ok", flush=True)
+    errs["combine"] = 0.0
+    k2_labels = []
+    for label, win, bits, pos0, B, W in k2_edge_cases():
+        win, bits, pos0 = (x.to(dev) for x in (win, bits, pos0))
+        errs["combine"] = max(errs["combine"], check_equal(
+            torch, f"combine ({label})", (combine(win, bits, pos0, B, W),),
+            (combine_plain(win, bits, pos0, B, W),)))
+        k2_labels.append(label)
+    print(f"combine == plain on {len(k2_labels)} edge cases {k2_labels}: ok",
+          flush=True)
     return errs
 
 
@@ -409,6 +430,35 @@ def foreign_split(torch, P, PD, z: bytes, dev):
         z, words_dev=wd, return_device=True, device=dev), 3)
     host = min(timed(lambda: zlib.decompress(z)) for _ in range(3))
     return t, total, host, L, (lanes, wd, bounds, c1)
+
+
+def k4_report(torch, PD, lanes, wd, bounds, K: int) -> str:
+    """K4's work on one stream's lanes: lanes, records, threads per lane
+    (the kernel's fdt::inf_threads of each lane's hint), spans and sync
+    rounds (the kernel's counters), and false-candidate lanes (lanes that
+    are not links of the confirmed chain)."""
+    from fdeflate_tpu_torch.ops.inflate_records import DONE_EOB, inflate_records
+
+    args = PD.lane_inputs(lanes, wd, *bounds)
+    stats = torch.zeros(4, dtype=torch.int64, device=wd.device)
+    recs, bpos, _nout, done = inflate_records(*args, K, stats=stats)
+    start = args[1].cpu().numpy()
+    end = np.minimum(args[2].cpu().numpy() * 32, args[3].cpu().numpy())
+    nxt = np.append(start[1:], -1)
+    end = np.where((nxt > start) & (nxt < end), nxt, end)
+    m = np.ones_like(start)
+    while ((m < 32) & (1024 * m < end - start)).any():
+        m = np.where((m < 32) & (1024 * m < end - start), 2 * m, m)
+    L = len(lanes)
+    walk = PD._chain(lanes, 0, L, bpos.cpu().numpy(),
+                     done.cpu().numpy() == DONE_EOB)
+    chain = 0 if walk is None else len(walk[0])
+    s = stats.tolist()
+    ms = dict(zip(*(x.tolist() for x in np.unique(m, return_counts=True))))
+    return (f"{L} lanes ({L - chain} false candidates), "
+            f"{int((recs != 0).sum())} records, threads per lane {ms}, "
+            f"{s[1]} spans ({s[2]} continued by another), sync rounds "
+            f"{s[3] / max(s[1], 1):.3f} per span, at most {s[0]}")
 
 
 def timed(fn) -> float:
@@ -1086,6 +1136,7 @@ def main() -> int:
     from fdeflate_tpu_torch.ops.validate_headers import (
         validate_headers, validate_headers_plain)
     from fdeflate_tpu_torch.parallel import discovery as PD
+    from fdeflate_tpu_torch.tools.edges import K4_KINDS, k4_edge_case
 
     k4_args, z1m, w1m = foreign_kernel_inputs(torch, dev, make_idat_corpus)
     K = PD.lane_budget(6144)
@@ -1102,6 +1153,22 @@ def main() -> int:
         need = {1, 3} if k == K else {0}
         if not need <= set(codes):
             raise AssertionError(f"K={k}: exit codes {codes} miss {need}")
+    # The edge inputs of K4's group code (tools/edges.py), against the
+    # plain version on the CPU (it loops once per record step).
+    codes = set()
+    for kind in K4_KINDS:
+        args, k = k4_edge_case(kind)
+        got = inflate_records(*(x.to(dev) for x in args), k)
+        want = inflate_records_plain(*args, k)
+        torch.cuda.synchronize()
+        errs["inflate_records"] = max(errs["inflate_records"], check_equal(
+            torch, f"inflate_records ({kind})", (g.cpu() for g in got), want))
+        codes |= set(got[3].tolist())
+        print(f"inflate_records == plain on the {kind} edge input "
+              f"({args[1].numel()} lanes, K={k}, exit codes "
+              f"{sorted(set(got[3].tolist()))}): ok", flush=True)
+    if not {0, 1, 2, 3, 4, 5} <= codes:
+        raise AssertionError(f"K4 edge inputs ended with codes {codes} only")
     rb = np.random.default_rng(6).bytes(1 << 20)
     for z, w in ((z1m, w1m), (rb, PD.stage_words(rb, device=dev))):
         c = torch.from_numpy(PD.scan_stage1_device(z, device=dev, words=w)).to(dev)
@@ -1166,6 +1233,10 @@ def main() -> int:
               f"kept there) {total:.4f} ms = {len(raw) / total / 1e6:.4f} GB/s "
               f"of output; host zlib.decompress {len(raw) / host / 1e9:.4f} "
               f"GB/s [{card}]", flush=True)
+        lanes_k, wd_k, bounds_k, _c1 = legs[kind]
+        print(f"K4 on foreign {kind}: "
+              f"{k4_report(torch, PD, lanes_k, wd_k, bounds_k, K)}",
+              flush=True)
     tb = cuda_ms(torch, lambda: P.try_foreign_batch(batch, device=dev), 3)
     host = sum(min(timed(lambda: zlib.decompress(z)) for _ in range(3))
                for z in batch)

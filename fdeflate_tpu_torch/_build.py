@@ -5,7 +5,8 @@ all started together, and link into one shared library with a plain C
 interface (``build/fdeflate_tpu_torch/libfdt_kernels.so`` under the
 repository root), loaded with ctypes.  Each entry point launches
 one kernel on the stream it is given and returns the launch's
-``cudaError_t``; ``check`` turns a nonzero code into an exception.
+``cudaError_t``; wrappers call them through ``launch``, which makes the
+tensors' device current and turns a nonzero code into an exception.
 
 The library is built at first use and rebuilt when the sources change (a
 hash of them is stored beside it).  Nothing here runs at import time: the
@@ -37,15 +38,15 @@ _SIGNATURES = {
     "fdt_assign_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # win, chunk_bits, pos0, words, B, C, wwin, W, stream
     "fdt_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # words, chunk_starts, dtab, out, bpos, B, W, N, C, stream
-    "fdt_decode2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # words, chunk_starts, dtab, out, bpos, B, W, N, C, device, stream
+    "fdt_decode2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # words, chunk_starts, meta, vals, out, bpos, B, W, N, C, stream
     "fdt_decode_sep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # data, n, length, sums, wsums, tiles, stream
     "fdt_adler32_tiles": [_P, _L, _P, _P, _P, _L, _P],
     # words, start, wend, bit_end, out0, meta, tab, recs, bpos, nout, done,
-    # L, K, stream
-    "fdt_inflate_records": [_P] * 11 + [_I, _I, _P],
+    # stats (or null), L, K, stream
+    "fdt_inflate_records": [_P] * 12 + [_I, _I, _P],
     # words, W, cands, n_bits, good, end, L, stream
     "fdt_validate_headers": [_P, _L, _P, _L, _P, _P, _I, _P],
     # win, meta, packed, out, bpos, L, wwin, T, stream
@@ -136,13 +137,30 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
-def stream(device: torch.device) -> int:
-    """The current CUDA stream of ``device`` (a CUDA tensor's device), as
-    the pointer a launch takes.  ``torch.cuda.current_stream(device)``
-    builds a Python Stream object first, about as much host time as the
-    rest of a wrapper; this is the raw getter that PyTorch's own generated
-    kernels launch with."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch entry point ``fdt_<name>`` with ``args`` on ``device`` (a CUDA
+    tensor's device) and raise on a failed launch.
+
+    The entry points launch on the calling thread's current CUDA device, so
+    ``device`` is made current for the call when it is not already (the
+    one check costs ~0.1 us; a wrapper's host time shows in one-call
+    times).  The last argument passed is the device's current stream, as
+    the raw pointer PyTorch's own generated kernels launch with
+    (``torch.cuda.current_stream`` builds a Python object first, about as
+    much host time as the rest of a wrapper).  Every kernel wrapper of the
+    port launches through here."""
+    fn = getattr(library(), f"fdt_{name}")
+    index = device.index
+    current = torch._C._cuda_getDevice()
+    if current == index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        torch._C._cuda_setDevice(index)
+        try:
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        finally:
+            torch._C._cuda_setDevice(current)
+    check(err, name)
 
 
 def i32(x):

@@ -3,39 +3,45 @@
 // Replaces fdeflate_tpu/ops/repack.py:_combine_kernel, which ORs lane rows
 // into 1024-word output slabs with each lane's word shift applied in
 // flight (slab-granular DMA is all Mosaic offers for per-lane placement).
-// Here block `lane` reads its window row with coalesced loads, shifts each
-// word by pos0 & 31 in a 64-bit register and ORs the two halves into
-// words[b, (pos0 >> 5) + j] and the word after.  Neighbouring lanes share
-// only the word at their boundary, and a word's high half meets the next
-// word's low half, so the ORs are atomic.  Only the ceil(bits / 32) words
-// that hold payload are read.
+// Here a warp takes a lane (fdt::combine_group in lanes.cuh, with
+// warp.cuh's WarpGroup), eight lanes to a block: each thread forms four
+// consecutive output words at a time from the lane's window words j-1 and
+// j by a funnel shift and stores them with one 16-byte store where they are
+// aligned, so a warp writes 512 contiguous bytes per step.  Each output
+// word belongs to the lane its first bit lies in; that lane also ORs in
+// the lanes that start inside its last word, so every word of [B, W] is
+// written exactly once, plainly: no atomics, and no zero fill before the
+// launch (the words before a stream's first lane are written as zeros by
+// that lane; those past its last lane's payload, most of W where a stream
+// compresses well, by warps of their own after the lanes', 4096 words
+// each).
 //
-// Bound on the H100: memory traffic (~the payload bits once in, once out
-// as 32-bit atomics to L2); the output row is zeroed by the caller.
+// Bound on the H100: memory traffic, the used window words read once (and
+// the neighbouring word again, from L1) and the stream words written once.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
+#include "warp.cuh"
+
 namespace {
 
-__global__ void combine_kernel(const uint32_t* __restrict__ win,
-                               const int32_t* __restrict__ chunk_bits,
-                               const int32_t* __restrict__ pos0,
-                               uint32_t* __restrict__ words, int C, int wwin,
-                               int W) {
-  int64_t lane = blockIdx.x;
-  int b = static_cast<int>(lane / C);
-  int nw = (chunk_bits[lane] + 31) >> 5;
-  int p = pos0[lane];
-  int w0 = p >> 5;
-  int sh = p & 31;
-  const uint32_t* src = win + lane * wwin;
-  uint32_t* row = words + static_cast<int64_t>(b) * W;
-  for (int j = threadIdx.x; j < nw; j += blockDim.x) {
-    uint64_t x = static_cast<uint64_t>(src[j]) << sh;
-    uint32_t lo = static_cast<uint32_t>(x);
-    uint32_t hi = static_cast<uint32_t>(x >> 32);
-    if (lo) atomicOr(row + w0 + j, lo);
-    if (hi && w0 + j + 1 < W) atomicOr(row + w0 + j + 1, hi);
+constexpr int kWarps = 8;
+
+__global__ void __launch_bounds__(32 * kWarps)
+combine_kernel(const uint32_t* __restrict__ win,
+               const int32_t* __restrict__ chunk_bits,
+               const int32_t* __restrict__ pos0, uint32_t* __restrict__ words,
+               int64_t L, int C, int wwin, int W, int64_t pieces) {
+  const int64_t job =
+      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const fdt::WarpGroup g(32, threadIdx.x & 31);
+  if (job < L) {
+    fdt::combine_group(g, win, chunk_bits, pos0, words, C, wwin, W, job);
+  } else if (job - L < (L / C) * pieces) {
+    const int64_t z = job - L;
+    fdt::combine_zero_group(g, chunk_bits, pos0, words, C, W, z / pieces,
+                            z % pieces);
   }
 }
 
@@ -44,10 +50,13 @@ __global__ void combine_kernel(const uint32_t* __restrict__ win,
 extern "C" int fdt_combine(const void* win, const void* chunk_bits,
                            const void* pos0, void* words, int B, int C,
                            int wwin, int W, void* stream) {
-  int L = B * C;
-  combine_kernel<<<L, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int64_t L = static_cast<int64_t>(B) * C;
+  const int64_t pieces = (W + fdt::kCombineZero - 1) / fdt::kCombineZero;
+  const int64_t blocks = (L + B * pieces + kWarps - 1) / kWarps;
+  combine_kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(win), static_cast<const int32_t*>(chunk_bits),
-      static_cast<const int32_t*>(pos0), static_cast<uint32_t*>(words), C, wwin,
-      W);
+      static_cast<const int32_t*>(pos0), static_cast<uint32_t*>(words), L, C,
+      wwin, W, pieces);
   return static_cast<int>(cudaGetLastError());
 }

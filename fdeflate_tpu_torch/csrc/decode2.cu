@@ -101,12 +101,12 @@ cudaError_t grid_cap(int dev, int* cap) {
 
 }  // namespace
 
+// `dev`: the device the caller made current, whose stream `stream` is.
 extern "C" int fdt_decode2(const void* words, const void* chunk_starts,
                            const void* dtab, void* out, void* bpos, int B,
-                           int W, int N, int C, void* stream) {
-  int dev = 0, cap = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = grid_cap(dev, &cap);
+                           int W, int N, int C, int dev, void* stream) {
+  int cap = 0;
+  cudaError_t err = grid_cap(dev, &cap);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t L = static_cast<int64_t>(B) * C;
   const int64_t per_block = static_cast<int64_t>(kWarps) * (32 / fdt::dec_threads(N / C));

@@ -1,11 +1,11 @@
-// Per-lane bit machines of the foreign-stream decoder.
+// Lane code of the foreign-stream decoder.
 //
-// K4 inflate_records decodes one deflate block per lane into records; K5
-// validate_headers checks one candidate dynamic-block header per lane.
-// Each function below is the whole sequential work of one lane; the
-// kernels in inflate_records.cu and validate_headers.cu run one lane per
-// thread.  Plain C++ apart from two bit-reversal intrinsics, so the same
-// source also compiles for the host (tests/test_torch_lanes_host.py).
+// K4 inflate_records decodes one deflate block per lane into records, by a
+// group of m threads (inflate_group, written over warp.cuh's policy as
+// lanes.cuh's decode2_group is); K5 validate_headers checks one candidate
+// dynamic-block header per lane, one thread each (validate_lane).  Plain
+// C++ apart from bit-reversal intrinsics, so the same source also compiles
+// for the host (tests/test_torch_lanes_host.py).
 #pragma once
 
 #include "lanes.cuh"
@@ -18,8 +18,8 @@ constexpr int32_t kRecMatch = 2 << 28;  // | (len - 3) << 15 | (dist - 1)
 constexpr int32_t kRecEob = 3 << 28;
 constexpr int32_t kRecErr = 4 << 28;
 
-// Lane exit codes of inflate_lane.  0-2 are decode_records_np's `done`;
-// 3-5 refine it for the sequential decoder's error classes.
+// Lane exit codes of K4.  0-2 are decode_records_np's `done`; 3-5 refine
+// it for the sequential decoder's error classes.
 constexpr int32_t kDoneSlots = 0;      // ran out of record slots
 constexpr int32_t kDoneEob = 1;        // end of block
 constexpr int32_t kDoneBadLitlen = 2;  // invalid literal/length code
@@ -84,90 +84,359 @@ FDT_HD int32_t tab_entry(const int32_t* tab, int idx) {
       (static_cast<uint32_t>(tab[idx >> 1]) >> ((idx & 1) * 16)) & 0x7FFF);
 }
 
-// K4: decode one block from absolute bit `pos` into at most K records,
-// record u at recs[u * stride].  Semantics of
-// pallas_inflate.decode_records_np (a record is <= 2 literals, a match, EOB
-// or an error; a lane stops at EOB or at an error, leaving its position
-// before the failing symbol), plus two checks that stop the lane with an
-// error record: a symbol whose bits run past `bit_end` (kDoneTruncated; for
-// an invalid distance code the bits counted are the length code's and its
-// extra bits', as ops/inflate.decode_symbols counts them) and a distance
-// larger than out0 plus the bytes this lane has produced (kDoneTooFar).
-// Truncation wins over an invalid code, which wins over a distance too
-// far, as in decode_symbols.  Slots past the last record are not written.
-FDT_HD int32_t inflate_lane(const WordReader& rd, int64_t pos, int64_t bit_end,
-                            int64_t out0, const int32_t* meta,
-                            const int32_t* tab, int32_t* recs, int64_t stride,
-                            int K, int64_t* bpos_out, int64_t* nout_out) {
-  int64_t nout = 0;
-  int32_t done = kDoneSlots;
-  for (int u = 0; u < K; ++u) {
-    uint32_t bits = rd.peek32(pos);
-    int idx1;
-    int L1 = canon15(bits, meta, 0, &idx1);
-    int32_t e1 = tab_entry(tab, idx1);
-    int cls1 = e1 >> 13;
-    int32_t rec = kRecErr;
-    int32_t err = -1;
-    int64_t used = L1;
-    int64_t adv = 0;
-    if (cls1 == 3) {
-      err = kDoneBadLitlen;
-    } else if (cls1 == 1) {
-      rec = kRecEob;
-    } else if (cls1 == 0) {
-      int32_t lit0 = e1 & 0x1FF;
-      int idx2;
-      int L2 = canon15(bits >> L1, meta, 0, &idx2);
-      int32_t e2 = tab_entry(tab, idx2);
-      if ((e2 >> 13) == 0) {
-        rec = kRecLits | (2 << 16) | ((e2 & 0xFF) << 8) | lit0;
-        used += L2;
-        adv = 2;
-      } else {
-        rec = kRecLits | (1 << 16) | lit0;
-        adv = 1;
-      }
+// ---- K4, a group of threads per lane --------------------------------------
+//
+// Semantics of ops/inflate_records.inflate_records_plain (and of
+// pallas_inflate.decode_records_np): decode one block from absolute bit
+// `start` into at most K records, record u at recs[u * stride].  A record
+// is <= 2 literals (two when the next symbol is also a literal), a match,
+// EOB or an error; a lane stops at EOB or at an error, leaving its position
+// before the failing symbol, with an error record.  Besides the invalid
+// literal/length and distance codes, two checks stop a lane: a symbol whose
+// bits run past `bit_end` (kDoneTruncated; for an invalid distance code the
+// bits counted are the length code's and its extra bits', as
+// ops/inflate.decode_symbols counts them) and a distance larger than out0
+// plus the bytes the lane has produced (kDoneTooFar).  Truncation wins
+// over an invalid code, which wins over a distance too far.  A lane that
+// fills its K slots ends with done 0 and its position after slot K - 1.
+// Slots past the last record are not written.
+//
+// The lane is decoded span by span: a span stages kInfTileWords words from
+// the lane's position in shared memory (words at or past `wend` read as
+// 0), splits a hint of its bit length into m sub-ranges, and runs K3's
+// protocol on records instead of symbols: thread i decodes records from
+// its sub-range's first bit to its first record boundary after a match at
+// or past the next one; while a thread's start differs from the previous
+// thread's exit it decodes again from that exit (sync rounds).  Exits are
+// record boundaries, so a thread that started on a symbol boundary inside a
+// literal pair is not in step with the serial decode, whatever its bit.
+// At the fixed point every live segment is the serial decode's; scans of
+// the segments' record and byte counts give each its first slot and its
+// output offset, and a write pass decodes each live segment once more,
+// storing its records and checking distances against out0 plus the bytes
+// before them (too far is known only then).  The first segment to end the
+// span (EOB, an error, the K slots, or a record past the staged words)
+// decides what follows; segments after a too-far error clear the slots
+// they wrote.  The hint (inf_hint_end: the next lane's start when it lies
+// in the same stream, else the stream's end) decides only where threads
+// start, never the result.
+//
+// The decode lookup is built once per lane: a direct table over the first
+// kInfBits bits of the litlen and of the distance peek, whose entry is the
+// canonical decode (canon15) wherever every peek with those bits decodes
+// alike in no more than kInfBits bits, and -1 elsewhere, where the compare
+// chain runs.
+
+constexpr int kInfBits = 10;
+constexpr int kInfTable = 1 << kInfBits;
+constexpr int kInfTileWords = 2048;
+// A record starting at or before bit kInfPmax of the staged words reads
+// them only: a record reads 32 bits at its start and 32 more at most 20
+// bits on (the distance code after a length code and its extra bits).
+constexpr int32_t kInfPmax = 32 * (kInfTileWords - 3);
+constexpr int kInfBitsPerThread = 1024;
+
+// Threads per lane from the lane's hinted span (~1024 bits, ~100 records,
+// a thread; a power of two up to 32).
+FDT_HD int inf_threads(int64_t span_bits) {
+  int m = 1;
+  while (m < 32 && static_cast<int64_t>(kInfBitsPerThread) * m < span_bits)
+    m <<= 1;
+  return m;
+}
+
+// Where the hint of lane `lane` ends: the next lane's start when it lies
+// after this lane's and before its stream's end, else the stream's end.
+FDT_HD int64_t inf_hint_end(const int64_t* start, const int64_t* wend,
+                            const int64_t* bit_end, int64_t L, int64_t lane) {
+  int64_t e = wend[lane] * 32;
+  if (bit_end[lane] < e) e = bit_end[lane];
+  if (lane + 1 < L && start[lane + 1] > start[lane] && start[lane + 1] < e)
+    e = start[lane + 1];
+  return e;
+}
+
+// Table entry of peek x (< kInfTable) for the tree at meta row brow:
+// (code length << 16) | table entry, or -1.  The compare chain's length is
+// a sum of comparisons each monotone in the reversed peek, so it is the
+// same for every completion of x's bits iff it is the same for the least
+// and the greatest.
+FDT_HD int32_t inf_entry(const int32_t* meta, const int32_t* tab, int brow,
+                         uint32_t x) {
+  int ilo, ihi;
+  const int llo = canon15(x, meta, brow, &ilo);
+  const int lhi = canon15(x | (0x7FFFu & ~(kInfTable - 1u)), meta, brow, &ihi);
+  if (llo != lhi || llo > kInfBits) return -1;
+  return (llo << 16) | tab_entry(tab, ilo);
+}
+
+// Thread i of n's part of the lane's litlen and distance tables.
+FDT_HD void inf_table_part(const int32_t* meta, const int32_t* tab,
+                           int32_t* lit, int32_t* dist, int i, int n) {
+  for (int x = i; x < kInfTable; x += n) {
+    lit[x] = inf_entry(meta, tab, 0, x);
+    dist[x] = inf_entry(meta, tab, 32, x);
+  }
+}
+
+struct InfTables {
+  const int32_t* lit;
+  const int32_t* dist;
+  const int32_t* meta;
+  const int32_t* tab;
+};
+
+// Code length of the peek `bits` under the litlen (d false) or distance
+// tree; *e its table entry.
+FDT_HD int inf_lookup(const InfTables& t, bool d, uint32_t bits, int32_t* e) {
+  const int32_t x = (d ? t.dist : t.lit)[bits & (kInfTable - 1)];
+  if (x >= 0) {
+    *e = x & 0x7FFF;
+    return x >> 16;
+  }
+  int idx;
+  const int L = canon15(bits, t.meta, d ? 32 : 0, &idx);
+  *e = tab_entry(t.tab, idx);
+  return L;
+}
+
+struct InfStep {
+  int32_t rec;   // the record (kRecErr on an error)
+  int32_t used;  // bits consumed
+  int32_t adv;   // output bytes
+  int32_t err;   // kDone* error of the symbol (too far not checked), or -1
+  int32_t dist;  // a match's distance, else 0
+  bool eob;
+};
+
+// One record from bit p of the staged words; rel_end is bit_end there.
+FDT_HD InfStep inflate_step(const uint32_t* sw, int32_t p, int32_t rel_end,
+                            const InfTables& t) {
+  InfStep r{kRecErr, 0, 0, -1, 0, false};
+  const uint32_t bits = peek32(sw, p);
+  int32_t e1;
+  const int L1 = inf_lookup(t, false, bits, &e1);
+  const int cls1 = e1 >> 13;
+  r.used = L1;
+  if (cls1 == 3) {
+    r.err = kDoneBadLitlen;
+  } else if (cls1 == 1) {
+    r.rec = kRecEob;
+    r.eob = true;
+  } else if (cls1 == 0) {
+    const int32_t lit0 = e1 & 0x1FF;
+    int32_t e2;
+    const int L2 = inf_lookup(t, false, bits >> L1, &e2);
+    if ((e2 >> 13) == 0) {
+      r.rec = kRecLits | (2 << 16) | ((e2 & 0xFF) << 8) | lit0;
+      r.used += L2;
+      r.adv = 2;
     } else {
-      int ext1 = (e1 >> 9) & 0xF;
-      int32_t run = (e1 & 0x1FF) +
-                    static_cast<int32_t>((bits >> L1) & ((1u << ext1) - 1));
-      used += ext1;
-      uint32_t dbits = rd.peek32(pos + used);
-      int idxd;
-      int Ld = canon15(dbits, meta, 32, &idxd);
-      int32_t s = tab_entry(tab, idxd) & 0x1FF;
-      if (s == 0x1FF) {
-        err = kDoneBadDist;
-      } else {
-        int dext = (s >> 1) - 1 > 0 ? (s >> 1) - 1 : 0;
-        int32_t dbase = s < 2 ? s + 1 : ((2 + (s & 1)) << dext) + 1;
-        int32_t dist = dbase +
-                       static_cast<int32_t>((dbits >> Ld) & ((1u << dext) - 1));
-        rec = kRecMatch | ((run - 3) << 15) | (dist - 1);
-        used += Ld + dext;
-        adv = run;
-        if (dist > out0 + nout) err = kDoneTooFar;
-      }
+      r.rec = kRecLits | (1 << 16) | lit0;
+      r.adv = 1;
     }
-    if (pos + used > bit_end) err = kDoneTruncated;
-    if (err >= 0) {
-      recs[u * stride] = kRecErr;
-      done = err;
-      break;
-    }
-    recs[u * stride] = rec;
-    pos += used;
-    nout += adv;
-    if (cls1 == 1) {
-      done = kDoneEob;
-      break;
+  } else {
+    const int ext1 = (e1 >> 9) & 0xF;
+    const int32_t run = (e1 & 0x1FF) +
+                        static_cast<int32_t>((bits >> L1) & ((1u << ext1) - 1));
+    r.used += ext1;
+    const uint32_t dbits = peek32(sw, p + r.used);
+    int32_t ed;
+    const int Ld = inf_lookup(t, true, dbits, &ed);
+    const int32_t s = ed & 0x1FF;
+    if (s == 0x1FF) {
+      r.err = kDoneBadDist;
+    } else {
+      const int dext = (s >> 1) - 1 > 0 ? (s >> 1) - 1 : 0;
+      const int32_t dbase = s < 2 ? s + 1 : ((2 + (s & 1)) << dext) + 1;
+      r.dist = dbase + static_cast<int32_t>((dbits >> Ld) & ((1u << dext) - 1));
+      r.rec = kRecMatch | ((run - 3) << 15) | (r.dist - 1);
+      r.used += Ld + dext;
+      r.adv = run;
     }
   }
-  *bpos_out = pos;
-  *nout_out = nout;
-  return done;
+  if (p + r.used > rel_end) r.err = kDoneTruncated;
+  return r;
 }
+
+// How a K4 segment decode ended.
+enum : int {
+  kInfStop = 0,  // at a record boundary at or past `stop`
+  kInfEob = 1,   // after an EOB record
+  kInfErr = 2,   // at an error record (exit: the failing symbol's start)
+  kInfOff = 3,   // a record start past kInfPmax (the next span's)
+  kInfFull = 4,  // the lane's K slots are full (o0 + n >= want)
+};
+
+struct InfSeg {
+  int32_t exit;   // bit after the last record (at an error: its start)
+  int32_t n;      // records, an error record included
+  int32_t bytes;  // output bytes of the records
+  int end;
+  int32_t err;    // kDone* code at kInfErr
+};
+
+// K4 segment decode: records from bit p until a boundary at or past `stop`
+// that follows a match (at least one record), EOB, an error, a start past
+// kInfPmax, or o0 + n >= want.  A boundary after a match is one whatever
+// pairing of literals came before it: a thread that started out of step
+// with the pairs is back in step there once its symbols are, so the next
+// thread can start from its exit (inside a run of literals the pairs stay
+// out of step to the run's end).  With `check`, a match farther than far0 plus the segment's
+// bytes before it is a too-far error.  With `recs`, record r is stored at
+// recs[r * stride].
+FDT_HD InfSeg inflate_segment(const uint32_t* sw, int32_t p, int32_t stop,
+                              int32_t rel_end, const InfTables& t, int32_t o0,
+                              int32_t want, bool check, int64_t far0,
+                              int32_t* recs, int64_t stride) {
+  InfSeg r{p, 0, 0, kInfStop, -1};
+  bool after_match = false;
+  do {
+    if (p > kInfPmax) {
+      r.end = kInfOff;
+      break;
+    }
+    const InfStep st = inflate_step(sw, p, rel_end, t);
+    int32_t err = st.err;
+    if (err < 0 && check && st.dist > 0 && st.dist > far0 + r.bytes)
+      err = kDoneTooFar;
+    if (err >= 0) {
+      if (recs) recs[r.n * stride] = kRecErr;
+      r.n += 1;
+      r.end = kInfErr;
+      r.err = err;
+      break;
+    }
+    if (recs) recs[r.n * stride] = st.rec;
+    p += st.used;
+    r.bytes += st.adv;
+    r.n += 1;
+    if (st.eob) {
+      r.end = kInfEob;
+      break;
+    }
+    if (o0 + r.n >= want) {
+      r.end = kInfFull;
+      break;
+    }
+    after_match = st.dist > 0;
+  } while (p < stop || !after_match);
+  r.exit = p;
+  return r;
+}
+
+// K4 lane: the block from `start` into recs[u * stride] (u < K), with the
+// lane's stream bounds (`wend` words, `bit_end` bits), out0, the hint's
+// end `hint_end`, the lane's tables and kInfTileWords words of staging
+// `sw`, by the group g (warp.cuh) of m threads.  Writes *bpos_out,
+// *nout_out and *done_out (kDone*).
+template <class G>
+FDT_GROUP void inflate_group(const G& g, const uint32_t* words, int64_t start,
+                             int64_t wend, int64_t bit_end, int64_t out0,
+                             int64_t hint_end, const InfTables& t,
+                             uint32_t* sw, int32_t* recs, int64_t stride,
+                             int K, int64_t* bpos_out, int64_t* nout_out,
+                             int32_t* done_out) {
+  const int m = g.m;
+  typename G::template Var<int32_t> st, stop, pre, bpre, px;
+  typename G::template Var<InfSeg> s, wr;
+  typename G::template Var<bool> flag, dead, redo;
+  auto plus = [](int32_t l, int32_t r) { return l + r; };
+  int64_t P = start, nout = 0;
+  int32_t u = 0, done = kDoneSlots;
+  bool more = K > 0;
+  while (more) {
+    const int64_t w0 = P >> 5;
+    const int32_t rel0 = static_cast<int32_t>(P & 31);
+    g.each([&](int i) {
+      for (int j = i; j < kInfTileWords; j += m) {
+        const int64_t gi = w0 + j;
+        if (gi >= 0 && gi < wend) g.copy(sw + j, words + gi, 4);
+        else sw[j] = 0u;
+      }
+    });
+    g.wait();
+    const int64_t base = w0 << 5;
+    const int64_t re = bit_end - base;
+    const int32_t rel_end =
+        re < -1 ? -1 : re > (1 << 30) ? (1 << 30) : static_cast<int32_t>(re);
+    const int32_t want = K - u;
+    const int64_t H = hint_end > P ? hint_end - P : kInfPmax - rel0 + 1;
+    const int32_t Hc = clamp_hint(g.hint(H), rel0, kInfPmax);
+    g.each([&](int i) {
+      st[i] = sub_start(rel0, Hc, i, m);
+      stop[i] = sub_start(rel0, Hc, i + 1, m);
+      s[i] = inflate_segment(sw, st[i], stop[i], rel_end, t, 0, want, false,
+                             0, nullptr, 0);
+    });
+    int rounds = 0;
+    while (true) {  // sync rounds
+      g.each([&](int i) {
+        px[i] = s[i].exit;
+        pre[i] = s[i].n;
+        flag[i] = s[i].end != kInfStop;
+      });
+      g.up(px, 0);
+      g.excl_scan(pre, 0, plus);
+      const uint32_t ended = g.ballot(flag);
+      g.each([&](int i) {
+        dead[i] = seg_dead(i, (ended & ((1u << i) - 1)) != 0, pre[i], want);
+        redo[i] = seg_redo(i, dead[i], st[i], px[i]);
+      });
+      if (!g.any(redo)) break;
+      ++rounds;
+      g.each([&](int i) {
+        if (!redo[i]) return;
+        st[i] = px[i];
+        s[i] = inflate_segment(sw, st[i], stop[i], rel_end, t, 0, want, false,
+                               0, nullptr, 0);
+      });
+    }
+    g.each([&](int i) { bpre[i] = s[i].bytes; });
+    g.excl_scan(bpre, 0, plus);
+    g.each([&](int i) {  // the write pass
+      wr[i] = InfSeg{st[i], 0, 0, kInfStop, -1};
+      if (!dead[i])
+        wr[i] = inflate_segment(sw, st[i], stop[i], rel_end, t, pre[i], want,
+                                true, out0 + nout + bpre[i],
+                                recs + static_cast<int64_t>(u + pre[i]) * stride,
+                                stride);
+      flag[i] = !dead[i] && wr[i].end != kInfStop;
+    });
+    const uint32_t endm = g.ballot(flag);
+    if (endm) {  // segment f ends the span
+      const int f = ctz32(endm);
+      g.each([&](int i) {  // after a too-far error: slots past it
+        if (dead[i] || i <= f) return;
+        for (int32_t r = 0; r < wr[i].n; ++r)
+          recs[static_cast<int64_t>(u + pre[i] + r) * stride] = 0;
+      });
+      const InfSeg F = g.bcast(wr, f);
+      P = base + F.exit;
+      u += g.bcast(pre, f) + F.n;
+      nout += g.bcast(bpre, f) + F.bytes;
+      more = F.end == kInfOff && u < K;
+      if (F.end == kInfEob) done = kDoneEob;
+      if (F.end == kInfErr) done = F.err;
+    } else {  // every segment reached its stop: the hint was short
+      const InfSeg l = g.bcast(wr, m - 1);
+      P = base + l.exit;
+      u += g.bcast(pre, m - 1) + l.n;
+      nout += g.bcast(bpre, m - 1) + l.bytes;
+      more = u < K;
+    }
+    g.span_done(rounds, !endm);
+    g.sync();
+  }
+  g.each([&](int i) {
+    if (i != 0) return;
+    *bpos_out = P;
+    *nout_out = nout;
+    *done_out = done;
+  });
+}
+
+// ---- K5, one lane per thread ----------------------------------------------
 
 // K5: validate the candidate dynamic-block header at absolute bit `c` of a
 // stream of n_bits payload bits.  Semantics of

@@ -1,9 +1,10 @@
 // Bit machines of the fixed-geometry codec.
 //
 // A lane is one S-byte chunk of one stream (lane = stream * C + chunk).
-// K1 (assign_pack.cu) and K3 (decode2.cu) put a group of m threads on a
-// lane: the pieces in their sections below are one thread's work (a
-// segment of the lane), and assign_pack_group and decode2_group put them
+// K1 (assign_pack.cu), K2 (combine.cu) and K3 (decode2.cu) put a group of
+// m threads on a lane: the pieces in their sections below are one thread's
+// work (a segment of the lane), and assign_pack_group, combine_group and
+// decode2_group put them
 // together with the group's collectives, written once over a policy of
 // warp operations (warp.cuh): shuffles on the card, loops over m thread
 // slots on the host.  K6, K8 and K9 (decode_sep.cu, decode2_canon.cu,
@@ -654,6 +655,128 @@ FDT_GROUP void decode2_group(const G& g, const uint32_t* words, int64_t W,
   }
   g.each([&](int i) {
     if (i == 0) bpos[lane] = static_cast<int32_t>(P - start);
+  });
+}
+
+// ---- K2, a group of threads per lane --------------------------------------
+//
+// Semantics of ops/repack.combine_plain for lanes in order along each
+// stream (pos0 nondecreasing, payloads disjoint, window bits past
+// chunk_bits zero, as lane_starts and K1 give them): output word w of a
+// stream is the OR of every lane's first ceil(chunk_bits / 32) window
+// words shifted to bit pos0, zero where no payload lies.  Each word is
+// written once, by the lane that owns it, with no atomics and no zero
+// fill beforehand: lane k of a stream owns words [ceil(pos0[k] / 32),
+// ceil(pos0[k+1] / 32)) (the stream's first lane from word 0, its last to
+// word W), i.e. the words whose first bit lies in its span.  An owned word
+// takes the lane's window words j-1 and j by a funnel shift; the last one,
+// when the next lane starts inside it, also ORs in the first window word
+// of every following lane that starts there (lanes shorter than a word
+// put three or more lanes into one word).
+
+FDT_HD uint32_t funnel_l(uint32_t lo, uint32_t hi, int sh) {  // sh in 0..31
+#ifdef __CUDA_ARCH__
+  return __funnelshift_l(lo, hi, sh);
+#else
+  return sh ? (hi << sh) | (lo >> (32 - sh)) : hi;
+#endif
+}
+
+// Stream b's trailing words, [combine_tail, W), hold no payload and are
+// written as zeros by their own groups (combine_zero_group), kCombineZero
+// words each: a stream's payload may fill only part of its W words, and
+// the last lane alone would write the rest one warp step at a time.
+constexpr int kCombineZero = 4096;
+
+FDT_HD int64_t combine_tail(const int32_t* chunk_bits, const int32_t* pos0,
+                            int64_t b, int C, int W) {
+  const int64_t last = (b + 1) * C - 1;
+  const int64_t t = (pos0[last] >> 5) + ((chunk_bits[last] + 31) >> 5) + 1;
+  return t < W ? t : W;
+}
+
+// 16-byte stores of four words at flat word f (a multiple of 4) where all
+// four lie in [lo, hi) of the row at flat word rowf, 4-byte stores of the
+// others there.
+template <class G>
+FDT_GROUP void combine_store(const G& g, uint32_t* words, int64_t f,
+                          int64_t rowf, int64_t lo, int64_t hi,
+                          const uint32_t* v) {
+  const int64_t w = f - rowf;
+  if (w >= lo && w + 4 <= hi) {
+    g.store(words + f, v, 16);
+  } else {
+    for (int q = 0; q < 4; ++q)
+      if (w + q >= lo && w + q < hi) g.store(words + f + q, v + q, 4);
+  }
+}
+
+// K2's zero fill: piece c of stream b's trailing words, the words of
+// [c * kCombineZero, (c + 1) * kCombineZero) at or past combine_tail.
+template <class G>
+FDT_GROUP void combine_zero_group(const G& g, const int32_t* chunk_bits,
+                                  const int32_t* pos0, uint32_t* words, int C,
+                                  int W, int64_t b, int64_t c) {
+  const int m = g.m;
+  const int64_t t = combine_tail(chunk_bits, pos0, b, C, W);
+  const int64_t lo = t > c * kCombineZero ? t : c * kCombineZero;
+  const int64_t hi = (c + 1) * kCombineZero < W ? (c + 1) * kCombineZero : W;
+  const int64_t rowf = b * W;
+  alignas(16) const uint32_t zero[4] = {0u, 0u, 0u, 0u};
+  g.each([&](int i) {
+    for (int64_t f = ((rowf + lo) & ~int64_t{3}) + 4 * i; f < rowf + hi;
+         f += 4 * m)
+      combine_store(g, words, f, rowf, lo, hi, zero);
+  });
+}
+
+// K2 lane `lane` (stream lane / C): its owned words of words[b, 0:W] (for
+// the stream's last lane, up to combine_tail), four to a thread's step,
+// 16-byte stores where four owned words are aligned.
+template <class G>
+FDT_GROUP void combine_group(const G& g, const uint32_t* win,
+                             const int32_t* chunk_bits, const int32_t* pos0,
+                             uint32_t* words, int C, int wwin, int W,
+                             int64_t lane) {
+  const int m = g.m;
+  const int64_t b = lane / C;
+  const int k = static_cast<int>(lane % C);
+  const int32_t s = pos0[lane];
+  const int nw = (chunk_bits[lane] + 31) >> 5;
+  const int64_t w0 = s >> 5;
+  const int sh = s & 31;
+  const uint32_t* row = win + lane * wwin;
+  int64_t lo = k == 0 ? 0 : (static_cast<int64_t>(s) + 31) >> 5;
+  int64_t hi = combine_tail(chunk_bits, pos0, b, C, W);
+  int64_t tw = -1;  // the owned word the next lane starts inside, if any
+  if (k + 1 < C) {
+    const int64_t s1 = pos0[lane + 1];
+    hi = (s1 + 31) >> 5;
+    if (s1 & 31) tw = s1 >> 5;
+  }
+  lo = lo < W ? lo : W;
+  hi = hi < W ? hi : W;
+  const int64_t rowf = b * W;
+  auto at = [&](int64_t j) -> uint32_t {
+    return j >= 0 && j < nw ? row[j] : 0u;
+  };
+  g.each([&](int i) {
+    for (int64_t f = ((rowf + lo) & ~int64_t{3}) + 4 * i; f < rowf + hi;
+         f += 4 * m) {
+      const int64_t w = f - rowf;
+      uint32_t x[5];
+      for (int q = 0; q < 5; ++q) x[q] = at(w - w0 - 1 + q);
+      alignas(16) uint32_t v[4];
+      for (int q = 0; q < 4; ++q) {
+        v[q] = funnel_l(x[q], x[q + 1], sh);
+        if (w + q == tw && tw >= lo && tw < hi) {
+          for (int64_t n = lane + 1; n < (b + 1) * C && (pos0[n] >> 5) == tw;
+               ++n)
+            if (chunk_bits[n] > 0) v[q] |= win[n * wwin] << (pos0[n] & 31);
+        }
+      }
+      combine_store(g, words, f, rowf, lo, hi, v);
+    }
   });
 }
 

@@ -1,5 +1,6 @@
-// The warp operations of K1's and K3's lane code (lanes.cuh,
-// assign_pack_group and decode2_group), two ways.
+// The warp operations of the group lane code (lanes.cuh assign_pack_group,
+// combine_group and decode2_group; inflate_lanes.cuh inflate_group), two
+// ways.
 //
 // The lane code is written once, for a group of m threads that works one
 // lane: `each(f)` runs a thread's part f(i), `Var<T>` holds one value per
@@ -124,16 +125,26 @@ struct WarpGroup {
   __device__ bool any(const Var<bool>& p) const { return __any_sync(mask, p.v); }
   __device__ int max(const Var<int>& v) const { return __reduce_max_sync(mask, v.v); }
 
-  // Test hooks of K3's span loop: the hint as computed, nothing recorded.
+  // Hooks of K3's and K4's span loops: the hint as computed; with `stats`
+  // set (K4's optional counters), HostGroup's record below, by atomics.
+  unsigned long long* stats = nullptr;
   __device__ int64_t hint(int64_t H) const { return H; }
-  __device__ void span_done(int, bool) const {}
+  __device__ void span_done(int rounds, bool fell_short) const {
+    if (!stats || i != 0) return;
+    atomicMax(stats, static_cast<unsigned long long>(rounds));
+    atomicAdd(stats + 1, 1ull);
+    atomicAdd(stats + 2, static_cast<unsigned long long>(fell_short));
+    atomicAdd(stats + 3, static_cast<unsigned long long>(rounds));
+  }
 };
 
 #else  // the host
 
-// m threads run one after another.  hnum / hden scale K3's span hints;
-// stats (if set) records K3's spans: [0] the most sync rounds of a span,
-// [1] spans, [2] spans that fell short of their tile, [3] sync rounds.
+// m threads run one after another.  hnum / hden scale K3's and K4's span
+// hints; stats (if set) records their spans: [0] the most sync rounds of a
+// span, [1] spans, [2] spans another span continues (every segment
+// reached its stop: the hint, or K4's tile, ended first), [3] sync
+// rounds.
 struct HostGroup {
   static constexpr int kMax = 32;
   int m;

@@ -57,11 +57,8 @@ def adler32_tiles(data: torch.Tensor, length: torch.Tensor):
     wsums = torch.empty(tiles, dtype=torch.int32, device=data.device)
     if tiles == 0:
         return sums, wsums
-    err = _build.library().fdt_adler32_tiles(
-        data.data_ptr(), n, length.data_ptr(), sums.data_ptr(),
-        wsums.data_ptr(), tiles,
-        _build.stream(data.device))
-    _build.check(err, "adler32_tiles")
+    _build.launch("adler32_tiles", data.device, data.data_ptr(), n,
+                  length.data_ptr(), sums.data_ptr(), wsums.data_ptr(), tiles)
     adler32_tiles.launches += 1
     return sums, wsums
 

@@ -215,12 +215,10 @@ def assign_pack(data: torch.Tensor, lengths: torch.Tensor, C: int,
     chunk_bits = torch.empty(L, dtype=torch.int32, device=data.device)
     if L == 0:
         return win, chunk_bits
-    err = _build.library().fdt_assign_pack(
-        data.data_ptr(), lengths.data_ptr(), t.lit_tok.data_ptr(),
-        t.len_tok.data_ptr(), win.data_ptr(),
-        chunk_bits.data_ptr(), B, N, C, ww,
-        _build.stream(data.device))
-    _build.check(err, "assign_pack")
+    _build.launch(
+        "assign_pack", data.device, data.data_ptr(), lengths.data_ptr(),
+        t.lit_tok.data_ptr(), t.len_tok.data_ptr(), win.data_ptr(),
+        chunk_bits.data_ptr(), B, N, C, ww)
     assign_pack.launches += 1
     return win, chunk_bits
 

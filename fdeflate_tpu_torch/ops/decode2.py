@@ -120,11 +120,9 @@ def decode2(words: torch.Tensor, chunk_starts: torch.Tensor,
     bpos = torch.empty(B, C, dtype=torch.int32, device=words.device)
     if B * C == 0:
         return out, bpos
-    err = _build.library().fdt_decode2(
-        words.data_ptr(), chunk_starts.data_ptr(), dtab.data_ptr(),
-        out.data_ptr(), bpos.data_ptr(), B, W, N, C,
-        _build.stream(words.device))
-    _build.check(err, "decode2")
+    _build.launch("decode2", words.device, words.data_ptr(),
+                  chunk_starts.data_ptr(), dtab.data_ptr(), out.data_ptr(),
+                  bpos.data_ptr(), B, W, N, C, words.device.index)
     decode2.launches += 1
     return out, bpos
 
@@ -215,12 +213,11 @@ def decode2_canon(win: torch.Tensor, T: int, meta: torch.Tensor,
     bpos = torch.empty(L, dtype=torch.int32, device=win.device)
     if L == 0 or T == 0:
         return out, bpos.zero_()
-    err = _build.library().fdt_decode2_canon(
-        win.data_ptr(), meta.to(torch.int32).contiguous().data_ptr(),
-        packed.to(torch.int32).contiguous().data_ptr(), out.data_ptr(),
-        bpos.data_ptr(), L, ww, T,
-        _build.stream(win.device))
-    _build.check(err, "decode2_canon")
+    meta = meta.to(torch.int32).contiguous()
+    packed = packed.to(torch.int32).contiguous()
+    _build.launch("decode2_canon", win.device, win.data_ptr(),
+                  meta.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                  bpos.data_ptr(), L, ww, T)
     decode2_canon.launches += 1
     return out, bpos
 

@@ -118,11 +118,9 @@ def decode_sep(words: torch.Tensor, chunk_starts: torch.Tensor,
     bpos = torch.empty(B, C, dtype=torch.int32, device=words.device)
     if B * C == 0:
         return out, bpos
-    err = _build.library().fdt_decode_sep(
-        words.data_ptr(), chunk_starts.data_ptr(), meta.data_ptr(),
-        vals.data_ptr(), out.data_ptr(), bpos.data_ptr(), B, W, N, C,
-        _build.stream(words.device))
-    _build.check(err, "decode_sep")
+    _build.launch("decode_sep", words.device, words.data_ptr(),
+                  chunk_starts.data_ptr(), meta.data_ptr(), vals.data_ptr(),
+                  out.data_ptr(), bpos.data_ptr(), B, W, N, C)
     decode_sep.launches += 1
     return out, bpos
 

@@ -174,14 +174,19 @@ def inflate_records_plain(words, start, wend, bit_end, out0, meta, tab,
     return recs, pos, nout, done
 
 
-def inflate_records(words, start, wend, bit_end, out0, meta, tab, K: int):
+def inflate_records(words, start, wend, bit_end, out0, meta, tab, K: int,
+                    stats=None):
     """K4 on ``words``' device.
 
     ``words`` int32[W] flat stream words (u32 bit patterns); per lane
     ``start``, ``wend``, ``bit_end``, ``out0`` int64[L] and ``meta``
     int32[L, 64], ``tab`` int32[L, 160].  Returns (recs int32[K, L], bpos
     int64[L], nout int64[L], done int32[L]).  CPU tensors take
-    ``inflate_records_plain``; CUDA tensors launch ``csrc/inflate_records.cu``.
+    ``inflate_records_plain``; CUDA tensors launch ``csrc/inflate_records.cu``
+    (a warp per lane; lanes in offset order decode fastest, the next lane's
+    start hinting where a block ends).  ``stats``: None, or a zeroed int64[4]
+    on the card that the kernel fills with its spans' counts (most sync
+    rounds of a span, spans, spans another span continues, sync rounds).
     """
     L = start.numel()
     if (meta.shape != (L, META_ROWS) or tab.shape != (L, TAB_PAIRS)
@@ -206,11 +211,15 @@ def inflate_records(words, start, wend, bit_end, out0, meta, tab, K: int):
     done = torch.empty(L, dtype=i32, device=dev)
     if L == 0:
         return recs, bpos, nout, done
-    err = _build.library().fdt_inflate_records(
-        words.data_ptr(), *(x.data_ptr() for x in lane_in), meta.data_ptr(),
-        tab.data_ptr(), recs.data_ptr(), bpos.data_ptr(), nout.data_ptr(),
-        done.data_ptr(), L, K, _build.stream(dev))
-    _build.check(err, "inflate_records")
+    if stats is not None and (stats.shape != (4,) or stats.dtype != i64
+                              or stats.device != dev):
+        raise ValueError("inflate_records: stats must be int64[4] on the "
+                         "words' device")
+    _build.launch(
+        "inflate_records", dev, words.data_ptr(),
+        *(x.data_ptr() for x in lane_in), meta.data_ptr(), tab.data_ptr(),
+        recs.data_ptr(), bpos.data_ptr(), nout.data_ptr(), done.data_ptr(),
+        None if stats is None else stats.data_ptr(), L, K)
     inflate_records.launches += 1
     return recs, bpos, nout, done
 

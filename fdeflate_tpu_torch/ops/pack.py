@@ -116,10 +116,8 @@ def pack_blocked(tok: torch.Tensor, wwin: int) -> torch.Tensor:
     win = torch.empty(L, wwin, dtype=torch.int32, device=tok.device)
     if L == 0:
         return win
-    err = _build.library().fdt_pack_v1(
-        tok.data_ptr(), win.data_ptr(), L, S, wwin,
-        _build.stream(tok.device))
-    _build.check(err, "pack_v1")
+    _build.launch("pack_v1", tok.device, tok.data_ptr(), win.data_ptr(), L,
+                  S, wwin)
     pack_blocked.launches += 1
     return win
 

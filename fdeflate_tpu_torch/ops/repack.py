@@ -5,7 +5,8 @@ JAX counterparts: the TPU kernels ``fdeflate_tpu/ops/repack.py``
 ``linear_from_rows`` with ``group=1`` and ``group > 1``, called by
 ``ops/ultrafast_kernel.py`` ``_pack_linear_words``), which place every lane
 window at its stream bit offset.  The CUDA kernels are ``csrc/combine.cu``
-(one block per lane, atomic ORs) and ``csrc/combine_grouped.cu`` (one block
+(a warp per lane, each word stored once by the lane its first bit lies
+in) and ``csrc/combine_grouped.cu`` (one block
 per 1024-word output slab, its lanes staged ``group`` at a time);
 ``combine_plain`` is the plain version of both.
 
@@ -78,9 +79,11 @@ def combine(win: torch.Tensor, chunk_bits: torch.Tensor, pos0: torch.Tensor,
     ``win`` int32[L, wwin], ``chunk_bits`` / ``pos0`` int32[L], L = B * C.
     ``group`` is the counterpart of ``linear_from_rows(group=)``: the lanes
     K10 stages at a time (1..32, and 2 * group * min(wwin, 1025) words of
-    shared memory at most 227 KiB).  CPU tensors take ``combine_plain``;
-    CUDA tensors launch ``csrc/combine.cu`` into a zeroed word buffer, or
-    ``csrc/combine_grouped.cu``, which writes every word.
+    shared memory at most 227 KiB).  Lanes start in order along each stream
+    and window bits past ``chunk_bits`` are zero, as ``lane_starts`` and K1
+    give them.  CPU tensors take ``combine_plain``; CUDA tensors launch
+    ``csrc/combine.cu`` or ``csrc/combine_grouped.cu``, each of which writes
+    every word once (no zero fill).
     """
     L, ww = win.shape
     if L % B or chunk_bits.shape != (L,) or pos0.shape != (L,):
@@ -96,14 +99,12 @@ def combine(win: torch.Tensor, chunk_bits: torch.Tensor, pos0: torch.Tensor,
     pos0 = pos0.to(torch.int32).contiguous()
     if group > 1:
         return combine_grouped(win, chunk_bits, pos0, B, W, group)
-    words = torch.zeros(B, W, dtype=torch.int32, device=win.device)
     if L == 0:
-        return words
-    err = _build.library().fdt_combine(
-        win.data_ptr(), chunk_bits.data_ptr(), pos0.data_ptr(),
-        words.data_ptr(), B, L // B, ww, W,
-        _build.stream(win.device))
-    _build.check(err, "combine")
+        return torch.zeros(B, W, dtype=torch.int32, device=win.device)
+    words = torch.empty(B, W, dtype=torch.int32, device=win.device)
+    _build.launch("combine", win.device, win.data_ptr(),
+                  chunk_bits.data_ptr(), pos0.data_ptr(), words.data_ptr(), B,
+                  L // B, ww, W)
     combine.launches += 1
     return words
 
@@ -121,11 +122,9 @@ def combine_grouped(win, chunk_bits, pos0, B: int, W: int, group: int,
     words = torch.empty(B, W, dtype=torch.int32, device=win.device)
     if words.numel() == 0:
         return words
-    err = _build.library().fdt_combine_grouped(
-        win.data_ptr(), chunk_bits.data_ptr(), pos0.data_ptr(),
-        lo.data_ptr(), hi.data_ptr(), words.data_ptr(), B, win.shape[1], W,
-        group, _build.stream(win.device))
-    _build.check(err, "combine_grouped")
+    _build.launch("combine_grouped", win.device, win.data_ptr(),
+                  chunk_bits.data_ptr(), pos0.data_ptr(), lo.data_ptr(),
+                  hi.data_ptr(), words.data_ptr(), B, win.shape[1], W, group)
     combine_grouped.launches += 1
     return words
 

@@ -139,11 +139,9 @@ def validate_headers(words, cands, n_bits: int):
     end = torch.empty(L, dtype=torch.int64, device=dev)
     if L == 0:
         return good.bool(), end
-    err = _build.library().fdt_validate_headers(
-        words.data_ptr(), words.numel(), cands.data_ptr(), int(n_bits),
-        good.data_ptr(), end.data_ptr(), L,
-        _build.stream(dev))
-    _build.check(err, "validate_headers")
+    _build.launch("validate_headers", dev, words.data_ptr(), words.numel(),
+                  cands.data_ptr(), int(n_bits), good.data_ptr(),
+                  end.data_ptr(), L)
     validate_headers.launches += 1
     return good.bool(), end
 

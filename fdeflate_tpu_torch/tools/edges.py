@@ -1,10 +1,12 @@
-"""Edge inputs of K1 (assign_pack) and K3 (decode2).
+"""Edge inputs of K1 (assign_pack), K2 (combine), K3 (decode2) and K4
+(inflate_records).
 
-K1 and K3 put a warp on each lane: thread segments, staged tiles and
-spans have edges the headline corpus may never hit.  These batches put
-runs and stalls on them.  ``chip_smoke.py`` holds both kernels to their
+These kernels put a group of threads on each lane: thread segments,
+staged tiles, spans and lane ownership have edges the headline corpus may
+never hit.  These inputs put runs, stalls, short lanes, errors and
+exhausted budgets on them.  ``chip_smoke.py`` holds the kernels to their
 plain versions on them; tests/test_torch_lanes_host.py holds the kernels'
-per-thread code, run for m threads on the host, to the same.
+group code, run for m threads on the host, to the same.
 """
 
 from __future__ import annotations
@@ -161,3 +163,150 @@ def k3_edge_cases(data: torch.Tensor, lengths: torch.Tensor, C: int):
                       torch.from_numpy(st.astype(np.int32)).to(dev), N,
                       N // 4, None))
     return [(lab, w, s, t.dtab, n, c, want) for lab, w, s, n, c, want in cases]
+
+
+def _k2_case(label, rng, bits, header, extra_words):
+    """K2's inputs from per-lane payload bits [B, C] and per-stream header
+    bits: windows of random payload bits, zero past each lane's bits, the
+    lanes placed one after another from the header (``lane_starts``'s
+    order), W the words the payload reaches plus ``extra_words``."""
+    bits = np.asarray(bits, np.int64)
+    B, C = bits.shape
+    flat = bits.reshape(-1)
+    ww = max(1, int(((flat + 31) >> 5).max())) + 2
+    keep = np.clip(flat[:, None] - 32 * np.arange(ww)[None, :], 0, 32)
+    mask = (np.left_shift(np.uint64(1), keep.astype(np.uint64))
+            - np.uint64(1)).astype(np.uint64)
+    raw = rng.integers(0, 2**32, (B * C, ww), dtype=np.uint64) & mask
+    win = raw.astype(np.uint32).view(np.int32)
+    header = np.asarray(header, np.int64)
+    pos0 = header[:, None] + np.cumsum(bits, axis=1) - bits
+    W = int((int((header + bits.sum(axis=1)).max()) + 31) >> 5) + extra_words
+    return (label, torch.from_numpy(np.ascontiguousarray(win)),
+            torch.from_numpy(flat.astype(np.int32)),
+            torch.from_numpy(pos0.reshape(-1).astype(np.int32)), B, W)
+
+
+def k2_edge_cases():
+    """[(label, win int32[L, wwin], chunk_bits int32[L], pos0 int32[L], B,
+    W)] (CPU tensors): lanes of 0 bits (the first and the last of a stream
+    among them), lanes shorter than a word (three or more lanes in one
+    output word), word-aligned starts (pos0 & 31 == 0), the last payload
+    word's high half landing at word W, trailing words past the payload
+    (more than two of K2's 4096-word zero-fill pieces), and a random mix
+    of short and long lanes."""
+    rng = np.random.default_rng(60)
+    zero = rng.integers(1, 300, (3, 24))
+    zero[:, ::3] = 0
+    zero[:, 0] = zero[:, -1] = 0
+    zero[1] = 0                                  # a stream of no payload
+    mix = rng.choice([0, 1, 7, 31, 32, 33, 64, 95, 1000, 4099], (4, 32))
+    return [
+        _k2_case("lanes of 0 bits, an empty stream", rng, zero, [37, 0, 64], 3),
+        _k2_case("lanes shorter than a word", rng,
+                 rng.integers(0, 13, (2, 96)), [5, 31], 0),
+        _k2_case("word-aligned starts", rng,
+                 32 * rng.integers(0, 9, (2, 16)), [0, 64], 0),
+        _k2_case("last word's high half at W", rng,
+                 rng.integers(40, 700, (3, 8)), [3, 17, 29], 0),
+        _k2_case("trailing words past the payload, over several pieces",
+                 rng, rng.integers(0, 500, (2, 8)), [32037 % 97, 11], 9001),
+        _k2_case("random mix of short and long lanes", rng, mix,
+                 rng.integers(0, 200, 4), 1),
+    ]
+
+
+def _blocked_stream(data: bytes, level: int, strategy: int, every: int):
+    """zlib stream of ``data`` with a block ended (``Z_BLOCK``) after every
+    ``every`` input bytes: a few thousand records per block."""
+    import zlib
+
+    co = zlib.compressobj(level, zlib.DEFLATED, 15, 9, strategy)
+    out = [co.compress(data[i:i + every]) + co.flush(zlib.Z_BLOCK)
+           for i in range(0, len(data), every)]
+    return b"".join(out) + co.flush()
+
+
+def k4_streams():
+    """The zlib streams of K4's edge inputs: text at levels 1, 6 and 9,
+    IDAT bytes at level 1 and text with Huffman coding only (every record
+    a pair of literals where it can be), blocks ended every 2-3 KB."""
+    import zlib
+
+    rng = np.random.default_rng(61)
+    words = [rng.bytes(int(rng.integers(2, 10))) for _ in range(120)]
+    text = b"".join(words[int(rng.integers(120))] for _ in range(2500))[:12000]
+    idat = make_idat_corpus(1, 9000, seed=62)[0].tobytes()
+    return [
+        ("text, level 1", _blocked_stream(text, 1, zlib.Z_DEFAULT_STRATEGY, 2500)),
+        ("text, level 6", _blocked_stream(text, 6, zlib.Z_DEFAULT_STRATEGY, 3000)),
+        ("text, level 9", _blocked_stream(text, 9, zlib.Z_DEFAULT_STRATEGY, 2000)),
+        ("IDAT, level 1", _blocked_stream(idat, 1, zlib.Z_DEFAULT_STRATEGY, 3000)),
+        ("text, Huffman only", _blocked_stream(text, 6, zlib.Z_HUFFMAN_ONLY, 3000)),
+    ]
+
+
+K4_KINDS = ("blocks", "corrupted words", "slots run out", "too far",
+            "bit_end mid-block", "false starts")
+
+
+def k4_edge_case(kind: str):
+    """K4's inputs of one kind, on the CPU: (args = (words, start, wend,
+    bit_end, out0, meta, tab), K).  Every lane block discovery finds in
+    the ``k4_streams`` (its false candidates included), over the
+    concatenated stream words as ``try_foreign_batch`` lays them out, and:
+    as they are; with words corrupted; with too few record slots (done 0);
+    with out0 = 0, so a match reaching before the block is too far (5);
+    with bit_end inside each block (4); or started at random bits, some
+    with no distance codes (3) or under the fixed code whose symbols
+    286/287 are invalid (2)."""
+    from ..ops.inflate import pad_words
+    from ..ops.inflate_host import _fixed_foreign_meta
+    from ..ops.inflate_records import NO_LIMIT, block_tables, pack_tables
+    from ..parallel.discovery import _scan_parse
+
+    streams = [z for _label, z in k4_streams()]
+    words, base = pad_words(streams)
+    rng = np.random.default_rng(63 + K4_KINDS.index(kind))
+    rows = []   # (stream, start bit in the stream, tables)
+    for si, z in enumerate(streams):
+        for _off, _bf, sym, lengths, hlit in _scan_parse(z, device="cpu"):
+            try:
+                rows.append((si, sym, block_tables(lengths, hlit), lengths, hlit))
+            except ValueError:
+                continue
+    if kind == "false starts":
+        picked = []
+        for _ in range(48):
+            si, _s, tabs, lengths, hlit = rows[int(rng.integers(len(rows)))]
+            r = rng.random()
+            if r < 0.3:
+                nodist = lengths.copy()
+                nodist[288:320] = 0
+                tabs = block_tables(nodist, hlit)
+            elif r < 0.5:   # symbols 286/287 are invalid codes here
+                tabs = _fixed_foreign_meta()
+            picked.append((si, int(rng.integers(0, len(streams[si]) * 8)),
+                           tabs, lengths, hlit))
+        rows = sorted(picked, key=lambda r: (r[0], r[1]))
+    L = len(rows)
+    start = np.array([base[si] * 32 + s for si, s, *_ in rows], np.int64)
+    wend = np.array([base[si + 1] for si, *_ in rows], np.int64)
+    bit_end = np.array([base[si] * 32 + len(streams[si]) * 8
+                        for si, *_ in rows], np.int64)
+    out0 = np.full(L, NO_LIMIT, np.int64)
+    K = 4096
+    if kind == "corrupted words":
+        idx = rng.integers(4, len(words) - 4, len(words) // 300)
+        words = words.copy()
+        words[idx] ^= rng.integers(1, 2**31, idx.size).astype(np.int32)
+    elif kind == "slots run out":
+        K = 96
+    elif kind == "too far":
+        out0[:] = 0
+    elif kind == "bit_end mid-block":
+        bit_end = start + rng.integers(1, 12000, L)
+    meta, tab = pack_tables([r[2] for r in rows], "cpu")
+    col = torch.from_numpy
+    return (col(words), col(start), col(wend), col(bit_end), col(out0), meta,
+            tab), K

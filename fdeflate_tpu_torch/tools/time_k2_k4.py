@@ -1,0 +1,142 @@
+"""K2 combine and K4 inflate_records timed at their paths' shapes on one GPU.
+
+Run from the root of a checkout on a machine with an NVIDIA GPU:
+
+    python3 -m fdeflate_tpu_torch.tools.time_k2_k4 [--reps 10]
+
+It uses only entry points that every slice of the port has had, so the
+same file, copied into an older checkout, times that checkout's kernels:
+to compare two trees, run it from each in one machine session, in turns
+(parent, change, change, parent).  Printed, one line each, as medians of
+``--reps`` CUDA-event timings of single calls (ms):
+
+* K2 on K1's windows of 16 x 1 MiB IDAT (``make_idat_corpus``), C = 512,
+  and the encode leg (``encode_ultrafast_batch``) around it;
+* K4 on every lane block discovery finds in 8 MiB of word-salad text at
+  zlib 6 and 8 MiB of IDAT at zlib 1 (``try_foreign``'s lanes) and in 16 x
+  1 MiB IDAT streams at zlib 1 (``try_foreign_batch``'s lanes over the
+  concatenated words), with the lanes' count, and the record-decode piece
+  (host tables, K4, read-back: ``discovery._lane_decode``) of each;
+
+then the card's name and power limit.  Every K4 output is checked to give
+the stream's chain (``discovery._chain``) before it is timed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+import zlib
+
+import numpy as np
+import torch
+
+from fdeflate_tpu_torch.ops.assign_pack import assign_pack
+from fdeflate_tpu_torch.ops.inflate import pad_words
+from fdeflate_tpu_torch.ops.inflate_records import DONE_EOB, inflate_records
+from fdeflate_tpu_torch.ops.repack import combine
+from fdeflate_tpu_torch.ops.ultrafast import (encode_ultrafast_batch,
+                                              lane_starts, stream_words)
+from fdeflate_tpu_torch.parallel import discovery as PD
+from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
+from fdeflate_tpu_torch.trees import trained_tables
+
+MAX_STEPS = 6144   # try_foreign's default
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of single calls of ``fn`` (CUDA events, after a
+    warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def word_salad(n: int, seed: int = 9) -> bytes:
+    """The foreign leg's text (``chip_smoke.word_salad``): words of 3-11
+    random bytes."""
+    rng = np.random.default_rng(seed)
+    wp = [rng.bytes(int(rng.integers(3, 12))) for _ in range(256)]
+    return b"".join(wp[int(rng.integers(256))] for _ in range(n // 7 + 1))[:n]
+
+
+def foreign_lanes(streams: list[bytes], dev):
+    """Every discovered lane of the streams over their concatenated words,
+    as ``try_foreign_batch`` lays them out: (lanes, words, wend, bit_end,
+    per-stream (lo, hi, word base))."""
+    words_np, base = pad_words(streams)
+    words = torch.from_numpy(words_np).to(dev)
+    lanes, wend, bit_end, ranges = [], [], [], []
+    for si, s in enumerate(streams):
+        lo_w, hi_w = int(base[si]), int(base[si + 1])
+        found = PD._scan_parse(s, words_dev=words[lo_w:hi_w], device=dev)
+        lo = len(lanes)
+        for off, bfinal, sym, lengths, hlit in found:
+            lanes.append((off, bfinal, lo_w * 32 + sym, lengths, hlit))
+        wend += [hi_w] * len(found)
+        bit_end += [lo_w * 32 + len(s) * 8] * len(found)
+        ranges.append((lo, len(lanes), lo_w * 32))
+    return lanes, words, np.array(wend), np.array(bit_end), ranges
+
+
+def time_k4(label: str, streams: list[bytes], dev, reps: int) -> None:
+    lanes, words, wend, bit_end, ranges = foreign_lanes(streams, dev)
+    args = PD.lane_inputs(lanes, words, wend, bit_end)
+    K = PD.lane_budget(MAX_STEPS)
+    _recs, bpos, _nout, done = inflate_records(*args, K)
+    bpos, eob = bpos.cpu().numpy(), done.cpu().numpy() == DONE_EOB
+    for lo, hi, gbase in ranges:
+        if PD._chain(lanes, lo, hi, bpos, eob, gbase) is None:
+            raise AssertionError(f"{label}: K4 gave no chain")
+    k4 = cuda_ms(lambda: inflate_records(*args, K), reps)
+    piece = cuda_ms(lambda: PD._lane_decode(lanes, MAX_STEPS, words, wend,
+                                            bit_end), reps)
+    print(f"K4 {label}: {len(lanes)} lanes, K={K}: kernel {k4:.4f} ms, "
+          f"record decode (tables + K4 + read-back) {piece:.4f} ms",
+          flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_k2_k4: CUDA is not available")
+    dev = torch.device("cuda")
+
+    B, N, C = 16, 1 << 20, 512
+    t = trained_tables(str(dev))
+    data = torch.from_numpy(make_idat_corpus(B, N)).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    win, bits = assign_pack(data, lengths, C, t)
+    pos0 = lane_starts(bits, B, C, t.header_bits)[0].reshape(-1).to(torch.int32)
+    W = stream_words(N, t)
+    k2 = cuda_ms(lambda: combine(win, bits, pos0, B, W), args.reps)
+    enc = cuda_ms(lambda: encode_ultrafast_batch(data, lengths, C), args.reps)
+    print(f"K2 16 x 1 MiB, C={C}: kernel {k2:.4f} ms, encode leg {enc:.4f} ms",
+          flush=True)
+
+    text = zlib.compress(word_salad(8 << 20), 6)
+    idat = zlib.compress(make_idat_corpus(8, 1 << 20).tobytes(), 1)
+    batch = [zlib.compress(r.tobytes(), 1)
+             for r in make_idat_corpus(B, N, seed=7)]
+    time_k4("text6 8 MiB", [text], dev, args.reps)
+    time_k4("idat1 8 MiB", [idat], dev, args.reps)
+    time_k4("idat1 16 x 1 MiB batch", batch, dev, args.reps)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

@@ -57,8 +57,10 @@ from fdeflate_tpu_torch.ops.validate_headers import (
 from fdeflate_tpu_torch.parallel import discovery as PD
 from fdeflate_tpu_torch.ops.ultrafast import _encode, lane_starts, stream_words
 from fdeflate_tpu_torch.parallel.device_pipeline import fused_zlib_roundtrip
-from fdeflate_tpu_torch.tools.edges import (corrupt_words, k1_edge_inputs,
-                                            k1_long_lane, k3_edge_cases)
+from fdeflate_tpu_torch.tools.edges import (K4_KINDS, corrupt_words,
+                                            k1_edge_inputs, k1_long_lane,
+                                            k2_edge_cases, k3_edge_cases,
+                                            k4_edge_case)
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 pytestmark = pytest.mark.cuda
@@ -437,3 +439,102 @@ def test_foreign_path_on_the_card(dev):
                                         streams[0][:500]], device=dev)
     assert out[:3] == data and out[3] == b"abc" * 99
     assert type(out[4]).__name__ == "InsufficientInput"
+
+
+@pytest.mark.parametrize("case", range(len(k2_edge_cases())))
+def test_combine_edges(dev, case):
+    """K2 on its edge inputs (lanes of 0 bits, lanes shorter than a word,
+    word-aligned starts, the last word's high half at W, trailing words, a
+    mix): every word written, equal to the plain version, one launch."""
+    label, win, bits, pos0, B, W = k2_edge_cases()[case]
+    win, bits, pos0 = (x.to(dev) for x in (win, bits, pos0))
+    before = combine.launches
+    got = combine(win, bits, pos0, B, W)
+    assert combine.launches == before + 1
+    assert torch.equal(got, combine_plain(win, bits, pos0, B, W)), label
+
+
+@pytest.mark.parametrize("kind", K4_KINDS)
+def test_inflate_records_edges(dev, kind):
+    """K4 on its edge inputs (tools/edges.py: blocks at levels 1, 6, 9,
+    IDAT and Huffman-only, false candidates, corrupted words, too few
+    slots, too far, bit_end inside blocks, random starts) against the plain
+    version, which runs on the CPU (it loops once per record step)."""
+    args, K = k4_edge_case(kind)
+    want = inflate_records_plain(*args, K)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    before = inflate_records.launches
+    got = inflate_records(*(x.to(dev) for x in args), K, stats=stats)
+    assert inflate_records.launches == before + 1
+    for name, g, w in zip(("recs", "bpos", "nout", "done"), got, want):
+        assert torch.equal(g.cpu(), w), (kind, name)
+    assert int(stats[1]) >= args[1].numel()       # a span per lane at least
+
+
+def _every_wrapper(dev):
+    """(name, kernel call, plain call) of each of the ten entry points on
+    small inputs on ``dev``."""
+    data, lengths, C = _inputs(dev, "ragged_B3_N8192_C4")
+    B, N = data.shape
+    t = trained_tables(str(dev))
+    win, bits = assign_pack_plain(data, lengths, C, t)
+    pos0 = lane_starts(bits, B, C, t.header_bits)[0].reshape(-1).to(torch.int32)
+    W = stream_words(N, t)
+    words, tb, _ad, starts, _eof = _encode(data, lengths, C, t,
+                                           assign_pack_plain, combine_plain)
+    sep = P.sep_profile()
+    sw, _t, _a, sst, _e = P.zlib_encode_step(C, tree=sep)(data, lengths)
+    meta, vals = sep_tables(sep.lens, dev)
+    cmeta, packed = canon_tables(str(dev))
+    S = N // C
+    v, nb, _ = assign_tokens(data, lengths, 512, t)
+    tok = pack_tokens(v, nb, token_offsets(nb, N // 512), N // 512)
+    buf = data.reshape(-1)
+    lt = torch.tensor([buf.numel() - 5], dtype=torch.int64, device=dev)
+    args4, K = k4_edge_case("blocks")
+    args4 = tuple(x.to(dev) for x in args4)
+    z = zlib.compress(_foreign(2, 60_000), 6)
+    zw = PD.stage_words(z, device=dev)
+    c = torch.from_numpy(PD.scan_stage1_device(z, device="cpu")).to(dev)
+    return [
+        ("assign_pack", lambda: assign_pack(data, lengths, C, t),
+         lambda: assign_pack_plain(data, lengths, C, t)),
+        ("combine", lambda: combine(win, bits, pos0, B, W),
+         lambda: (combine_plain(win, bits, pos0, B, W),)),
+        ("decode2", lambda: decode2(words, starts, t.dtab, N, C),
+         lambda: decode2_plain(words, starts, t.dtab, N, C)),
+        ("decode_sep", lambda: decode_sep(sw, sst, meta, vals, N, C),
+         lambda: decode_sep_plain(sw, sst, meta, vals, N, C)),
+        ("adler32_tiles", lambda: adler32_tiles(buf, lt),
+         lambda: adler32_tiles_plain(buf, lt)),
+        ("inflate_records", lambda: inflate_records(*args4, K),
+         lambda: inflate_records_plain(*args4, K)),
+        ("validate_headers", lambda: validate_headers(zw, c, len(z) * 8),
+         lambda: validate_headers_plain(zw, c, len(z) * 8)),
+        ("decode2_canon", lambda: decode2_canon(win, S // 4, cmeta, packed),
+         lambda: decode2_canon_plain(win, S // 4, cmeta, packed)),
+        ("pack_v1", lambda: pack_blocked(tok, wwin(512)),
+         lambda: (pack_blocked_plain(tok, wwin(512)),)),
+        ("combine_grouped", lambda: combine(win, bits, pos0, B, W, group=4),
+         lambda: (combine_plain(win, bits, pos0, B, W),)),
+    ]
+
+
+def test_launches_follow_the_tensors_device():
+    """Every wrapper, given tensors on cuda:1 while device 0 is current,
+    launches on device 1 (``_build.launch`` makes it current for the
+    call), equals its plain version there, and leaves device 0 current.
+    Skips below two devices."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    calls = _every_wrapper(dev)
+    torch.cuda.set_device(0)
+    for name, kern, plain in calls:
+        got = kern()
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0, name
+        assert all(g.device == dev for g in got), name
+        for g, w in zip(got, plain()):
+            assert torch.equal(g, w), name

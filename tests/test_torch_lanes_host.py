@@ -1,16 +1,18 @@
 """The kernels' per-lane code, built for the host, against the plain versions.
 
-``fdeflate_tpu_torch/csrc/lanes.cuh`` holds, as plain C++, K1's and K3's
-lane code (a group of m threads per lane: K1's group classification, run
-scan and segment emit; K3's segment decode, sync rounds and span hints,
-put together by ``assign_pack_group`` and ``decode2_group``) and the
-whole sequential work of a K6 and a K8 lane and of a K9 window word;
-``csrc/inflate_lanes.cuh`` that of a K4 and a K5 lane.  Here g++ builds
-the same headers into a small host library: the lane loops around the
-one-lane machines, and K1's and K3's group code with ``HostGroup``
-(``csrc/warp.cuh``: m threads run in turn, collectives as loops; the
-kernels run the same code with ``WarpGroup``'s shuffles), for m = 32 as
-on the card at S = 2048, K3's own choice of m for each S, and 1, 2 and 5.
+``fdeflate_tpu_torch/csrc/lanes.cuh`` holds, as plain C++, the lane code
+of K1, K2 and K3 (a group of m threads per lane: K1's group
+classification, run scan and segment emit; K2's owned words; K3's segment
+decode, sync rounds and span hints, put together by ``assign_pack_group``,
+``combine_group`` and ``decode2_group``) and the whole sequential work of
+a K6 and a K8 lane and of a K9 window word; ``csrc/inflate_lanes.cuh``
+that of K4 (``inflate_group``, K3's protocol on records, with its lookup
+tables) and of a K5 lane.  Here g++ builds the same headers into a small
+host library: the lane loops around the one-lane machines, and the group
+code with ``HostGroup`` (``csrc/warp.cuh``: m threads run in turn,
+collectives as loops; the kernels run the same code with ``WarpGroup``'s
+shuffles), for m = 32 as on the card, the kernels' own choice of m, and
+1, 2 and 5.
 So the bit machines and their orchestration are held against the plain
 PyTorch versions on every tier-1 run, with no card.  The launch
 configuration, cp.async staging, shuffles and shared-memory atomics are
@@ -52,13 +54,21 @@ from fdeflate_tpu_torch.ops.inflate_records import (
     inflate_records_plain,
     pack_tables,
 )
-from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch
+from fdeflate_tpu_torch.ops.repack import combine_plain
+from fdeflate_tpu_torch.ops.ultrafast import (
+    encode_ultrafast_batch,
+    lane_starts,
+    stream_words,
+)
 from fdeflate_tpu_torch.ops.validate_headers import validate_headers_plain
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 from fdeflate_tpu_torch.tools.edges import (
+    K4_KINDS,
     corrupt_words,
     k1_edge_inputs,
     k1_long_lane,
+    k2_edge_cases,
+    k4_edge_case,
     mid_lane_bit,
     splice_eob,
 )
@@ -66,25 +76,49 @@ from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "fdeflate_tpu_torch" / "csrc"
 
-# The kernels' lane loops (inflate_records.cu, validate_headers.cu,
-# decode_sep.cu, decode2_canon.cu, pack_v1.cu) and the group code of
-# assign_pack.cu and decode2.cu, serial on the host.
+# The kernels' lane loops (validate_headers.cu, decode_sep.cu,
+# decode2_canon.cu, pack_v1.cu) and the group code of assign_pack.cu,
+# combine.cu, decode2.cu and inflate_records.cu, serial on the host.
 _HARNESS = r"""
 #include <cstring>
 #include <vector>
 #include "lanes.cuh"
 #include "warp.cuh"
 #include "inflate_lanes.cuh"
-extern "C" void inflate_lanes(const uint32_t* words, const int64_t* start,
+// K4's group code with HostGroup, m threads to a lane (0: the kernel's
+// fdt::inf_threads of the lane's hint), the hint times hnum / hden.
+extern "C" void inflate_warp(const uint32_t* words, const int64_t* start,
     const int64_t* wend, const int64_t* bit_end, const int64_t* out0,
     const int32_t* meta, const int32_t* tab, int32_t* recs, int64_t* bpos,
-    int64_t* nout, int32_t* done, int L, int K) {
+    int64_t* nout, int32_t* done, int L, int K, int m, int64_t hnum,
+    int64_t hden, int64_t* stats) {
+  std::vector<int32_t> lit(fdt::kInfTable), dist(fdt::kInfTable);
+  std::vector<uint32_t> sw(fdt::kInfTileWords);
   for (int64_t lane = 0; lane < L; ++lane) {
-    fdt::WordReader rd{words, wend[lane]};
-    done[lane] = fdt::inflate_lane(rd, start[lane], bit_end[lane], out0[lane],
-        meta + lane * fdt::kMetaRows, tab + lane * fdt::kTabPairs,
-        recs + lane, L, K, bpos + lane, nout + lane);
+    const int32_t* mt = meta + lane * fdt::kMetaRows;
+    const int32_t* tb = tab + lane * fdt::kTabPairs;
+    fdt::inf_table_part(mt, tb, lit.data(), dist.data(), 0, 1);
+    const int64_t he = fdt::inf_hint_end(start, wend, bit_end, L, lane);
+    fdt::HostGroup g{m ? m : fdt::inf_threads(he - start[lane]), hnum, hden,
+                     stats};
+    fdt::inflate_group(g, words, start[lane], wend[lane], bit_end[lane],
+        out0[lane], he, fdt::InfTables{lit.data(), dist.data(), mt, tb},
+        sw.data(), recs + lane, L, K, bpos + lane, nout + lane, done + lane);
   }
+}
+extern "C" int inf_threads(int64_t span_bits) {
+  return fdt::inf_threads(span_bits);
+}
+// K2's group code with HostGroup, m threads to a lane.
+extern "C" void combine_warp(const uint32_t* win, const int32_t* chunk_bits,
+    const int32_t* pos0, uint32_t* words, int B, int C, int wwin, int W,
+    int m) {
+  fdt::HostGroup g{m};
+  for (int64_t lane = 0; lane < (int64_t)B * C; ++lane)
+    fdt::combine_group(g, win, chunk_bits, pos0, words, C, wwin, W, lane);
+  for (int64_t b = 0; b < B; ++b)
+    for (int64_t c = 0; c * fdt::kCombineZero < W; ++c)
+      fdt::combine_zero_group(g, chunk_bits, pos0, words, C, W, b, c);
 }
 extern "C" void validate_lanes(const uint32_t* words, int64_t W,
     const int64_t* cands, int64_t n_bits, int32_t* good, int64_t* end,
@@ -673,21 +707,130 @@ def _inflate_case(seed: int):
     return torch.from_numpy(words), lane, meta, tab, int(rng.integers(16, 3000))
 
 
-@pytest.mark.parametrize("seed", range(8))
-def test_inflate_lane_matches_plain(lib, seed):
-    words, lane, meta, tab, K = _inflate_case(seed)
-    L = lane["start"].numel()
+def _inflate_warp(lib, args, K, m, hint=(1, 1)):
+    """K4's group code on the host, m threads to a lane (0: the kernel's
+    choice): (recs, bpos, nout, done), stats."""
+    words, start, wend, bit_end, out0, meta, tab = args
+    L = start.numel()
     recs = torch.zeros(K, L, dtype=torch.int32)
     bpos = torch.empty(L, dtype=torch.int64)
     nout = torch.empty(L, dtype=torch.int64)
     done = torch.empty(L, dtype=torch.int32)
-    lib.inflate_lanes(_ptr(words), *(_ptr(lane[k]) for k in (
-        "start", "wend", "bit_end", "out0")), _ptr(meta), _ptr(tab),
-        _ptr(recs), _ptr(bpos), _ptr(nout), _ptr(done), L, K)
-    want = inflate_records_plain(words, lane["start"], lane["wend"],
-                                 lane["bit_end"], lane["out0"], meta, tab, K)
-    for got, exp in zip((recs, bpos, nout, done), want):
-        assert torch.equal(got, exp), seed
+    stats = torch.zeros(4, dtype=torch.int64)
+    lane = [x.to(torch.int64).contiguous() for x in (start, wend, bit_end, out0)]
+    lane[1] = lane[1].clamp(max=words.numel())
+    lib.inflate_warp(_ptr(words.to(torch.int32).contiguous()),
+                     *(_ptr(x) for x in lane), _ptr(meta.contiguous()),
+                     _ptr(tab.contiguous()), _ptr(recs), _ptr(bpos),
+                     _ptr(nout), _ptr(done), L, K, m,
+                     ctypes.c_int64(hint[0]), ctypes.c_int64(hint[1]),
+                     _ptr(stats))
+    return (recs, bpos, nout, done), stats
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_inflate_lane_matches_plain(lib, seed):
+    """K4's group code with one thread per lane (the serial decode) on
+    random streams, corruption, budgets, bit ends and output offsets."""
+    words, lane, meta, tab, K = _inflate_case(seed)
+    args = (words, lane["start"], lane["wend"], lane["bit_end"], lane["out0"],
+            meta, tab)
+    got, _stats = _inflate_warp(lib, args, K, 1)
+    want = inflate_records_plain(*args, K)
+    for g, exp in zip(got, want):
+        assert torch.equal(g, exp), seed
+
+
+_K4_PLAIN = {}
+
+
+def _k4_case(kind):
+    """A kind of K4 edge input and its plain result, computed once (the
+    plain K4 loops once per record step)."""
+    if kind not in _K4_PLAIN:
+        args, K = k4_edge_case(kind)
+        _K4_PLAIN[kind] = (args, K, inflate_records_plain(*args, K))
+    return _K4_PLAIN[kind]
+
+
+K4_HINTS = {"hint 64x too short": (1, 64), "hint 64x too long": (64, 1)}
+
+
+@pytest.mark.parametrize("m", (1, 2, 5, 32, KERNEL_M))
+@pytest.mark.parametrize("kind", K4_KINDS + tuple(K4_HINTS))
+def test_inflate_warp_edges(lib, m, kind):
+    """K4's group code, m threads to a lane, on zlib streams at levels 1, 6
+    and 9, IDAT and Huffman-only (runs of literal pairs), blocks of a few
+    thousand records, every lane block discovery finds (false candidates
+    included): as they are, with corrupted words, too few slots, out0 = 0
+    (too far), bit_end inside the blocks, random starts, and hints 64x too
+    short or too long."""
+    args, K, want = _k4_case("blocks" if kind in K4_HINTS else kind)
+    got, stats = _inflate_warp(lib, args, K, m, K4_HINTS.get(kind, (1, 1)))
+    for name, g, exp in zip(("recs", "bpos", "nout", "done"), got, want):
+        assert torch.equal(g, exp), (kind, name)
+    assert int(stats[0]) <= max(m, 32), stats   # a round per thread at most
+    if kind == "hint 64x too short" and m != 1:
+        assert int(stats[2]) > 0      # spans that fell short were followed on
+
+
+def test_inflate_edge_exit_codes():
+    """The K4 edge inputs end lanes with every exit code: 0 (slots), 1
+    (EOB), 2 and 3 (invalid codes), 4 (truncated), 5 (too far)."""
+    codes = set()
+    for kind in K4_KINDS:
+        codes |= set(_k4_case(kind)[2][3].tolist())
+    assert codes == {0, 1, 2, 3, 4, 5}, codes
+
+
+def test_inflate_warp_resynchronises(lib):
+    """With the next lane's start as hint, 32 threads on a real block agree
+    within a few sync rounds (the design's premise, not its correctness)."""
+    args, K, want = _k4_case("blocks")
+    got, stats = _inflate_warp(lib, args, K, 32)
+    assert torch.equal(got[0], want[0])
+    assert int(stats[3]) <= 4 * int(stats[1]), stats
+
+
+def test_inf_threads(lib):
+    """K4's threads per lane: ~1024 hinted bits each, a power of two, at
+    most a warp."""
+    bits = (-5, 0, 1024, 1025, 4096, 20000, 31 * 1024, 32 * 1024 + 1, 1 << 40)
+    assert [lib.inf_threads(ctypes.c_int64(b)) for b in bits] == [
+        1, 1, 1, 2, 4, 32, 32, 32, 32]
+
+
+@pytest.mark.parametrize("m", (1, 2, 5, 32))
+@pytest.mark.parametrize("case", range(len(k2_edge_cases())))
+def test_combine_warp_edges(lib, m, case):
+    """K2's group code, m threads to a lane, on its edge inputs: lanes of 0
+    bits, lanes shorter than a word, word-aligned starts, the last word's
+    high half at W, trailing words, a random mix.  Every word is written:
+    the buffer starts as noise."""
+    label, win, bits, pos0, B, W = k2_edge_cases()[case]
+    C = bits.numel() // B
+    words = torch.full((B, W), -0x5A5A5A5B, dtype=torch.int32)
+    lib.combine_warp(_ptr(win), _ptr(bits), _ptr(pos0), _ptr(words), B, C,
+                     win.shape[1], W, m)
+    assert torch.equal(words, combine_plain(win, bits, pos0, B, W)), label
+
+
+@pytest.mark.parametrize("seed0", SEEDS)
+def test_combine_warp_matches_plain(lib, seed0):
+    """K2's warp on K1's windows of the random seeds, lanes placed by
+    ``lane_starts`` after headers of 0..95 bits."""
+    t = trained_tables()
+    for seed in range(seed0, seed0 + 6):
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        win, bits = assign_pack_plain(data, lengths, C, t)
+        pos0 = lane_starts(bits, B, C, seed * 7 % 96)[0].reshape(-1).to(
+            torch.int32)
+        W = stream_words(N, t)
+        words = torch.full((B, W), 77, dtype=torch.int32)
+        lib.combine_warp(_ptr(win), _ptr(bits), _ptr(pos0), _ptr(words), B, C,
+                         win.shape[1], W, 32)
+        assert torch.equal(words, combine_plain(win, bits, pos0, B, W)), seed
 
 
 @pytest.mark.parametrize("seed", range(6))

@@ -130,6 +130,31 @@ def test_no_import_names_the_jax_package():
     assert len(files) > 20 and bad == []
 
 
+def test_every_launch_goes_through_the_device_guard():
+    """No code under fdeflate_tpu_torch/ops/ reaches a kernel entry point
+    (an ``fdt_*`` attribute, or ``library()``) except through
+    ``_build.launch``, which makes the tensors' device current; each of
+    the ten entry points is launched so, by its name."""
+    from fdeflate_tpu_torch import _build
+
+    root = pathlib.Path(ROOT) / "fdeflate_tpu_torch" / "ops"
+    bypass, launched = [], set()
+    for f in sorted(root.glob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Attribute) and (
+                    node.attr.startswith("fdt_") or node.attr == "library"):
+                bypass.append((f.name, node.lineno, node.attr))
+            if isinstance(node, ast.Name) and node.id == "library":
+                bypass.append((f.name, node.lineno, node.id))
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "launch"
+                    and isinstance(node.args[0], ast.Constant)):
+                launched.add(f"fdt_{node.args[0].value}")
+    assert bypass == []
+    assert launched == set(_build._SIGNATURES)
+
+
 def test_cuda_request_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
