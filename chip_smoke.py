@@ -27,7 +27,9 @@ process per source, all at once) and drives the port's paths:
      Huffman-only with their false candidates, corrupted, too few slots,
      too far, bit_end inside blocks, random starts: lanes ending with every
      exit code 0-5); K5 on all stage-1 survivors of the stream and of
-     random bytes.
+     random bytes, and on two streams' words at once (each candidate
+     bounded by its own stream, each stream's answers those it gets
+     alone).
 5.   The foreign-stream path at the JAX bench's sizes through the entry
      points: 8 MiB word-salad text at zlib 6 and 8 MiB of IDAT bytes at
      zlib 1 through try_foreign, 16 x 1 MiB IDAT streams at zlib 1 through
@@ -41,13 +43,20 @@ process per source, all at once) and drives the port's paths:
      record decode (host tables + K4 + readback) and stitch (materialize
      + Adler-32), output GB/s per stream kind, host zlib.decompress on the
      same streams, and K4's work per stream (lanes, false candidates,
-     records, threads per lane, spans and sync rounds per span).
+     records, threads per lane, spans and sync rounds per span); K5's
+     launches per ``try_foreign_batch`` call (must be 1), its one call on
+     one 1 MiB stream and over the batch's candidates, and the batched
+     stage 2.
 7.   The septree profile: K6 decode_sep against its plain version on the
-     small batches (clean and corrupted), the 16 x 1 MiB C = 512 roundtrip
+     small batches (clean and corrupted) and on its edge inputs (ragged,
+     corrupted, an EOB at every sub-step position of a word and at lane,
+     tile and last-symbol edges, random starts; its serial lanes exactly
+     those whose decode meets an EOB), the 16 x 1 MiB C = 512 roundtrip
      with ``tree=sep_profile()`` through the entry points (zlib.decompress
      of every stream, bytes, exit bits, Adler-32), the sep/trained size
-     ratio, leg times, K6 and plain K6 times, and K3 timed on the same
-     streams with the sep tree's table.
+     ratio, K6's spans, sync rounds and serial lanes there, leg times, K6
+     and plain K6 times, and K3 timed on the same streams with the sep
+     tree's table.
 8.   The adaptive tree: ``fused_adaptive_roundtrip`` at the same corpus and
      geometry (bytes, exit bits, Adler-32), the code lengths built on the
      card against the host build, K1 and K3 with the batch's tree against
@@ -461,6 +470,43 @@ def k4_report(torch, PD, lanes, wd, bounds, K: int) -> str:
             f"{s[3] / max(s[1], 1):.3f} per span, at most {s[0]}")
 
 
+def k5_batch_report(torch, P, PD, batch, dev, card) -> int:
+    """K5 on a batch: its launches in one ``try_foreign_batch`` call (must
+    be 1), its one-call time on one 1 MiB stream of the batch, the one
+    launch over the batch's candidates, and the whole batched stage 2
+    (host concatenation, upload, K5, read-back).  Returns the launches."""
+    from fdeflate_tpu_torch.ops.inflate import pad_words
+    from fdeflate_tpu_torch.ops.validate_headers import validate_headers
+
+    torch.cuda.synchronize()
+    validate_headers.launches = 0
+    P.try_foreign_batch(batch, device=dev)
+    launches = validate_headers.launches
+    if launches != 1:
+        raise AssertionError(f"try_foreign_batch launched K5 {launches} times")
+    w1 = PD.stage_words(batch[0], device=dev)
+    c1 = torch.from_numpy(PD.scan_stage1_device(batch[0], device=dev,
+                                                words=w1)).to(dev)
+    one = cuda_ms(torch, lambda: validate_headers(w1, c1, len(batch[0]) * 8),
+                  KERNEL_REPS)
+    words_np, base = pad_words(batch)
+    words = torch.from_numpy(words_np).to(dev)
+    surv = {si: PD.scan_stage1_device(
+        z, device=dev, words=words[base[si]:base[si + 1]])
+        for si, z in enumerate(batch)}
+    c, we, nb = torch.from_numpy(PD.stage2_batch_inputs(batch, surv, base)).to(dev)
+    launch = cuda_ms(torch, lambda: validate_headers(words, c, nb, wend=we),
+                     KERNEL_REPS)
+    whole = cuda_ms(torch, lambda: PD.validate_stage2_batch(
+        batch, surv, words, base), KERNEL_REPS)
+    print(f"K5 in try_foreign_batch of {len(batch)} x 1 MiB idat1: "
+          f"{launches} launch per call over {c.numel()} candidates, "
+          f"{launch:.4f} ms one call; batched stage 2 (concatenation, "
+          f"upload, K5, read-back) {whole:.4f} ms; K5 on one 1 MiB stream "
+          f"({c1.numel()} candidates) {one:.4f} ms [{card}]", flush=True)
+    return launches
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -491,18 +537,55 @@ def kernel_inputs(make_idat_corpus):
 def sep_phase(torch, P, dev, data, lengths, streams_in, streams_trained,
               inputs, card):
     """Phase 7, the septree profile: K6 against its plain version on the
-    small batches (clean and corrupted, every lane's bytes and exit bit),
-    the sep roundtrip through the entry points with K1, K2 and K6 counted,
-    then K6 at the path's shapes and the sep times.  Returns K6's row."""
+    small batches (clean and corrupted, every lane's bytes and exit bit)
+    and on its edge inputs (``edges.k6_edge_cases``: the K1 edge batches
+    encoded with the sep tree, ragged, corrupted, an EOB at every sub-step
+    position of a word and at lane, tile and last-symbol edges, random
+    starts), its serial lanes exactly those whose decode meets an EOB; the
+    sep roundtrip through the entry points with K1, K2 and K6 counted; then
+    K6 at the path's shapes (its spans, sync rounds and serial lanes) and
+    the sep times beside K3's with the sep table.  Returns K6's row."""
     from fdeflate_tpu_torch.ops.assign_pack import assign_pack
     from fdeflate_tpu_torch.ops.decode2 import decode2
-    from fdeflate_tpu_torch.ops.decode_sep import decode_sep, decode_sep_plain
+    from fdeflate_tpu_torch.ops.decode_sep import (decode_sep,
+                                                   decode_sep_plain,
+                                                   decode_sep_plain_eob)
     from fdeflate_tpu_torch.ops.repack import combine
+    from fdeflate_tpu_torch.tools.edges import k1_edge_inputs, k6_edge_cases
     from fdeflate_tpu_torch.trees import profile_tables, sep_tables
 
     sep = P.sep_profile()
     meta, vals = sep_tables(sep.lens, dev)
     err = 0.0
+
+    def held(label, words, starts, meta, vals, N, C, want=None):
+        """K6 against its plain version: bytes, exit bits, and its serial
+        lanes exactly those whose decode meets an EOB.  Returns the stats."""
+        stats = torch.zeros(5, dtype=torch.int64, device=dev)
+        got = decode_sep(words, starts, meta, vals, N, C, stats=stats)
+        out, bpos, eob = decode_sep_plain_eob(words, starts, meta, vals, N,
+                                              C)
+        torch.cuda.synchronize()
+        nonlocal err
+        err = max(err, check_equal(torch, f"decode_sep ({label})", got,
+                                   (out, bpos)))
+        if int(stats[4]) != int(eob.sum()):
+            raise AssertionError(f"decode_sep ({label}): {int(stats[4])} "
+                                 f"lanes serial, {int(eob.sum())} meet an EOB")
+        if want is not None and not torch.equal(got[0], want):
+            raise AssertionError(f"decode_sep ({label}): bytes != input")
+        return stats
+
+    edge_labels, edge_serial = [], 0
+    for label, arr, lens, C in k1_edge_inputs():
+        d = torch.from_numpy(arr).to(dev)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for case, *args in k6_edge_cases(d, ln, C, sep):
+            edge_serial += int(held(f"{label}: {case}", *args)[4])
+            edge_labels.append(f"{label}: {case}")
+    print(f"decode_sep == plain on {len(edge_labels)} edge cases "
+          f"{edge_labels}; {edge_serial} lanes decoded serially, each one "
+          f"whose decode meets an EOB: ok", flush=True)
     for label, arr, lens, C in inputs:
         d = torch.from_numpy(arr).to(dev)
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -511,12 +594,8 @@ def sep_phase(torch, P, dev, data, lengths, streams_in, streams_trained,
             if corrupt:
                 words = words.clone()
                 words[0, 100] ^= 0x5A5A5A5A
-            got = decode_sep(words, starts, meta, vals, arr.shape[1], C)
-            want = decode_sep_plain(words, starts, meta, vals, arr.shape[1], C)
-            torch.cuda.synchronize()
-            err = max(err, check_equal(torch, f"decode_sep {label}", got, want))
-            if not corrupt and not torch.equal(got[0], d):
-                raise AssertionError(f"decode_sep {label}: bytes != input")
+            held(label, words, starts, meta, vals, arr.shape[1], C,
+                 None if corrupt else d)
         print(f"decode_sep == plain at {label}, clean and corrupted (every "
               f"lane's bytes and exit bit): ok", flush=True)
 
@@ -553,10 +632,12 @@ def sep_phase(torch, P, dev, data, lengths, streams_in, streams_trained,
     print(f"sep decoded == input, bpos_ok all, ck_ok all; sep/trained "
           f"compressed size = {ratio:.6f}", flush=True)
 
-    got = decode_sep(words, starts, meta, vals, N, CHUNKS)
-    want = decode_sep_plain(words, starts, meta, vals, N, CHUNKS)
-    torch.cuda.synchronize()
-    err = max(err, check_equal(torch, "decode_sep (sep path)", got, want))
+    stats = held("sep path", words, starts, meta, vals, N, CHUNKS, data)
+    s_ = stats.tolist()
+    print(f"decode_sep (K6) at {B} x {N} B, C={CHUNKS}: {s_[1]} spans ({s_[2]} "
+          f"continued by another), sync rounds {s_[3] / max(s_[1], 1):.3f} "
+          f"per span, at most {s_[0]}; {s_[4]} lanes decoded serially",
+          flush=True)
     dec = P.zlib_decode_step(CHUNKS, N, tree=sep)
     enc_ms = cuda_ms(torch, lambda: enc(data, lengths), KERNEL_REPS)
     dec_ms = cuda_ms(torch, lambda: dec(words, starts, eof, adler, lengths),
@@ -1136,7 +1217,8 @@ def main() -> int:
     from fdeflate_tpu_torch.ops.validate_headers import (
         validate_headers, validate_headers_plain)
     from fdeflate_tpu_torch.parallel import discovery as PD
-    from fdeflate_tpu_torch.tools.edges import K4_KINDS, k4_edge_case
+    from fdeflate_tpu_torch.tools.edges import (K4_KINDS, k4_edge_case,
+                                                k5_cross_stream)
 
     k4_args, z1m, w1m = foreign_kernel_inputs(torch, dev, make_idat_corpus)
     K = PD.lane_budget(6144)
@@ -1179,6 +1261,24 @@ def main() -> int:
             torch, "validate_headers", got, want))
         print(f"validate_headers == plain on {c.numel()} stage-1 survivors "
               f"({int(got[0].sum())} valid): ok", flush=True)
+    # Two streams' words in one buffer, as try_foreign_batch validates a
+    # batch: the first stream's last bits would read the second's words
+    # but for their own word end.
+    xw, xc, xe, xn, parts = (x.to(dev) if torch.is_tensor(x) else x
+                             for x in k5_cross_stream(z1m, rb[:65536]))
+    got = validate_headers(xw, xc, xn, wend=xe)
+    errs["validate_headers"] = max(errs["validate_headers"], check_equal(
+        torch, "validate_headers (two streams)", got,
+        validate_headers_plain(xw, xc, xn, wend=xe)))
+    for lo, hi, z, cs, b0 in parts:
+        alone = validate_headers(PD.stage_words(z, device=dev),
+                                 torch.from_numpy(cs).to(dev), len(z) * 8)
+        if not (torch.equal(got[0][lo:hi], alone[0])
+                and torch.equal(got[1][lo:hi] - b0, alone[1])):
+            raise AssertionError("validate_headers: a stream of two differs "
+                                 "from the stream alone")
+    print(f"validate_headers == plain on {xc.numel()} candidates over two "
+          f"streams' words, each stream's == the stream alone: ok", flush=True)
 
     # ---- 5. the foreign path at the bench's sizes, through the entry points
     text8 = word_salad(FOREIGN_MB << 20)
@@ -1237,6 +1337,7 @@ def main() -> int:
         print(f"K4 on foreign {kind}: "
               f"{k4_report(torch, PD, lanes_k, wd_k, bounds_k, K)}",
               flush=True)
+    k5_batch_report(torch, P, PD, batch, dev, card)
     tb = cuda_ms(torch, lambda: P.try_foreign_batch(batch, device=dev), 3)
     host = sum(min(timed(lambda: zlib.decompress(z)) for _ in range(3))
                for z in batch)

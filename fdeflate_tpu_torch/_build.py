@@ -40,15 +40,17 @@ _SIGNATURES = {
     "fdt_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # words, chunk_starts, dtab, out, bpos, B, W, N, C, device, stream
     "fdt_decode2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # words, chunk_starts, meta, vals, out, bpos, B, W, N, C, stream
-    "fdt_decode_sep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # words, chunk_starts, meta, vals, out, bpos, stats (or null), B, W, N,
+    # C, device, stream
+    "fdt_decode_sep": [_P] * 7 + [_I] * 5 + [_P],
     # data, n, length, sums, wsums, tiles, stream
     "fdt_adler32_tiles": [_P, _L, _P, _P, _P, _L, _P],
     # words, start, wend, bit_end, out0, meta, tab, recs, bpos, nout, done,
     # stats (or null), L, K, stream
     "fdt_inflate_records": [_P] * 12 + [_I, _I, _P],
-    # words, W, cands, n_bits, good, end, L, stream
-    "fdt_validate_headers": [_P, _L, _P, _L, _P, _P, _I, _P],
+    # words, cands, wends (or null), nbits (or null), W, n_bits, good, end,
+    # L, stream
+    "fdt_validate_headers": [_P] * 4 + [_L, _L, _P, _P, _I, _P],
     # win, meta, packed, out, bpos, L, wwin, T, stream
     "fdt_decode2_canon": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # tok, win, L, S, wwin, stream

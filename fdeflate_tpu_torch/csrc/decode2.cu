@@ -38,10 +38,9 @@
 // lanes, so the table is loaded once per SM, and 4224 warps take the 8192
 // lanes of 16 x 1 MiB at C = 512 in two rounds (8 warps to a block, 3
 // blocks to an SM, took three).
-#include <atomic>
-
 #include <cuda_runtime.h>
 
+#include "grid.cuh"
 #include "lanes.cuh"
 #include "warp.cuh"
 
@@ -51,7 +50,6 @@ constexpr int kWarps = 32;
 constexpr int kTable = 4 << fdt::kMaxL;
 constexpr int kWarpBytes = fdt::dec_warp_bytes();
 constexpr int kSmem = kTable + kWarps * kWarpBytes;
-constexpr int kMaxDevices = 64;
 
 __global__ void __launch_bounds__(32 * kWarps, 1)
 decode_kernel(const uint32_t* __restrict__ words,
@@ -79,34 +77,16 @@ decode_kernel(const uint32_t* __restrict__ words,
   }
 }
 
-// Blocks resident on device `dev` at once; sets the kernel's shared-memory
-// limit there first.  Kept per device; a race recomputes the same value.
-cudaError_t grid_cap(int dev, int* cap) {
-  static std::atomic<int> caps[kMaxDevices];
-  if (dev >= 0 && dev < kMaxDevices && (*cap = caps[dev].load()) > 0)
-    return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  int sms = 0, per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel,
-                                                        32 * kWarps, kSmem);
-  if (err != cudaSuccess) return err;
-  *cap = sms * (per_sm > 0 ? per_sm : 1);
-  if (dev >= 0 && dev < kMaxDevices) caps[dev].store(*cap);
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // `dev`: the device the caller made current, whose stream `stream` is.
 extern "C" int fdt_decode2(const void* words, const void* chunk_starts,
                            const void* dtab, void* out, void* bpos, int B,
                            int W, int N, int C, int dev, void* stream) {
+  static std::atomic<int> caps[fdt::kMaxDevices];
   int cap = 0;
-  cudaError_t err = grid_cap(dev, &cap);
+  cudaError_t err =
+      fdt::grid_cap(decode_kernel, 32 * kWarps, kSmem, dev, caps, &cap);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t L = static_cast<int64_t>(B) * C;
   const int64_t per_block = static_cast<int64_t>(kWarps) * (32 / fdt::dec_threads(N / C));

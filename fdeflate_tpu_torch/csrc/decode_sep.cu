@@ -4,63 +4,100 @@
 // Replaces fdeflate_tpu/ops/pallas_decode2.py:_kernel_sep (via
 // decode_blocked_sep) and, as K3 does, folds in the window staging of
 // ops/repack.py (_slab_kernel and the XLA shifts of
-// stage_blocked_from_linear): each thread starts its bit reader at
-// chunk_starts[lane] in the linear words and writes S / 4 output words
-// (fdt::decode_sep_lane).  The design that defines the TPU kernel stays:
-// the code length comes from the 11 canonical bounds compares on the
-// bit-reversed 12-bit peek, the class is arithmetic (L == 12 is EOB or a
-// length symbol, idx - n_lit picks which), run base and extra bits come
-// from RFC 1951's closed form, and only literal values are a lookup, in
-// the 4-packed `vals` table.  meta (bounds, kvals, n_lit: 32 words) and
-// vals (64 words) sit in shared memory.  Unlike K3 a lane does not stall
-// at EOB: it consumes the 12 bits and decodes on, as the TPU kernel does.
+// stage_blocked_from_linear): each lane reads its stream's words from
+// chunk_starts[lane] and writes S bytes (fdt::decode_sep_lane's
+// semantics).
 //
-// Bound on the H100: the serial decode chain per thread (11 compares, a
-// dependent kvals load and a shift per symbol, ~S symbols per lane) and
-// its latency; one thread per lane, 64 threads per block, as K3.
+// Bound on the H100: bytes (the words in, S bytes per lane out), if the
+// card is kept busy.  The TPU kernel's design (one lane a serial chain of
+// S / 4 word steps, each sub-step an 11-compare canonical decode and a
+// fetch) left ~2 warps per SM on one thread per lane.  So K6 runs K3's
+// design (decode2.cu, fdt::decode2_group<kSep> in lanes.cuh): m =
+// fdt::dec_threads(S) threads per lane decode sub-ranges of staged words
+// speculatively, agree in sync rounds and write at scanned byte offsets,
+// 32 warps to a block, blocks looping over lanes.  The sep tree becomes
+// K3's 4096-entry table, built in each block's prologue from meta and
+// vals (fdt::sep_entry: the bounds compares once per peek, not per
+// symbol).  Where the lane's decode meets no EOB, K6's word steps are K3's
+// bytes; a lane whose decode meets one (the lane holding a stream's end,
+// lanes past it, corrupted lanes) is decoded again by one thread with K6's
+// word steps (fdt::sep_serial, from the same table), over what its tiles
+// stored, and counted in stats[4].
 #include <cuda_runtime.h>
 
+#include "grid.cuh"
 #include "lanes.cuh"
+#include "warp.cuh"
 
 namespace {
 
-__global__ void decode_sep_kernel(const uint32_t* __restrict__ words,
-                                  const int32_t* __restrict__ chunk_starts,
-                                  const int32_t* __restrict__ meta_g,
-                                  const int32_t* __restrict__ vals_g,
-                                  uint8_t* __restrict__ out,
-                                  int32_t* __restrict__ bpos, int B, int W,
-                                  int N, int C) {
+constexpr int kWarps = 32;
+constexpr int kTable = 4 << fdt::kMaxL;
+constexpr int kWarpBytes = fdt::dec_warp_bytes();
+constexpr int kSmem = kTable + kWarps * kWarpBytes;
+
+__global__ void __launch_bounds__(32 * kWarps, 1)
+decode_sep_kernel(const uint32_t* __restrict__ words,
+                  const int32_t* __restrict__ chunk_starts,
+                  const int32_t* __restrict__ meta_g,
+                  const int32_t* __restrict__ vals_g, uint8_t* __restrict__ out,
+                  int32_t* __restrict__ bpos, unsigned long long* stats, int B,
+                  int W, int N, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int32_t meta[32];
   __shared__ int32_t vals[64];
-  for (int i = threadIdx.x; i < 32; i += blockDim.x) meta[i] = meta_g[i];
-  for (int i = threadIdx.x; i < 64; i += blockDim.x) vals[i] = vals_g[i];
+  if (threadIdx.x < 32) meta[threadIdx.x] = meta_g[threadIdx.x];
+  if (threadIdx.x < 64) vals[threadIdx.x] = vals_g[threadIdx.x];
+  __syncthreads();
+  int32_t* dtab = reinterpret_cast<int32_t*>(smem);
+  for (int i = threadIdx.x; i < (1 << fdt::kMaxL); i += blockDim.x)
+    dtab[i] = fdt::sep_entry(meta, vals, i);
   __syncthreads();
 
-  int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= static_cast<int64_t>(B) * C) return;
-  int b = static_cast<int>(lane / C);
-  int k = static_cast<int>(lane % C);
-  int S = N / C;
-  uint32_t* dst = reinterpret_cast<uint32_t*>(
-      out + static_cast<int64_t>(b) * N + static_cast<int64_t>(k) * S);
-  bpos[lane] = fdt::decode_sep_lane(words + static_cast<int64_t>(b) * W, W,
-                                    chunk_starts[lane], meta, vals, dst, S);
+  const int m = fdt::dec_threads(N / C), per_warp = 32 / m;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  fdt::WarpGroup g(m, lane);
+  g.stats = stats;
+  uint8_t* tile = smem + kTable + warp * kWarpBytes +
+                  (lane / m) * fdt::dec_lane_bytes(m);
+  uint32_t* sw = reinterpret_cast<uint32_t*>(tile + fdt::dec_tile(m));
+  const int64_t L = static_cast<int64_t>(B) * C;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps * per_warp;
+  for (int64_t lane_id =
+           (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * per_warp + lane / m;
+       lane_id < L; lane_id += step) {
+    fdt::decode2_group<fdt::WarpGroup, true>(
+        g, words, W, chunk_starts, N, C, lane_id, dtab, fdt::dec_tile(m), tile,
+        sw, out, bpos);
+  }
 }
 
 }  // namespace
 
+// `stats`: null, or five zeroed counters (most sync rounds of a span,
+// spans, spans another span continues, sync rounds, lanes decoded
+// serially).  `dev`: the device the caller made current, whose stream
+// `stream` is.
 extern "C" int fdt_decode_sep(const void* words, const void* chunk_starts,
                               const void* meta, const void* vals, void* out,
-                              void* bpos, int B, int W, int N, int C,
-                              void* stream) {
-  const int threads = 64;
-  int64_t L = static_cast<int64_t>(B) * C;
-  int blocks = static_cast<int>((L + threads - 1) / threads);
-  decode_sep_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+                              void* bpos, void* stats, int B, int W, int N,
+                              int C, int dev, void* stream) {
+  static std::atomic<int> caps[fdt::kMaxDevices];
+  int cap = 0;
+  cudaError_t err =
+      fdt::grid_cap(decode_sep_kernel, 32 * kWarps, kSmem, dev, caps, &cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t L = static_cast<int64_t>(B) * C;
+  const int64_t per_block =
+      static_cast<int64_t>(kWarps) * (32 / fdt::dec_threads(N / C));
+  const int64_t need = (L + per_block - 1) / per_block;
+  const int blocks = static_cast<int>(need < cap ? need : cap);
+  decode_sep_kernel<<<blocks, 32 * kWarps, kSmem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words),
       static_cast<const int32_t*>(chunk_starts),
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(vals),
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(bpos), B, W, N, C);
+      static_cast<uint8_t*>(out), static_cast<int32_t*>(bpos),
+      static_cast<unsigned long long*>(stats), B, W, N, C);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,10 @@
 // K4 inflate_records decodes one deflate block per lane into records, by a
 // group of m threads (inflate_group, written over warp.cuh's policy as
 // lanes.cuh's decode2_group is); K5 validate_headers checks one candidate
-// dynamic-block header per lane, one thread each (validate_lane).  Plain
-// C++ apart from bit-reversal intrinsics, so the same source also compiles
-// for the host (tests/test_torch_lanes_host.py).
+// dynamic-block header per thread (validate_lane, and the pieces its
+// kernel splits around a compaction).  Plain C++ apart from bit-reversal
+// intrinsics, so the same source also compiles for the host
+// (tests/test_torch_lanes_host.py).
 #pragma once
 
 #include "lanes.cuh"
@@ -50,22 +51,6 @@ FDT_HD uint32_t bitrev7(uint32_t x) {  // reverse the low 7 bits
   return r;
 #endif
 }
-
-// Little-endian stream words; words at or past `wend` read as 0.
-struct WordReader {
-  const uint32_t* w;
-  int64_t wend;
-
-  FDT_HD uint32_t word(int64_t i) const {
-    return (i >= 0 && i < wend) ? w[i] : 0u;
-  }
-  FDT_HD uint32_t peek32(int64_t p) const {  // the 32 bits from bit p
-    int64_t i = p >> 5;
-    uint64_t v = static_cast<uint64_t>(word(i)) |
-                 (static_cast<uint64_t>(word(i + 1)) << 32);
-    return static_cast<uint32_t>(v >> (p & 31));
-  }
-};
 
 // Canonical decode of a peek against one tree of a foreign_meta block:
 // bounds at meta[brow + 1 .. brow + 14], kvals at meta[brow + 16 + L].
@@ -436,92 +421,272 @@ FDT_GROUP void inflate_group(const G& g, const uint32_t* words, int64_t start,
   });
 }
 
-// ---- K5, one lane per thread ----------------------------------------------
+// ---- K5, one candidate per thread -----------------------------------------
+//
+// Semantics of parallel/discovery.validate_stage2 (the numpy oracle) for the
+// candidate dynamic-block header at absolute bit `c` of a stream whose
+// payload ends at bit `n_bits` (words at or past `wend` read as 0): parse
+// HLIT/HDIST/HCLEN and the 19 code-length (CL) code lengths, build the 7-bit
+// canonical CL decode, then decode at most kValSteps sections (a length or a
+// 16/17/18 repeat) while tracking the litlen and distance Kraft sums, the
+// end-of-block symbol's length and the structural errors.  A header is good
+// when the lengths end exactly at HLIT + HDIST with no error, the litlen
+// code is complete with a nonzero end-of-block length, and the distance code
+// is complete or has at most one code; `pos` is the bit after the last
+// section decoded (the header's end when good).
+//
+// Everything stays in registers and a 128-byte table: the CL lengths packed
+// 3 bits a symbol in one 64-bit word, the decode a lookup of the
+// bit-reversed 7-bit peek (cl_table), the stream read through a 64-bit
+// buffer with three words loaded ahead (HeaderBits).  The state after any
+// number of sections (ValState) resumes from its bit alone, so the kernel
+// decodes a first few sections of every candidate, then the survivors
+// densely.
 
-// K5: validate the candidate dynamic-block header at absolute bit `c` of a
-// stream of n_bits payload bits.  Semantics of
-// parallel/discovery.validate_stage2 (the numpy oracle): parse
-// HLIT/HDIST/HCLEN and the 19 code-length (CL) code lengths, build the
-// 7-bit canonical CL decode, then decode at most 320 sections (a length or
-// a 16/17/18 repeat) while tracking the litlen and distance Kraft sums,
-// the end-of-block symbol's length and the structural errors.  Returns 1
-// for a valid header; *end_out is the bit just past the last section
-// decoded (the header's end when valid).
-FDT_HD int32_t validate_lane(const WordReader& rd, int64_t c, int64_t n_bits,
-                             int64_t* end_out) {
+constexpr int kValSteps = 320;   // pallas_inflate._VAL_STEPS
+constexpr uint8_t kClBad = 0xFF;  // a peek the CL code does not decode
+
+// Stream bits from bit p in order: `buf` holds the next nbuf >= 32 bits
+// (>= 18 after a skip of at most 14), a0..a2 the three words after them.
+struct HeaderBits {
+  const uint32_t* w;
+  int64_t wend;
+  int64_t next;
+  uint64_t buf;
+  int nbuf;
+  uint32_t a0, a1, a2;
+
+  FDT_HD uint32_t load(int64_t i) const {
+    return (i >= 0 && i < wend) ? w[i] : 0u;
+  }
+  FDT_HD HeaderBits(const uint32_t* w_, int64_t wend_, int64_t p)
+      : w(w_), wend(wend_) {
+    const int64_t i = p >> 5;
+    const int sh = static_cast<int>(p & 31);
+    const uint64_t lo = load(i), hi = load(i + 1);
+    a0 = load(i + 2);
+    a1 = load(i + 3);
+    a2 = load(i + 4);
+    next = i + 5;
+    buf = (lo >> sh) | (hi << (32 - sh));
+    nbuf = 64 - sh;
+  }
+  FDT_HD uint32_t peek() const { return static_cast<uint32_t>(buf); }
+  FDT_HD void skip(int n) {  // n <= 14; selects, no branch
+    buf >>= n;
+    nbuf -= n;
+    const bool r = nbuf < 32;
+    buf |= r ? static_cast<uint64_t>(a0) << nbuf : 0u;
+    nbuf += r ? 32 : 0;
+    a0 = r ? a1 : a0;
+    a1 = r ? a2 : a1;
+    a2 = r ? load(next) : a2;
+    next += r;
+  }
+};
+
+FDT_HD int cl_len(uint64_t clp, int s) { return static_cast<int>((clp >> (3 * s)) & 7); }
+
+// Byte t[a .. a + n) = e, word stores where four bytes are aligned.
+FDT_HD void fill_bytes(uint8_t* t, int a, int n, uint32_t e) {
+  const int b = a + n;
+  const uint32_t w = e * 0x01010101u;
+  for (; a < b && (a & 3); ++a) t[a] = static_cast<uint8_t>(e);
+  for (; a + 4 <= b; a += 4) {
+#ifdef __CUDA_ARCH__
+    *reinterpret_cast<uint32_t*>(t + a) = w;
+#else
+    memcpy(t + a, &w, 4);
+#endif
+  }
+  for (; a < b; ++a) t[a] = static_cast<uint8_t>(e);
+}
+
+// The compare chain of the CL decode for the bit-reversed peek r (validate
+// lengths clp): code length L = 1 + #{l < 7: r >= bound[l] < 128}, index
+// kval[L] + (r >> (7 - L)) into the symbols in (length, symbol) order
+// (unused ones last, `ord_lo`/`ord_hi` 5 bits a position), valid when the
+// index is 0..18 and its symbol has length L.  Entry sym | L << 5, or
+// kClBad.
+FDT_HD uint8_t cl_chain_entry(uint64_t clp, uint64_t cntp, uint64_t ord_lo,
+                              uint64_t ord_hi, int r) {
+  int L = 1;
+  int32_t code = 0;
+#pragma unroll
+  for (int l = 1; l < 7; ++l) {
+    const int32_t c = static_cast<int32_t>((cntp >> (8 * l)) & 0xFF);
+    const int32_t bound = (code + c) << (7 - l);
+    L += (r >= bound) && (bound < 128);
+    code = (code + c) << 1;
+  }
+  int32_t kv = 0, acc = 0;
+  code = 0;
+#pragma unroll
+  for (int l = 1; l <= 7; ++l) {
+    const int32_t c = static_cast<int32_t>((cntp >> (8 * l)) & 0xFF);
+    if (l == L) kv = acc - code;
+    acc += c;
+    code = (code + c) << 1;
+  }
+  const int32_t idx = kv + (r >> (7 - L));
+  if (idx < 0 || idx > 18) return kClBad;
+  const int sym = static_cast<int>(
+      (idx < 12 ? ord_lo >> (5 * idx) : ord_hi >> (5 * (idx - 12))) & 31);
+  return cl_len(clp, sym) == L ? static_cast<uint8_t>(sym | (L << 5)) : kClBad;
+}
+
+// The CL decode of lengths `clp` as a table t[128] over the bit-reversed
+// 7-bit peek: entry sym | L << 5, or kClBad where the compare chain of
+// validate_stage2 finds no symbol.  For a code that does not oversubscribe
+// (Kraft sum <= 1: every stage-1 survivor's is exactly 1) each symbol of
+// length L fills its 2^(7-L) entries from its canonical code and the
+// entries past the last code are kClBad, which is the chain's answer; an
+// oversubscribed code takes the chain's answer entry by entry.
+FDT_HD void cl_table(uint64_t clp, uint8_t* t) {
+  uint64_t cntp = 0;  // symbols of each length, 8 bits a length
+#pragma unroll
+  for (int s = 0; s < 19; ++s) {
+    const int l = cl_len(clp, s);
+    cntp += l ? (1ull << (8 * l)) : 0ull;
+  }
+  int kraft = 0;
+#pragma unroll
+  for (int l = 1; l <= 7; ++l)
+    kraft += static_cast<int>((cntp >> (8 * l)) & 0xFF) << (7 - l);
+  if (kraft <= 128) {
+    uint64_t nextp = 0;  // the next canonical code of each length
+    int code = 0;
+#pragma unroll
+    for (int l = 1; l <= 7; ++l) {
+      const int c = static_cast<int>((cntp >> (8 * l)) & 0xFF);
+      nextp |= static_cast<uint64_t>(code) << (8 * l);
+      code = (code + c) << 1;
+    }
+#pragma unroll
+    for (int s = 0; s < 19; ++s) {
+      const int l = cl_len(clp, s);
+      if (!l) continue;
+      const int cd = static_cast<int>((nextp >> (8 * l)) & 0xFF);
+      nextp += 1ull << (8 * l);
+      fill_bytes(t, cd << (7 - l), 1 << (7 - l),
+                 static_cast<uint32_t>(s | (l << 5)));
+    }
+    fill_bytes(t, kraft, 128 - kraft, kClBad);
+    return;
+  }
+  // Positions in (length, symbol) order, unused symbols last.
+  uint64_t accp = 0, rankp = 0, ord_lo = 0, ord_hi = 0;
+  int acc = 0;
+#pragma unroll
+  for (int l = 1; l <= 7; ++l) {
+    accp |= static_cast<uint64_t>(acc) << (8 * l);
+    acc += static_cast<int>((cntp >> (8 * l)) & 0xFF);
+  }
+  accp |= static_cast<uint64_t>(acc);  // slot 0: the unused symbols
+#pragma unroll
+  for (int s = 0; s < 19; ++s) {
+    const int l = cl_len(clp, s);
+    const int p = static_cast<int>(((accp + rankp) >> (8 * l)) & 0xFF);
+    rankp += 1ull << (8 * l);
+    if (p < 12) ord_lo |= static_cast<uint64_t>(s) << (5 * p);
+    else ord_hi |= static_cast<uint64_t>(s) << (5 * (p - 12));
+  }
+  for (int r = 0; r < 128; ++r)
+    t[r] = cl_chain_entry(clp, cntp, ord_lo, ord_hi, r);
+}
+
+struct ValState {
+  int64_t pos;
+  int32_t hlit, total, written, prev, kraft_l, kraft_d, nz_d, len256, step;
+  bool bad;
+};
+
+// The candidate's header fields and CL lengths from bit c (the reader at
+// c), its CL table into t[128]; the state before the first section.
+FDT_HD ValState val_begin(HeaderBits& hb, int64_t c, uint8_t* t) {
   const int kClcl[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
                          11, 4, 12, 3, 13, 2, 14, 1, 15};
-  auto field = [&](int64_t p, int w) -> int32_t {
-    return static_cast<int32_t>(rd.peek32(p) & ((1u << w) - 1));
-  };
-  int32_t hlit = field(c + 3, 5) + 257;
-  int32_t hdist = field(c + 8, 5) + 1;
-  int32_t ncl = field(c + 13, 4) + 4;
-  int32_t cl[19];
-  for (int j = 0; j < 19; ++j)
-    cl[kClcl[j]] = j < ncl ? field(c + 17 + 3 * j, 3) : 0;
-
-  int32_t cnt[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  for (int s = 0; s < 19; ++s) cnt[cl[s]] += cl[s] > 0;
-  int32_t bound[8], kval[8];
-  bound[0] = 0;
-  kval[0] = 0;
-  int32_t code = 0, acc = 0;
-  for (int L = 1; L <= 7; ++L) {
-    bound[L] = (code + cnt[L]) << (7 - L);
-    kval[L] = acc - code;
-    acc += cnt[L];
-    code = (code + cnt[L]) << 1;
-  }
-  // Symbols in (length, symbol) order, unused symbols last in symbol order.
-  int8_t order[19];
-  int k = 0;
-  for (int L = 1; L <= 7; ++L)
-    for (int s = 0; s < 19; ++s)
-      if (cl[s] == L) order[k++] = static_cast<int8_t>(s);
-  for (int s = 0; s < 19; ++s)
-    if (cl[s] == 0) order[k++] = static_cast<int8_t>(s);
-
-  int64_t pos = c + 17 + 3 * ncl;
-  int32_t total = hlit + hdist;
-  int32_t written = 0, prev = 0, kraft_l = 0, kraft_d = 0, nz_d = 0;
-  int32_t len256 = 0;
-  bool bad = false;
-  for (int step = 0; step < 320 && !bad && written < total; ++step) {
-    uint32_t v = rd.peek32(pos);
-    int32_t r7 = static_cast<int32_t>(bitrev7(v & 0x7F));
-    int L = 1;
-    for (int l = 1; l < 7; ++l) L += (r7 >= bound[l]) && (bound[l] < 128);
-    int32_t idx = kval[L] + (r7 >> (7 - L));
-    int32_t sym = order[idx < 0 ? 0 : (idx > 18 ? 18 : idx)];
-    if (idx < 0 || idx > 18 || cl[sym] != L) bad = true;
-    bool plain = sym <= 15;
-    int ebits = sym == 16 ? 2 : (sym == 17 ? 3 : 7);
-    int32_t ebase = sym == 18 ? 11 : 3;
-    int32_t rep = plain ? 1 : ebase + static_cast<int32_t>(
-                                          (v >> L) & ((1u << ebits) - 1));
-    int32_t value = plain ? sym : (sym == 16 ? prev : 0);
-    if (sym == 16 && written == 0) bad = true;
-    if (written + rep > total) bad = true;
-    if (!bad) {
-      int32_t lim = written + rep < hlit ? written + rep : hlit;
-      int32_t l_cnt = lim - written > 0 ? lim - written : 0;
-      int32_t d_cnt = rep - l_cnt;
-      if (value > 0) {
-        kraft_l += (1 << (15 - value)) * l_cnt;
-        kraft_d += (1 << (15 - value)) * d_cnt;
-        nz_d += d_cnt;
-      }
-      if (written <= 256 && 256 < written + rep && hlit > 256) len256 = value;
-      if (plain) prev = sym;
-      written += rep;
-      pos += L + (plain ? 0 : ebits);
+  ValState s{};
+  hb.skip(3);
+  s.hlit = static_cast<int32_t>(hb.peek() & 31) + 257;
+  hb.skip(5);
+  const int32_t hdist = static_cast<int32_t>(hb.peek() & 31) + 1;
+  hb.skip(5);
+  const int ncl = static_cast<int>(hb.peek() & 15) + 4;
+  hb.skip(4);
+  uint64_t clp = 0;
+#pragma unroll
+  for (int j = 0; j < 19; ++j) {
+    if (j < ncl) {
+      clp |= static_cast<uint64_t>(hb.peek() & 7) << (3 * kClcl[j]);
+      hb.skip(3);
     }
-    if (pos + 7 >= n_bits) bad = true;
   }
-  *end_out = pos;
-  return !bad && written == total && kraft_l == (1 << 15) && len256 > 0 &&
-         (kraft_d == (1 << 15) || nz_d <= 1);
+  cl_table(clp, t);
+  s.pos = c + 17 + 3 * ncl;
+  s.total = s.hlit + hdist;
+  return s;
+}
+
+FDT_HD bool val_live(const ValState& s) {
+  return s.step < kValSteps && !s.bad && s.written < s.total;
+}
+
+// Sections while live, up to step `upto`, from the reader at s.pos.  The
+// body has no branch, only selects: the threads of a warp decode different
+// candidates and would part at every section, and the longest header's
+// chain of sections sets the kernel's time.  An invalid code or a failed
+// check consumes nothing and updates nothing but `bad`.
+FDT_HD void val_sections(ValState& s, HeaderBits& hb, const uint8_t* t,
+                         int64_t n_bits, int upto) {
+  while (s.step < upto && !s.bad && s.written < s.total) {
+    ++s.step;
+    const uint32_t v = hb.peek();
+    const uint32_t e = t[bitrev7(v & 0x7F)];
+    const int L = static_cast<int>(e >> 5) & 7;
+    const int sym = static_cast<int>(e & 31);
+    const bool plain = sym <= 15;
+    const int ebits = sym == 16 ? 2 : (sym == 17 ? 3 : 7);
+    const int32_t rep =
+        plain ? 1
+              : (sym == 18 ? 11 : 3) +
+                    static_cast<int32_t>((v >> L) & ((1u << ebits) - 1));
+    const int32_t value = plain ? sym : (sym == 16 ? s.prev : 0);
+    const bool ok = e != kClBad && !(sym == 16 && s.written == 0) &&
+                    s.written + rep <= s.total;
+    const int32_t lim = s.written + rep < s.hlit ? s.written + rep : s.hlit;
+    const int32_t l_cnt = lim - s.written > 0 ? lim - s.written : 0;
+    const int32_t k = ok && value > 0 ? 1 << (15 - value) : 0;
+    s.kraft_l += k * l_cnt;
+    s.kraft_d += k * (rep - l_cnt);
+    s.nz_d += k ? rep - l_cnt : 0;
+    s.len256 = ok && s.written <= 256 && 256 < s.written + rep && s.hlit > 256
+                   ? value
+                   : s.len256;
+    s.prev = ok && plain ? sym : s.prev;
+    s.written += ok ? rep : 0;
+    const int n = ok ? L + (plain ? 0 : ebits) : 0;
+    s.pos += n;
+    hb.skip(n);
+    s.bad = !ok || s.pos + 7 >= n_bits;
+  }
+}
+
+FDT_HD int32_t val_good(const ValState& s) {
+  return !s.bad && s.written == s.total && s.kraft_l == (1 << 15) &&
+         s.len256 > 0 && (s.kraft_d == (1 << 15) || s.nz_d <= 1);
+}
+
+// K5 on one candidate, every section in one pass: returns good, *end_out
+// the bit after the last section.  (The kernel splits the same passes
+// around its compaction.)
+FDT_HD int32_t validate_lane(const uint32_t* words, int64_t wend, int64_t c,
+                             int64_t n_bits, uint8_t* t, int64_t* end_out) {
+  HeaderBits hb(words, wend, c);
+  ValState s = val_begin(hb, c, t);
+  val_sections(s, hb, t, n_bits, kValSteps);
+  *end_out = s.pos;
+  return val_good(s);
 }
 
 }  // namespace fdt

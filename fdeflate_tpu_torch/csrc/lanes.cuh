@@ -7,7 +7,8 @@
 // decode2_group put them
 // together with the group's collectives, written once over a policy of
 // warp operations (warp.cuh): shuffles on the card, loops over m thread
-// slots on the host.  K6, K8 and K9 (decode_sep.cu, decode2_canon.cu,
+// slots on the host.  K6 (decode_sep.cu) runs decode2_group too, with the
+// sep tree's table and its own EOB rule.  K8 and K9 (decode2_canon.cu,
 // pack_v1.cu) run one lane or window word per thread with the whole-lane
 // functions further down.  Everything here is plain C++ (device
 // intrinsics only behind __CUDA_ARCH__, with a host equivalent), so the
@@ -372,6 +373,120 @@ FDT_GROUP void assign_pack_group(const G& g, const uint8_t* data,
   });
 }
 
+// ---- K6's tree and word steps ----------------------------------------------
+
+FDT_HD int bitrev12(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return static_cast<int>(__brev(x) >> 20);
+#else
+  int r = 0;
+  for (int i = 0; i < kMaxL; ++i) r |= ((x >> i) & 1) << (kMaxL - 1 - i);
+  return r;
+#endif
+}
+
+// The decode entry (K3's format: val | extra << 9 | cls << 13 | L << 16,
+// trees.decode_table) of the 12-bit LSB-first peek x under a
+// class-separated tree's rows (trees.sep_tables: bounds at meta[0..12],
+// kvals at meta[16..28], the literal count at meta[15]; `vals` the
+// literal bytes by sorted index, four to a word).  Code length L = 1 +
+// #{l < 12: r12 >= bounds[l]} of the bit-reversed peek r12, sorted index
+// kvals[L] + (r12 >> (12 - L)); L < 12 is a literal; L == 12 is EOB at
+// index n_lit and otherwise length symbol 257 + (index - n_lit - 1), its
+// base and extra bits in RFC 1951's closed form.
+FDT_HD int32_t sep_entry(const int32_t* meta, const int32_t* vals,
+                         uint32_t x) {
+  const int r12 = bitrev12(x);
+  int L = 1;
+  for (int l = 1; l < kMaxL; ++l) L += r12 >= meta[l];
+  const int idx = meta[16 + L] + (r12 >> (kMaxL - L));
+  if (L < kMaxL) {
+    const uint32_t v = static_cast<uint32_t>(vals[imin(imax(idx >> 2, 0), 63)]);
+    return static_cast<int32_t>((v >> (8 * (idx & 3))) & 0xFFu) | (L << 16);
+  }
+  const int n_lit = meta[15];
+  if (idx <= n_lit) return (1 << 13) | (kMaxL << 16);
+  const int sp = idx - n_lit - 1;
+  const int e = (sp < 4 || sp == 28) ? 0 : (sp >> 2) - 1;
+  const int base = sp == 28 ? 258 : sp < 4 ? sp + 3 : ((4 + (sp & 3)) << e) + 3;
+  return base | (e << 9) | (2 << 13) | (kMaxL << 16);
+}
+
+// Entries of sep_entry's format looked up in a 4096-entry table (the
+// kernel's, in shared memory), or computed from the tree's rows.
+struct SepTable {
+  const int32_t* t;
+  FDT_HD int32_t operator()(uint32_t x) const { return t[x]; }
+};
+struct SepRows {
+  const int32_t* meta;
+  const int32_t* vals;
+  FDT_HD int32_t operator()(uint32_t x) const {
+    return sep_entry(meta, vals, x);
+  }
+};
+
+// K6's word steps (pallas_decode2._kernel_sep) over one lane of S bytes
+// from absolute bit `start` of the stream row `row` (W words; words at or
+// past W read as 0), `look(peek12)` giving each peek's entry (SepRows or
+// SepTable).  The lane makes S / 4 word steps of up to
+// 4 sub-steps.  A sub-step first takes pending run bytes into the word; if
+// the word still has room and no run is pending it decodes one symbol: a
+// literal fills a byte; EOB consumes its 12 bits, writes nothing, and
+// decoding goes on (so the word may end short, zero-padded); a length
+// symbol's zero run (base and extra bits, 1 distance bit consumed
+// unchecked) is written as zero bytes.  The run left over when the word is
+// full carries to the next step and is dropped at the lane end.  Words go
+// to dst[0 .. S/4).  Returns the exit bit relative to `start`.
+template <class Look>
+FDT_HD int32_t sep_serial(const uint32_t* row, int64_t W, int64_t start,
+                          const Look& look, uint32_t* dst, int S) {
+  int64_t wnext = start >> 5;
+  auto fetch = [&]() -> uint64_t {
+    uint64_t v = (wnext >= 0 && wnext < W) ? row[wnext] : 0u;
+    ++wnext;
+    return v;
+  };
+  int sh = static_cast<int>(start & 31);
+  uint64_t buf = fetch() >> sh;
+  int nbuf = 32 - sh;
+  int32_t pos = 0;
+  int run = 0;  // run bytes not yet written
+  for (int u = 0; u < S / 4; ++u) {
+    uint32_t word = 0;
+    int filled = 0;
+    for (int s = 0; s < 4; ++s) {
+      int take = run < 4 - filled ? run : 4 - filled;
+      filled += take;
+      run -= take;
+      if (filled == 4 || run != 0) continue;
+      if (nbuf < 32) {  // a sub-step consumes at most 12 + 5 + 1 bits
+        buf |= fetch() << nbuf;
+        nbuf += 32;
+      }
+      const uint32_t bits = static_cast<uint32_t>(buf);
+      const int32_t e = look(bits & ((1u << kMaxL) - 1));
+      int n = (e >> 16) & 0x1F;
+      const int cls = (e >> 13) & 3;
+      if (cls == 0) {
+        word |= static_cast<uint32_t>(e & 0xFF) << (8 * filled);
+        ++filled;
+      } else if (cls == 2) {
+        const int extra = (e >> 9) & 0xF;
+        run = (e & 0x1FF) + static_cast<int>((bits >> n) & ((1u << extra) - 1));
+        n += extra + 1;
+      }
+      buf >>= n;
+      nbuf -= n;
+      pos += n;
+    }
+    int take = run < 4 - filled ? run : 4 - filled;
+    run -= take;
+    dst[u] = word;
+  }
+  return pos;
+}
+
 // ---- K3, a group of threads per lane --------------------------------------
 //
 // Semantics of pallas_decode2._kernel_light: literals; zero runs of length
@@ -534,7 +649,17 @@ FDT_HD int32_t clamp_hint(int64_t H, int32_t rel0, int32_t pmax) {
 // starts at its predecessor's exit, the write pass at the scanned byte
 // offsets, and the span's end (filled, stalled, or short: another span);
 // store the tile.
-template <class G>
+//
+// kSep: K6's lane instead (decode_sep_lane's semantics, `dtab` the sep
+// tree's table, sep_entry).  Where no EOB is met the two agree: four
+// sub-steps always fill a word, so K6's words are K3's bytes in order,
+// and a run left over at the lane end is cut either way with its bits
+// counted.  An EOB ends a segment as K3's stall does (a dead segment's
+// EOB changes nothing); when the segment that ends a span stalls (an EOB
+// on the serial decode's path), thread 0 decodes the whole lane again
+// with K6's word steps (sep_serial) straight into `out`, over the tiles
+// stored so far, and the group's serial_lane() counts it.
+template <class G, bool kSep = false>
 FDT_GROUP void decode2_group(const G& g, const uint32_t* words, int64_t W,
                              const int32_t* chunk_starts, int N, int C,
                              int64_t lane, const int32_t* dtab, int tcap,
@@ -645,6 +770,7 @@ FDT_GROUP void decode2_group(const G& g, const uint32_t* words, int64_t W,
       g.span_done(rounds, !fill && !halt);
       g.sync();
     }
+    if (kSep && stalled) break;
     uint8_t* d = dst + toff;
     const int n =
         (reinterpret_cast<uintptr_t>(d) & 15) == 0 && (T & 15) == 0 ? 16 : 4;
@@ -652,6 +778,16 @@ FDT_GROUP void decode2_group(const G& g, const uint32_t* words, int64_t W,
       for (int j = i; j < T / n; j += m) g.store(d + n * j, tile + n * j, n);
     });
     g.sync();
+  }
+  if (kSep && stalled) {
+    g.each([&](int i) {
+      if (i == 0)
+        bpos[lane] = sep_serial(row, W, start, SepTable{dtab},
+                                reinterpret_cast<uint32_t*>(dst), S);
+    });
+    g.serial_lane();
+    g.sync();
+    return;
   }
   g.each([&](int i) {
     if (i == 0) bpos[lane] = static_cast<int32_t>(P - start);
@@ -780,87 +916,19 @@ FDT_GROUP void combine_group(const G& g, const uint32_t* win,
   });
 }
 
-// ---- K6, K8, K9: one lane (or window word) per thread ---------------------
-
-FDT_HD int bitrev12(uint32_t x) {
-#ifdef __CUDA_ARCH__
-  return static_cast<int>(__brev(x) >> 20);
-#else
-  int r = 0;
-  for (int i = 0; i < kMaxL; ++i) r |= ((x >> i) & 1) << (kMaxL - 1 - i);
-  return r;
-#endif
-}
+// ---- K6 (through K3's group code), K8, K9: one lane (or window word) per
+// thread -------------------------------------------------------------------
 
 // K6: decode one lane of S bytes of a class-separated tree (ops/septree)
 // starting at absolute bit `start` of the stream row `row` (W words; words
-// at or past W read as 0).
-//
-// Semantics of pallas_decode2._kernel_sep: the lane makes S / 4 word steps
-// of up to 4 sub-steps.  A sub-step first takes pending run bytes into the
-// word; if the word still has room and no run is pending it decodes one
-// symbol: code length L = 1 + #{l < 12: r12 >= bounds[l]} on the
-// bit-reversed 12-bit peek r12, sorted index kvals[L] + (r12 >> (12 - L)).
-// L < 12 is a literal whose byte comes from the 4-packed `vals`; L == 12
-// is EOB when idx - n_lit == 0 (12 bits consumed, nothing written,
-// decoding goes on) and otherwise a length symbol whose zero run (RFC 1951
-// closed-form base and extra bits, 1 distance bit consumed unchecked) is
-// written as zero bytes.  The run left over when the word is full carries
-// to the next step and is dropped at the lane end.  Returns the exit bit
-// relative to `start`.
+// at or past W read as 0), serially: sep_serial with the tree's entries
+// computed from its (meta, vals) rows.  The kernel runs the lane through
+// decode2_group<kSep>, which comes back here only for a lane whose decode
+// meets an EOB.
 FDT_HD int32_t decode_sep_lane(const uint32_t* row, int64_t W, int64_t start,
                                const int32_t* meta, const int32_t* vals,
                                uint32_t* dst, int S) {
-  int64_t wnext = start >> 5;
-  auto fetch = [&]() -> uint64_t {
-    uint64_t v = (wnext >= 0 && wnext < W) ? row[wnext] : 0u;
-    ++wnext;
-    return v;
-  };
-  int sh = static_cast<int>(start & 31);
-  uint64_t buf = fetch() >> sh;
-  int nbuf = 32 - sh;
-  const int n_lit = meta[15];
-  int32_t pos = 0;
-  int run = 0;  // run bytes not yet written
-  for (int u = 0; u < S / 4; ++u) {
-    uint32_t word = 0;
-    int filled = 0;
-    for (int s = 0; s < 4; ++s) {
-      int take = run < 4 - filled ? run : 4 - filled;
-      filled += take;
-      run -= take;
-      if (filled == 4 || run != 0) continue;
-      if (nbuf < 32) {  // a sub-step consumes at most 12 + 5 + 1 bits
-        buf |= fetch() << nbuf;
-        nbuf += 32;
-      }
-      uint32_t bits = static_cast<uint32_t>(buf);
-      int r12 = bitrev12(bits);
-      int L = 1;
-      for (int l = 1; l < kMaxL; ++l) L += r12 >= meta[l];
-      int idx = meta[16 + L] + (r12 >> (kMaxL - L));
-      int n = L;
-      if (L < kMaxL) {
-        uint32_t v = static_cast<uint32_t>(vals[idx >> 2]) >> (8 * (idx & 3));
-        word |= (v & 0xFFu) << (8 * filled);
-        ++filled;
-      } else if (idx > n_lit) {
-        int sp = idx - n_lit - 1;  // length symbol 257 + sp
-        int e = (sp < 4 || sp == 28) ? 0 : (sp >> 2) - 1;
-        int base = sp == 28 ? 258 : sp < 4 ? sp + 3 : ((4 + (sp & 3)) << e) + 3;
-        run = base + static_cast<int>((bits >> L) & ((1u << e) - 1));
-        n += e + 1;
-      }
-      buf >>= n;
-      nbuf -= n;
-      pos += n;
-    }
-    int take = run < 4 - filled ? run : 4 - filled;
-    run -= take;
-    dst[u] = word;
-  }
-  return pos;
+  return sep_serial(row, W, start, SepRows{meta, vals}, dst, S);
 }
 
 // K8: decode one lane's window of the trained tree, T output words from bit

@@ -1,6 +1,6 @@
 // The warp operations of the group lane code (lanes.cuh assign_pack_group,
-// combine_group and decode2_group; inflate_lanes.cuh inflate_group), two
-// ways.
+// combine_group and decode2_group, K3's and K6's; inflate_lanes.cuh
+// inflate_group), two ways.
 //
 // The lane code is written once, for a group of m threads that works one
 // lane: `each(f)` runs a thread's part f(i), `Var<T>` holds one value per
@@ -125,8 +125,9 @@ struct WarpGroup {
   __device__ bool any(const Var<bool>& p) const { return __any_sync(mask, p.v); }
   __device__ int max(const Var<int>& v) const { return __reduce_max_sync(mask, v.v); }
 
-  // Hooks of K3's and K4's span loops: the hint as computed; with `stats`
-  // set (K4's optional counters), HostGroup's record below, by atomics.
+  // Hooks of K3's, K4's and K6's span loops: the hint as computed; with
+  // `stats` set (K4's and K6's optional counters), HostGroup's record
+  // below, by atomics.
   unsigned long long* stats = nullptr;
   __device__ int64_t hint(int64_t H) const { return H; }
   __device__ void span_done(int rounds, bool fell_short) const {
@@ -136,15 +137,18 @@ struct WarpGroup {
     atomicAdd(stats + 2, static_cast<unsigned long long>(fell_short));
     atomicAdd(stats + 3, static_cast<unsigned long long>(rounds));
   }
+  __device__ void serial_lane() const {
+    if (stats && i == 0) atomicAdd(stats + 4, 1ull);
+  }
 };
 
 #else  // the host
 
-// m threads run one after another.  hnum / hden scale K3's and K4's span
-// hints; stats (if set) records their spans: [0] the most sync rounds of a
-// span, [1] spans, [2] spans another span continues (every segment
+// m threads run one after another.  hnum / hden scale K3's, K4's and K6's
+// span hints; stats (if set) records their spans: [0] the most sync rounds
+// of a span, [1] spans, [2] spans another span continues (every segment
 // reached its stop: the hint, or K4's tile, ended first), [3] sync
-// rounds.
+// rounds, and [4] K6's lanes decoded serially (only K6 writes it).
 struct HostGroup {
   static constexpr int kMax = 32;
   int m;
@@ -204,6 +208,9 @@ struct HostGroup {
     stats[1] += 1;
     stats[2] += fell_short;
     stats[3] += rounds;
+  }
+  void serial_lane() const {
+    if (stats) stats[4] += 1;
   }
 };
 

@@ -3,9 +3,9 @@
 JAX counterpart: the TPU kernel
 ``fdeflate_tpu/ops/pallas_decode2.py:_kernel_sep`` (via
 ``decode_blocked_sep``), with the window staging before it folded in as in
-K3 (``ops/decode2.py``).  The CUDA kernel is ``csrc/decode_sep.cu``;
-``decode_sep_plain`` is its plain version, a loop over word steps
-vectorised across lanes.
+K3 (``ops/decode2.py``).  The CUDA kernel is ``csrc/decode_sep.cu``, K3's
+group decode with the sep tree's table; ``decode_sep_plain`` is its plain
+version, a loop over word steps vectorised across lanes.
 
 Lane ``b * C + k`` reads stream ``b`` from bit ``chunk_starts[b, k]`` and
 writes exactly S = N / C bytes to ``out[b, k*S : (k+1)*S]``.  Semantics are
@@ -35,6 +35,17 @@ def decode_sep_plain(words: torch.Tensor, chunk_starts: torch.Tensor,
     Returns (out u8[B, N], bpos int32[B, C]) — bpos is each lane's exit bit
     relative to its start.
     """
+    out, bpos, _eob = decode_sep_plain_eob(words, chunk_starts, meta, vals,
+                                           N, C)
+    return out, bpos
+
+
+def decode_sep_plain_eob(words: torch.Tensor, chunk_starts: torch.Tensor,
+                         meta: torch.Tensor, vals: torch.Tensor, N: int,
+                         C: int):
+    """``decode_sep_plain`` and bool[B, C]: the lanes whose decode meets
+    an EOB, which the CUDA kernel decodes serially (its ``stats[4]`` counts
+    them)."""
     B, W = words.shape
     S = N // C
     L = B * C
@@ -53,6 +64,7 @@ def decode_sep_plain(words: torch.Tensor, chunk_starts: torch.Tensor,
     pos = torch.zeros(L, dtype=torch.int64, device=dev)
     run = torch.zeros(L, dtype=torch.int64, device=dev)
     out = torch.empty(L, S // 4, dtype=torch.int64, device=dev)
+    met = torch.zeros(L, dtype=torch.bool, device=dev)
     for u in range(S // 4):
         used = torch.zeros(L, dtype=torch.int64, device=dev)
         filled = torch.zeros(L, dtype=torch.int64, device=dev)
@@ -74,6 +86,7 @@ def decode_sep_plain(words: torch.Tensor, chunk_starts: torch.Tensor,
             is_lit = need & (Lc < MAXL)
             sp = idx - n_lit - 1                  # length symbol 257 + sp
             is_run = is12 & (sp >= 0)
+            met |= is12 & (sp < 0)
             e = torch.where((sp < 4) | (sp == 28), 0, (sp >> 2) - 1)
             base = torch.where(sp < 4, sp + 3, ((4 + (sp & 3)) << e) + 3)
             base = torch.where(sp == 28, 258, base)
@@ -89,17 +102,23 @@ def decode_sep_plain(words: torch.Tensor, chunk_starts: torch.Tensor,
         out[:, u] = word
     # int64 -> int32 keeps the low 32 bits; the words are little-endian.
     out = out.to(torch.int32).view(torch.uint8).reshape(B, N)
-    return out, pos.to(torch.int32).reshape(B, C)
+    return out, pos.to(torch.int32).reshape(B, C), met.reshape(B, C)
 
 
 def decode_sep(words: torch.Tensor, chunk_starts: torch.Tensor,
-               meta: torch.Tensor, vals: torch.Tensor, N: int, C: int):
+               meta: torch.Tensor, vals: torch.Tensor, N: int, C: int,
+               stats=None):
     """K6 on ``words``' device: (out u8[B, N], bpos int32[B, C]).
 
     ``words`` int32[B, W] stream words (u32 bit patterns), ``chunk_starts``
     int32[B, C] absolute lane start bits, ``meta`` int32[32] and ``vals``
     int32[64] from ``trees.sep_tables``.  CPU tensors take
-    ``decode_sep_plain``; CUDA tensors launch ``csrc/decode_sep.cu``.
+    ``decode_sep_plain``; CUDA tensors launch ``csrc/decode_sep.cu`` (K3's
+    group decode with the sep tree's table; a lane whose decode meets an EOB
+    is decoded again serially).  ``stats``: None, or a zeroed int64[5] on
+    the card that the kernel fills with its spans' counts (most sync rounds
+    of a span, spans, spans another span continues, sync rounds) and the
+    lanes it decoded serially.
     """
     B, W = words.shape
     if N % C or (N // C) % 4 or chunk_starts.shape != (B, C):
@@ -110,17 +129,23 @@ def decode_sep(words: torch.Tensor, chunk_starts: torch.Tensor,
     if words.device.type == "cpu":
         return decode_sep_plain(words, chunk_starts, meta, vals, N, C)
     _build.require_cuda(words, chunk_starts, meta, vals)
-    words = words.to(torch.int32).contiguous()
-    chunk_starts = chunk_starts.to(torch.int32).contiguous()
-    meta = meta.to(torch.int32).contiguous()
-    vals = vals.to(torch.int32).contiguous()
-    out = torch.empty(B, N, dtype=torch.uint8, device=words.device)
-    bpos = torch.empty(B, C, dtype=torch.int32, device=words.device)
+    dev = words.device
+    if stats is not None and (stats.shape != (5,) or stats.dtype != torch.int64
+                              or stats.device != dev):
+        raise ValueError("decode_sep: stats must be int64[5] on the words' "
+                         "device")
+    words = _build.i32(words)
+    chunk_starts = _build.i32(chunk_starts)
+    meta = _build.i32(meta)
+    vals = _build.i32(vals)
+    out = torch.empty(B, N, dtype=torch.uint8, device=dev)
+    bpos = torch.empty(B, C, dtype=torch.int32, device=dev)
     if B * C == 0:
         return out, bpos
-    _build.launch("decode_sep", words.device, words.data_ptr(),
-                  chunk_starts.data_ptr(), meta.data_ptr(), vals.data_ptr(),
-                  out.data_ptr(), bpos.data_ptr(), B, W, N, C)
+    _build.launch("decode_sep", dev, words.data_ptr(), chunk_starts.data_ptr(),
+                  meta.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                  bpos.data_ptr(), None if stats is None else stats.data_ptr(),
+                  B, W, N, C, dev.index)
     decode_sep.launches += 1
     return out, bpos
 

@@ -1,4 +1,4 @@
-"""K5 validate_headers: discovery stage 2, one candidate header per lane.
+"""K5 validate_headers: discovery stage 2, one candidate header per thread.
 
 JAX counterparts: the TPU kernel ``fdeflate_tpu/ops/pallas_inflate.py``
 ``_validate_kernel`` (via ``validate_headers_blocked``) and its numpy
@@ -8,8 +8,10 @@ version, one code-length section of every live candidate per iteration.
 
 A candidate is the bit offset of a possible dynamic-block header in a
 stream of ``n_bits`` payload bits, read from the stream's words (words at
-or past the end read as 0).  Its header's 19 code-length code lengths give
-a 7-bit canonical decode; at most ``VAL_STEPS`` sections (a length or a
+or past the stream's end read as 0; each candidate may carry its own
+stream's bounds, so the candidates of a batch of streams validate in one
+call over their concatenated words).  Its header's 19 code-length code
+lengths give a 7-bit canonical decode; at most ``VAL_STEPS`` sections (a length or a
 16/17/18 repeat) are decoded while the literal/length and distance Kraft
 sums, the end-of-block code's length and the structural errors are
 tracked.  A header is good when the lengths end exactly at HLIT + HDIST
@@ -41,7 +43,7 @@ def _rev7(device: str) -> torch.Tensor:
     return r.to(device)
 
 
-def validate_headers_plain(words, cands, n_bits: int):
+def validate_headers_plain(words, cands, n_bits, wend=None):
     """Plain PyTorch K5.  Returns (good bool[L], end int64[L])."""
     dev = words.device
     W = words.numel()
@@ -49,11 +51,13 @@ def validate_headers_plain(words, cands, n_bits: int):
     w = torch.cat([words.reshape(-1).to(torch.int64) & _MASK32,
                    torch.zeros(1, dtype=torch.int64, device=dev)])
     i64 = torch.int64
+    n_bits = torch.as_tensor(n_bits, dtype=i64, device=dev).reshape(-1)
+    we = W if wend is None else wend.reshape(-1).to(i64).clamp(max=W)
 
     def peek32(p):
         i = p >> 5
-        lo = w[torch.where((i >= 0) & (i < W), i, W)]
-        hi = w[torch.where((i + 1 >= 0) & (i + 1 < W), i + 1, W)]
+        lo = w[torch.where((i >= 0) & (i < we), i, W)]
+        hi = w[torch.where((i + 1 >= 0) & (i + 1 < we), i + 1, W)]
         return ((lo | (hi << 32)) >> (p & 31)) & _MASK32
 
     c = cands.reshape(-1).to(i64)
@@ -120,30 +124,50 @@ def validate_headers_plain(words, cands, n_bits: int):
     return good, pos
 
 
-def validate_headers(words, cands, n_bits: int):
+def validate_headers(words, cands, n_bits, wend=None):
     """K5 on ``words``' device: (good bool[L], end int64[L]).
 
-    ``words`` int32[W] one stream's words (u32 bit patterns), ``cands``
-    int64[L] absolute candidate bit offsets.  CPU tensors take
-    ``validate_headers_plain``; CUDA tensors launch
-    ``csrc/validate_headers.cu``.
+    ``words`` int32[W]: a stream's words (u32 bit patterns), or the
+    concatenated words of several (``ops/inflate.pad_words``); ``cands``
+    int64[L] absolute candidate bit offsets; ``n_bits`` the bit where the
+    payload ends, an int for every candidate or int64[L] for each; ``wend``
+    None (W for every candidate) or int64[L]: words at or past a
+    candidate's ``wend`` read as 0, so a candidate never reads past its own
+    stream.  CPU tensors take ``validate_headers_plain``; CUDA tensors
+    launch ``csrc/validate_headers.cu``, one launch for all candidates.
     """
     if words.device.type == "cpu":
-        return validate_headers_plain(words, cands, n_bits)
-    _build.require_cuda(words, cands)
+        return validate_headers_plain(words, cands, n_bits, wend)
+    per = [x for x in (n_bits, wend) if isinstance(x, torch.Tensor)]
+    _build.require_cuda(words, cands, *per)
     dev = words.device
-    words = words.reshape(-1).to(torch.int32).contiguous()
-    cands = cands.reshape(-1).to(torch.int64).contiguous()
+    words = _build.i32(words.reshape(-1))
+    cands = _i64(cands)
     L = cands.numel()
-    good = torch.empty(L, dtype=torch.int32, device=dev)
+    good = torch.empty(L, dtype=torch.bool, device=dev)
     end = torch.empty(L, dtype=torch.int64, device=dev)
     if L == 0:
-        return good.bool(), end
-    _build.launch("validate_headers", dev, words.data_ptr(), words.numel(),
-                  cands.data_ptr(), int(n_bits), good.data_ptr(),
+        return good, end
+    nb = _i64(n_bits) if isinstance(n_bits, torch.Tensor) else None
+    we = None if wend is None else _i64(wend)
+    if any(x is not None and x.numel() != L for x in (nb, we)):
+        raise ValueError("validate_headers: n_bits and wend need one entry "
+                         "per candidate")
+    _build.launch("validate_headers", dev, words.data_ptr(), cands.data_ptr(),
+                  None if we is None else we.data_ptr(),
+                  None if nb is None else nb.data_ptr(), words.numel(),
+                  0 if nb is not None else int(n_bits), good.data_ptr(),
                   end.data_ptr(), L)
     validate_headers.launches += 1
-    return good.bool(), end
+    return good, end
 
 
 validate_headers.launches = 0
+
+
+def _i64(x):
+    """``x`` flat, contiguous and int64; ``x`` itself when it is."""
+    x = x.reshape(-1)
+    if x.dtype == torch.int64 and x.is_contiguous():
+        return x
+    return x.to(torch.int64).contiguous()

@@ -10,7 +10,8 @@ that ``ops/`` does not import ``parallel/``.
 
 Every bit offset of the stream is screened as a possible dynamic-block
 header (stage 1, elementwise torch over all offsets); the survivors' code
-length sections are decoded by K5 (stage 2, ``ops/validate_headers.py``);
+length sections are decoded by K5 (stage 2, ``ops/validate_headers.py``;
+one launch for all streams of a batch);
 the host parses each validated header (``_parse_dynamic_lengths``, the
 port's copy in ``ops/inflate_host.py``); K4 (``ops/inflate_records.py``) decodes every
 candidate block in its own lane, reading straight from the stream words;
@@ -132,6 +133,50 @@ def validate_stage2_device(payload: bytes, cands: np.ndarray,
             end.cpu().numpy().astype(np.int64)[good])
 
 
+def stage2_batch_inputs(streams: list[bytes], cands: dict, word_base):
+    """K5's inputs for the stage-1 survivors of several streams over their
+    concatenated words (``pad_words``' ``word_base``): ``cands`` maps a
+    stream's index to its survivors (stream-local bits).  Returns int64[3,
+    L] rows (absolute candidate bits, each candidate's stream word end and
+    payload end bit), in ``cands``' order."""
+    keys = list(cands)
+    counts = [len(cands[si]) for si in keys]
+    base = np.asarray(word_base, np.int64) * 32
+    if sum(counts) == 0:
+        return np.zeros((3, 0), np.int64)
+    return np.stack([
+        np.concatenate([np.asarray(cands[si], np.int64) + base[si]
+                        for si in keys]),
+        np.repeat([int(word_base[si + 1]) for si in keys], counts),
+        np.repeat([int(base[si]) + len(streams[si]) * 8 for si in keys], counts),
+    ])
+
+
+def validate_stage2_batch(streams: list[bytes], cands: dict, words,
+                          word_base) -> dict:
+    """Stage 2 of several streams in one K5 launch over their concatenated
+    words (``pad_words``: ``words`` on the device, ``word_base``).
+    ``cands`` maps a stream's index to its stage-1 survivors (stream-local
+    bits).  Each candidate carries its own stream's bounds (its word end
+    and payload end), so it reads nothing of the next stream.  Returns
+    {index: (offsets, header_end_bits)}, stream-local, as
+    ``validate_stage2_device`` gives them for each stream alone."""
+    cols = stage2_batch_inputs(streams, cands, word_base)
+    good = np.zeros(0, bool)
+    end = np.zeros(0, np.int64)
+    if cols.shape[1]:
+        c, wend, n_bits = torch.from_numpy(cols).to(words.device)
+        good, end = validate_headers(words, c, n_bits, wend=wend)
+        good, end = good.cpu().numpy(), end.cpu().numpy()
+    out, at = {}, 0
+    for si, cs in cands.items():
+        cs = np.asarray(cs, np.int64)
+        g = good[at:at + len(cs)]
+        out[si] = (cs[g], end[at:at + len(cs)][g] - int(word_base[si]) * 32)
+        at += len(cs)
+    return out
+
+
 def find_block_boundaries(payload: bytes, words_dev=None, *, device):
     """(offsets, header_end_bits) of the validated dynamic headers: stage 1
     and K5 on ``device``."""
@@ -150,6 +195,12 @@ def _scan_parse(data: bytes, words_dev=None, *, device):
         return None
     offsets, _ends = find_block_boundaries(data, words_dev=words_dev,
                                            device=device)
+    return _parse_lanes(data, offsets)
+
+
+def _parse_lanes(data: bytes, offsets: np.ndarray):
+    """``_scan_parse``'s host part: each validated header of ``data`` (at
+    ``offsets``) parsed into a lane, or None."""
     if 16 not in set(offsets.tolist()):
         return None  # first block not dynamic (stored/fixed)
     lanes = []
@@ -313,11 +364,15 @@ def _cap_bucket(produced: int) -> int:
 
 def try_foreign_batch(streams: list[bytes], max_steps: int = 6144, *,
                       device):
-    """Block-parallel decode of many foreign streams in one K4 launch.
+    """Block-parallel decode of many foreign streams in one K5 and one K4
+    launch.
 
-    Every stream's discovered blocks join one lane list over the
-    concatenated stream words; chains are walked per stream and all
-    confirmed streams materialize together.  Returns, per stream, the
+    Stage 1 runs per stream; the survivors of all streams validate in one
+    K5 launch over the concatenated stream words
+    (``validate_stage2_batch``); the host parses each stream's headers;
+    every stream's discovered blocks join one lane list over the same
+    words; chains are walked per stream and all confirmed streams
+    materialize together.  Returns, per stream, the
     bytes or None (the caller falls back for that stream).
     """
     S = len(streams)
@@ -329,11 +384,19 @@ def try_foreign_batch(streams: list[bytes], max_steps: int = 6144, *,
     words_np, word_base = pad_words(streams)
     words = torch.from_numpy(words_np).to(dev)
 
+    survivors = {
+        si: scan_stage1_device(
+            s, device=dev, words=words[word_base[si]:word_base[si + 1]])
+        for si, s in enumerate(streams)
+        if len(s) >= 7 and _zlib_header_ok(s)}
+    valid = validate_stage2_batch(streams, survivors, words, word_base)
+
     glanes, wend, bit_end = [], [], []
     lane_range = {}
-    for si, s in enumerate(streams):
+    for si, (offsets, _ends) in valid.items():
+        s = streams[si]
         lo_w, hi_w = int(word_base[si]), int(word_base[si + 1])
-        lanes = _scan_parse(s, words_dev=words[lo_w:hi_w], device=dev)
+        lanes = _parse_lanes(s, offsets)
         if lanes is None:
             continue
         lo = len(glanes)

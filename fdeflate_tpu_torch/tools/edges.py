@@ -1,12 +1,13 @@
-"""Edge inputs of K1 (assign_pack), K2 (combine), K3 (decode2) and K4
-(inflate_records).
+"""Edge inputs of K1 (assign_pack), K2 (combine), K3 (decode2), K4
+(inflate_records), K5 (validate_headers) and K6 (decode_sep).
 
 These kernels put a group of threads on each lane: thread segments,
 staged tiles, spans and lane ownership have edges the headline corpus may
-never hit.  These inputs put runs, stalls, short lanes, errors and
-exhausted budgets on them.  ``chip_smoke.py`` holds the kernels to their
-plain versions on them; tests/test_torch_lanes_host.py holds the kernels'
-group code, run for m threads on the host, to the same.
+never hit.  These inputs put runs, stalls, EOBs at every word phase, short
+lanes, errors, exhausted budgets and stream ends in a batch on them.
+``chip_smoke.py`` holds the kernels to their plain versions on them;
+tests/test_torch_lanes_host.py holds the kernels' lane code, run on the
+host, to the same.
 """
 
 from __future__ import annotations
@@ -163,6 +164,122 @@ def k3_edge_cases(data: torch.Tensor, lengths: torch.Tensor, C: int):
                       torch.from_numpy(st.astype(np.int32)).to(dev), N,
                       N // 4, None))
     return [(lab, w, s, t.dtab, n, c, want) for lab, w, s, n, c, want in cases]
+
+
+def sep_decode_events(row, start: int, dtab, S: int):
+    """K6's word steps (``csrc/lanes.cuh`` ``sep_serial``) over one lane of
+    S bytes from absolute bit ``start`` of the stream row ``row`` (words,
+    zero past its end) under the decode table ``dtab``: [(bit, word,
+    sub-step, entry)] of every symbol it decodes."""
+    row = [int(x) & 0xFFFFFFFF for x in row]
+    tab = [int(x) for x in dtab]
+
+    def peek(p):
+        i, sh = p >> 5, p & 31
+        lo = row[i] if 0 <= i < len(row) else 0
+        hi = row[i + 1] if 0 <= i + 1 < len(row) else 0
+        return ((lo | hi << 32) >> sh) & 0xFFFFFFFF
+
+    events, pos, run = [], start, 0
+    for u in range(S // 4):
+        filled = 0
+        for s in range(4):
+            take = min(run, 4 - filled)
+            filled, run = filled + take, run - take
+            if filled == 4 or run:
+                continue
+            bits = peek(pos)
+            e = tab[bits & 0xFFF]
+            n, cls = (e >> 16) & 0x1F, (e >> 13) & 3
+            events.append((pos, u, s, e))
+            if cls == 0:
+                filled += 1
+            elif cls == 2:
+                extra = (e >> 9) & 0xF
+                run = (e & 0x1FF) + ((bits >> n) & ((1 << extra) - 1))
+                n += extra + 1
+            pos += n
+        run -= min(run, 4 - filled)
+    return events
+
+
+def dec_tile_bytes(S: int) -> int:
+    """Output bytes a K3/K6 group stages per tile for lanes of S bytes
+    (``lanes.cuh`` ``dec_tile(dec_threads(S))``)."""
+    m = 1
+    while m < 32 and 64 * m < S:
+        m *= 2
+    return 2048 // (32 // m)
+
+
+def k6_edge_cases(data: torch.Tensor, lengths: torch.Tensor, C: int, tree):
+    """K6's inputs from one K1 edge batch on its device, encoded with the
+    class-separated ``tree`` (``ops/septree``): [(label, words,
+    chunk_starts, meta, vals, N, C, clean bytes or None)] for the clean
+    streams (ragged ones meet their EOF token), 64 words corrupted per
+    stream, an EOB spliced into lane 1 at a symbol its word decodes at
+    sub-step 0, 1, 2 and 3 (past the lane's middle), at its first symbol,
+    at the first symbol of its second staged tile and at its last symbol,
+    and random unordered chunk starts."""
+    from ..parallel.device_pipeline import zlib_encode_step
+    from ..trees import profile_tables, sep_tables
+
+    dev = data.device
+    t = profile_tables(tree, str(dev))
+    meta, vals = sep_tables(tree.lens, dev)
+    B, N = data.shape
+    S = N // C
+    words, tb, _ad, starts, _eof = zlib_encode_step(C, tree=tree)(data, lengths)
+    cases = [("clean", words, starts, data),
+             ("64 words corrupted per stream", corrupt_words(words, tb, 64, 5),
+              starts, None)]
+    if int(lengths[0]) > 2 * S:
+        st = int(starts[0, 1])
+        ev = sep_decode_events(words[0].cpu().numpy(), st,
+                               t.dtab.cpu().numpy(), S)
+        at = {}
+        for bit, u, s, _e in ev:
+            if u >= S // 8:
+                at.setdefault(f"sub-step {s}", bit)
+        at["the lane's first symbol"] = ev[0][0]
+        tile = dec_tile_bytes(S)
+        if S > tile:
+            at["its second tile's first symbol"] = ev[
+                next(i for i, e in enumerate(ev) if 4 * e[1] >= tile)][0]
+        at["the lane's last symbol"] = ev[-1][0]
+        for where, bit in sorted(at.items()):
+            cases.append((f"EOB spliced into lane 1 at {where}",
+                          splice_eob(words, bit, 0, t.eof_code, t.eof_bits),
+                          starts, None))
+    rng = np.random.default_rng(7)
+    rand = rng.integers(0, int(tb.max()) + 64, (B, C)).astype(np.int32)
+    cases.append(("random unordered starts", words,
+                  torch.from_numpy(rand).to(dev), None))
+    return [(lab, w, s, meta, vals, N, C, want) for lab, w, s, want in cases]
+
+
+def k5_cross_stream(a: bytes, b: bytes):
+    """K5's candidates over two streams' concatenated words (``pad_words``),
+    as ``try_foreign_batch`` validates a batch: every bit from 96 bits
+    before the end of ``a``'s payload to the end of its padded words
+    (candidates that would read ``b``'s words but for their own word end),
+    then ``b``'s stage-1 survivors and its first 400 bits.  Returns (words
+    int32[W], cands, wend, n_bits int64[L], parts): each part (lo, hi,
+    stream, its candidates stream-local, its first bit) the candidates
+    [lo, hi) of one stream, CPU tensors."""
+    from ..ops.inflate import pad_words
+    from ..parallel.discovery import scan_stage1_device
+
+    words, base = pad_words([a, b])
+    ca = np.arange(max(0, len(a) * 8 - 96), int(base[1]) * 32, dtype=np.int64)
+    cb = np.unique(np.concatenate([scan_stage1_device(b, device="cpu"),
+                                   np.arange(0, 400)])).astype(np.int64)
+    n = [len(ca), len(cb)]
+    col = torch.from_numpy
+    return (col(words), col(np.concatenate([ca, cb + base[1] * 32])),
+            col(np.repeat(base[1:], n)),
+            col(np.repeat([len(a) * 8, base[1] * 32 + len(b) * 8], n)),
+            [(0, n[0], a, ca, 0), (n[0], n[0] + n[1], b, cb, int(base[1]) * 32)])
 
 
 def _k2_case(label, rng, bits, header, extra_words):

@@ -35,7 +35,8 @@ from fdeflate_tpu_torch.ops.decode2 import (
     decode2_canon_plain,
     decode2_plain,
 )
-from fdeflate_tpu_torch.ops.decode_sep import decode_sep, decode_sep_plain
+from fdeflate_tpu_torch.ops.decode_sep import (decode_sep, decode_sep_plain,
+                                               decode_sep_plain_eob)
 from fdeflate_tpu_torch.ops.inflate_records import (
     NO_LIMIT,
     inflate_records,
@@ -60,7 +61,8 @@ from fdeflate_tpu_torch.parallel.device_pipeline import fused_zlib_roundtrip
 from fdeflate_tpu_torch.tools.edges import (K4_KINDS, corrupt_words,
                                             k1_edge_inputs, k1_long_lane,
                                             k2_edge_cases, k3_edge_cases,
-                                            k4_edge_case)
+                                            k4_edge_case, k5_cross_stream,
+                                            k6_edge_cases)
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 pytestmark = pytest.mark.cuda
@@ -338,6 +340,45 @@ def test_decode_sep_matches_plain(dev, name, corrupt):
         assert torch.equal(got[0], data)
 
 
+@pytest.mark.parametrize("label", K1_EDGES)
+def test_decode_sep_edges(dev, label):
+    """K6 (K3's group decode, EOB lanes serial) on the K1 edge batches
+    encoded with the sep tree: clean, corrupted, an EOB at each sub-step
+    position of a word and at lane, tile and last-symbol edges, random
+    starts; the lanes decoded serially are exactly those whose decode meets
+    an EOB, and none of the clean full streams'."""
+    data, lengths, C = _edge(dev, label)
+    tree = P.sep_profile()
+    for case, words, starts, meta, vals, N, Ck, want in k6_edge_cases(
+            data, lengths, C, tree):
+        stats = torch.zeros(5, dtype=torch.int64, device=dev)
+        before = decode_sep.launches
+        got = decode_sep(words, starts, meta, vals, N, Ck, stats=stats)
+        assert decode_sep.launches == before + 1
+        exp_out, exp_bpos, eob = decode_sep_plain_eob(words, starts, meta,
+                                                      vals, N, Ck)
+        assert torch.equal(got[0], exp_out), case
+        assert torch.equal(got[1], exp_bpos), case
+        assert int(stats[4]) == int(eob.sum()), case
+        if want is not None:
+            assert torch.equal(got[0], want), case
+
+
+def test_decode_sep_full_streams_stay_parallel(dev):
+    """At 16 x 64 KiB, C = 32 (S = 2048, 32 threads a lane) no lane of the
+    full streams is decoded serially."""
+    data = torch.from_numpy(_data(4, 16, 1 << 16, [1 << 16] * 16)).to(dev)
+    lengths = torch.full((16,), 1 << 16, dtype=torch.int32, device=dev)
+    tree = P.sep_profile()
+    words, _tb, _ad, starts, _eof = P.zlib_encode_step(32, tree=tree)(
+        data, lengths)
+    meta, vals = sep_tables(tree.lens, dev)
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    out, _bpos = decode_sep(words, starts, meta, vals, 1 << 16, 32, stats=stats)
+    assert torch.equal(out, data)
+    assert int(stats[4]) == 0 and int(stats[1]) >= 16 * 32
+
+
 def test_sep_roundtrip_on_the_card(dev):
     data, lengths, C = _inputs(dev, "lanes2048_B4_N65536_C512")
     out, bpos_ok, ck_ok = fused_zlib_roundtrip(
@@ -428,6 +469,31 @@ def test_validate_headers_matches_plain(dev):
     want_good, want_end = validate_headers_plain(words, c, len(z) * 8)
     assert torch.equal(good, want_good) and torch.equal(end, want_end)
     assert bool(good.any())
+
+
+def test_validate_headers_two_streams(dev):
+    """K5 over two streams' words at once, each candidate bounded by its
+    own stream (``edges.k5_cross_stream``): equal to the plain version and,
+    stream by stream, to each stream alone."""
+    a = zlib.compress(_foreign(5, 60_000), 6)
+    b = np.random.default_rng(6).integers(1, 256, 4000, np.uint8).tobytes()
+    words, c, wend, nb, parts = k5_cross_stream(a, b)
+    words, c, wend, nb = (x.to(dev) for x in (words, c, wend, nb))
+    good, end = validate_headers(words, c, nb, wend=wend)
+    want = validate_headers_plain(words, c, nb, wend=wend)
+    assert torch.equal(good, want[0]) and torch.equal(end, want[1])
+    for lo, hi, z, cs, b0 in parts:
+        g, e = validate_headers(PD.stage_words(z, device=dev),
+                                torch.from_numpy(cs).to(dev), len(z) * 8)
+        assert torch.equal(good[lo:hi], g) and torch.equal(end[lo:hi] - b0, e)
+
+
+def test_try_foreign_batch_launches_k5_once(dev):
+    data = [_foreign(s, 80_000) for s in range(3)]
+    streams = [zlib.compress(d, 6) for d in data]
+    before = validate_headers.launches
+    assert P.try_foreign_batch(streams, device=dev) == data
+    assert validate_headers.launches == before + 1
 
 
 def test_foreign_path_on_the_card(dev):

@@ -200,6 +200,71 @@ def test_try_foreign_batch_matches_jax(jax_ref):
         True, True, False, True, False, True]
 
 
+def _counting(monkeypatch):
+    """Count the K5 calls discovery makes (its ``validate_headers``)."""
+    calls = []
+    orig = PD.validate_headers
+
+    def counted(*args, **kw):
+        calls.append(args[1].numel())
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(PD, "validate_headers", counted)
+    return calls
+
+
+def test_try_foreign_batch_validates_once(jax_ref, monkeypatch):
+    """One K5 call validates every stream's stage-1 survivors, with the
+    JAX result."""
+    calls = _counting(monkeypatch)
+    got = try_foreign_batch([STREAMS[n] for n in BATCH], device="cpu")
+    assert got == jax_ref[1]
+    assert len(calls) == 1
+    want = sum(len(D.scan_stage1(STREAMS[n])) for n in BATCH)
+    assert calls == [want]
+
+
+def test_decompress_batch_validates_once(monkeypatch):
+    """``decompress_batch`` routes streams of 49152 bytes or more to
+    ``try_foreign_batch``: one K5 call for all of them, and the bytes."""
+    data = [_corpus(150000, s) for s in (11, 12)]
+    streams = [_split(d, lvl, 4000) for d, lvl in zip(data, (1, 6))]
+    assert min(map(len, streams)) >= PD._PARALLEL_MIN
+    calls = _counting(monkeypatch)
+    got = PD.decompress_batch(streams + [STREAMS["tiny"]], max_steps=2048,
+                              device="cpu")
+    assert got == data + [zlib.decompress(STREAMS["tiny"])]
+    assert len(calls) == 1
+
+
+def test_stage2_batch_keeps_streams_apart():
+    """The batched stage 2 over two streams' words: each stream's valid
+    headers and ends are those it gets alone, the first stream's last bits
+    bounded by its own word end."""
+    from fdeflate_tpu_torch.ops.inflate import pad_words
+    from fdeflate_tpu_torch.tools.edges import k5_cross_stream
+
+    a = STREAMS["zlib6_natural"]
+    b = np.random.default_rng(8).integers(1, 256, 3000, np.uint8).tobytes()
+    words, c, wend, nb, parts = k5_cross_stream(a, b)
+    good, end = validate_headers(words, c, nb, wend=wend)
+    for lo, hi, z, cs, b0 in parts:
+        g, e = validate_headers(PD.stage_words(z, device="cpu"),
+                                torch.from_numpy(cs), len(z) * 8)
+        assert torch.equal(good[lo:hi], g)
+        assert torch.equal(end[lo:hi] - b0, e)
+    blind = validate_headers(words, c, nb)
+    assert not torch.equal(blind[1][: parts[0][1]], end[: parts[0][1]])
+    streams = [a, b]
+    words_np, base = pad_words(streams)
+    cands = {0: D.scan_stage1(a), 1: parts[1][3]}
+    got = PD.validate_stage2_batch(streams, cands, torch.from_numpy(words_np),
+                                   base)
+    for si, z in enumerate(streams):
+        want = D.validate_stage2(z, cands[si])
+        assert all(np.array_equal(x, y) for x, y in zip(got[si], want))
+
+
 @pytest.mark.parametrize("name", FOREIGN)
 def test_decompress_foreign_matches_jax(jax_ref, name):
     want = jax_ref[2][name]

@@ -1,13 +1,15 @@
 """The kernels' per-lane code, built for the host, against the plain versions.
 
 ``fdeflate_tpu_torch/csrc/lanes.cuh`` holds, as plain C++, the lane code
-of K1, K2 and K3 (a group of m threads per lane: K1's group
+of K1, K2, K3 and K6 (a group of m threads per lane: K1's group
 classification, run scan and segment emit; K2's owned words; K3's segment
 decode, sync rounds and span hints, put together by ``assign_pack_group``,
-``combine_group`` and ``decode2_group``) and the whole sequential work of
-a K6 and a K8 lane and of a K9 window word; ``csrc/inflate_lanes.cuh``
-that of K4 (``inflate_group``, K3's protocol on records, with its lookup
-tables) and of a K5 lane.  Here g++ builds the same headers into a small
+``combine_group`` and ``decode2_group``, which K6 runs with the sep tree's
+table and its serial path for lanes that meet an EOB) and the whole
+sequential work of a K6 (its serial path) and a K8 lane and of a K9 window
+word; ``csrc/inflate_lanes.cuh`` that of K4 (``inflate_group``, K3's
+protocol on records, with its lookup tables) and of a K5 candidate (its
+code-length table, bit buffer and resumable section decode).  Here g++ builds the same headers into a small
 host library: the lane loops around the one-lane machines, and the group
 code with ``HostGroup`` (``csrc/warp.cuh``: m threads run in turn,
 collectives as loops; the kernels run the same code with ``WarpGroup``'s
@@ -42,7 +44,10 @@ from fdeflate_tpu_torch.ops.decode2 import (
     decode2_canon_plain,
     decode2_plain,
 )
-from fdeflate_tpu_torch.ops.decode_sep import decode_sep_plain
+from fdeflate_tpu_torch.ops.decode_sep import (
+    decode_sep_plain,
+    decode_sep_plain_eob,
+)
 from fdeflate_tpu_torch.ops.inflate import fixed_meta_tab, pad_words
 from fdeflate_tpu_torch.ops.pack import (
     pack_blocked_plain,
@@ -69,16 +74,20 @@ from fdeflate_tpu_torch.tools.edges import (
     k1_long_lane,
     k2_edge_cases,
     k4_edge_case,
+    k4_streams,
+    k5_cross_stream,
+    k6_edge_cases,
     mid_lane_bit,
     splice_eob,
 )
-from fdeflate_tpu_torch.trees import sep_tables, trained_tables
+from fdeflate_tpu_torch.trees import decode_table, sep_tables, trained_tables
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "fdeflate_tpu_torch" / "csrc"
 
-# The kernels' lane loops (validate_headers.cu, decode_sep.cu,
-# decode2_canon.cu, pack_v1.cu) and the group code of assign_pack.cu,
-# combine.cu, decode2.cu and inflate_records.cu, serial on the host.
+# The kernels' lane loops (validate_headers.cu, decode2_canon.cu,
+# pack_v1.cu, K6's serial path) and the group code of assign_pack.cu,
+# combine.cu, decode2.cu, decode_sep.cu and inflate_records.cu, serial on
+# the host.
 _HARNESS = r"""
 #include <cstring>
 #include <vector>
@@ -120,12 +129,35 @@ extern "C" void combine_warp(const uint32_t* win, const int32_t* chunk_bits,
     for (int64_t c = 0; c * fdt::kCombineZero < W; ++c)
       fdt::combine_zero_group(g, chunk_bits, pos0, words, C, W, b, c);
 }
-extern "C" void validate_lanes(const uint32_t* words, int64_t W,
-    const int64_t* cands, int64_t n_bits, int32_t* good, int64_t* end,
-    int L) {
-  fdt::WordReader rd{words, W};
-  for (int64_t i = 0; i < L; ++i)
-    good[i] = fdt::validate_lane(rd, cands[i], n_bits, end + i);
+// K5's lane code, each candidate with its stream's word end and payload
+// end: one pass (validate_lane) for first >= kValSteps, else `first`
+// sections, then the rest from a new reader at the state's bit, as the
+// kernel resumes its survivors after the compaction.
+extern "C" void validate_lanes(const uint32_t* words, const int64_t* cands,
+    const int64_t* wends, const int64_t* nbits, int32_t* good, int64_t* end,
+    int L, int first) {
+  uint8_t t[128];
+  for (int64_t i = 0; i < L; ++i) {
+    if (first >= fdt::kValSteps) {
+      good[i] = fdt::validate_lane(words, wends[i], cands[i], nbits[i], t,
+                                   end + i);
+      continue;
+    }
+    fdt::HeaderBits hb(words, wends[i], cands[i]);
+    fdt::ValState s = fdt::val_begin(hb, cands[i], t);
+    fdt::val_sections(s, hb, t, nbits[i], first);
+    if (fdt::val_live(s)) {
+      fdt::HeaderBits rest(words, wends[i], s.pos);
+      fdt::val_sections(s, rest, t, nbits[i], fdt::kValSteps);
+    }
+    good[i] = fdt::val_good(s);
+    end[i] = s.pos;
+  }
+}
+// K5's CL decode tables of packed lengths (3 bits a symbol).
+extern "C" void cl_tables(const int64_t* clps, uint8_t* out, int n) {
+  for (int i = 0; i < n; ++i)
+    fdt::cl_table(static_cast<uint64_t>(clps[i]), out + 128 * i);
 }
 // K1's and K3's lane code with HostGroup (warp.cuh): m threads run in
 // turn, the same orchestration as the kernels'.
@@ -154,6 +186,29 @@ extern "C" void decode_warp(const uint32_t* words, const int32_t* starts,
 }
 // K3's threads per lane for S bytes.
 extern "C" int dec_threads(int S) { return fdt::dec_threads(S); }
+// K6's group code (decode2_group<kSep>) with HostGroup, its table built
+// from (meta, vals) as the kernel's prologue builds it; tcap and the hint
+// as decode_warp's.  stats[4]: lanes decoded serially.
+extern "C" void decode_sep_warp(const uint32_t* words, const int32_t* starts,
+    const int32_t* meta, const int32_t* vals, uint8_t* out, int32_t* bpos,
+    int B, int W, int N, int C, int m, int tcap, int64_t hnum, int64_t hden,
+    int64_t* stats) {
+  std::vector<int32_t> dtab(1 << fdt::kMaxL);
+  for (int x = 0; x < (1 << fdt::kMaxL); ++x)
+    dtab[x] = fdt::sep_entry(meta, vals, x);
+  if (tcap == 0) tcap = fdt::dec_tile(m);
+  std::vector<uint8_t> tile(tcap + 16);
+  std::vector<uint32_t> sw(fdt::dec_words(31, tcap));
+  fdt::HostGroup g{m, hnum, hden, stats};
+  for (int64_t lane = 0; lane < (int64_t)B * C; ++lane)
+    fdt::decode2_group<fdt::HostGroup, true>(g, words, W, starts, N, C, lane,
+        dtab.data(), tcap, tile.data(), sw.data(), out, bpos);
+}
+extern "C" void sep_entries(const int32_t* meta, const int32_t* vals,
+    int32_t* out) {
+  for (int x = 0; x < (1 << fdt::kMaxL); ++x)
+    out[x] = fdt::sep_entry(meta, vals, x);
+}
 extern "C" void decode_sep_lanes(const uint32_t* words, const int32_t* starts,
     const int32_t* meta, const int32_t* vals, uint8_t* out, int32_t* bpos,
     int B, int W, int N, int C) {
@@ -198,10 +253,7 @@ def lib(tmp_path_factory):
                     f"-I{CSRC}", "-o", str(so), str(d / "harness.cpp")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    lib.validate_lanes.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                   ctypes.c_void_p, ctypes.c_int64,
-                                   ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int]
+    lib.validate_lanes.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
     return lib
 
 
@@ -524,8 +576,9 @@ def test_decode_warp_resynchronises_short_lanes(lib, C):
 @pytest.mark.parametrize("seed0", SEEDS)
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_decode_sep_lane_matches_plain(lib, seed0, corrupt):
-    """Septree streams, ragged and empty lanes (EOB met mid-lane or first,
-    decoding on past it) and corrupted words."""
+    """K6's serial path (``decode_sep_lane``: its word steps, entries from
+    ``sep_entry``) on septree streams, ragged and empty lanes (EOB met
+    mid-lane or first, decoding on past it) and corrupted words."""
     tree = sep_profile()
     meta, vals = sep_tables(tree.lens)
     for seed in range(seed0, seed0 + 6):
@@ -552,6 +605,152 @@ def test_decode_sep_lane_matches_plain(lib, seed0, corrupt):
         assert torch.equal(out, want_out), seed
         if not corrupt:
             assert torch.equal(out, data), seed
+
+
+def _random_sep_lens(seed: int) -> np.ndarray:
+    """A random complete class-separated tree: literals of random weight
+    at most 11 bits, EOB and the length symbols at 12 (``ops/septree``'s
+    construction with other weights)."""
+    from fdeflate_tpu_torch.huffman import compute_code_lengths
+
+    rng = np.random.default_rng(seed)
+    freqs = np.ones(286, np.uint64)
+    freqs[:256] = rng.integers(1, 1 << int(rng.integers(4, 24)), 256)
+    min_l = np.ones(286, np.int64)
+    max_l = np.full(286, 11, np.int64)
+    min_l[256:] = max_l[256:] = 12
+    return np.asarray(compute_code_lengths(freqs, min_l, max_l), np.int64)
+
+
+@pytest.mark.parametrize("tree", ["sep_profile", 0, 1, 2, 3])
+def test_sep_entry_matches_decode_table(lib, tree):
+    """K6's table entry (``fdt::sep_entry``, from the sep rows), for all
+    4096 peeks, equals ``trees.decode_table`` of the tree's lengths."""
+    lens = sep_profile().lens if tree == "sep_profile" else _random_sep_lens(tree)
+    meta, vals = sep_tables(lens)
+    got = torch.empty(4096, dtype=torch.int32)
+    lib.sep_entries(_ptr(meta), _ptr(vals), _ptr(got))
+    assert torch.equal(got, decode_table(torch.from_numpy(lens)))
+
+
+def _sep_warp(lib, words, starts, meta, vals, N, C, m, hint=(1, 1)):
+    """K6's group code on the host, m threads to a lane with 2048 staged
+    output bytes (m = 0: the kernel's m and tile for S): (out, bpos,
+    stats, m)."""
+    B, W = words.shape
+    tcap = 2048
+    if m == 0:
+        m, tcap = lib.dec_threads(N // C), 0
+    out = torch.empty(B, N, dtype=torch.uint8)
+    bpos = torch.empty(B, C, dtype=torch.int32)
+    stats = torch.zeros(5, dtype=torch.int64)
+    lib.decode_sep_warp(_ptr(words.to(torch.int32).contiguous()),
+                        _ptr(starts.to(torch.int32).contiguous()), _ptr(meta),
+                        _ptr(vals), _ptr(out), _ptr(bpos), B, W, N, C, m,
+                        tcap, ctypes.c_int64(hint[0]),
+                        ctypes.c_int64(hint[1]), _ptr(stats))
+    return out, bpos, stats, m
+
+
+def _check_sep(lib, words, starts, meta, vals, N, C, m, label, hint=(1, 1),
+               want_data=None, plain=None):
+    """K6's group code against the plain version (``plain``: its result,
+    if known): bytes, exit bits, and the serial lanes exactly those whose
+    decode meets an EOB."""
+    out, bpos, stats, m = _sep_warp(lib, words, starts, meta, vals, N, C, m,
+                                    hint)
+    want_out, want_bpos, eob = plain or decode_sep_plain_eob(
+        words, starts, meta, vals, N, C)
+    assert torch.equal(bpos, want_bpos), label
+    assert torch.equal(out, want_out), label
+    if want_data is not None:
+        assert torch.equal(out, want_data), label
+    assert int(stats[4]) == int(eob.sum()), label
+    assert int(stats[0]) <= m, label      # sync rounds: at most one per thread
+    return stats
+
+
+@pytest.mark.parametrize("m", THREADS + (32, KERNEL_M))
+@pytest.mark.parametrize("seed0", SEEDS)
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decode_sep_warp_threads(lib, m, seed0, corrupt):
+    """K6's group code (K3's protocol, EOB lanes serial) with m threads to
+    a lane on septree streams: ragged and empty lanes (whose decode meets
+    the EOF token) and corrupted words."""
+    tree = sep_profile()
+    meta, vals = sep_tables(tree.lens)
+    for seed in range(seed0, seed0 + 6):
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        if (N // C) % 4:
+            continue
+        words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
+            data, lengths, C, tree=tree)
+        if corrupt:
+            words = _corrupt(words, total_bits, seed, B)
+        _check_sep(lib, words, starts, meta, vals, N, C, m, seed,
+                   want_data=None if corrupt else data)
+
+
+SEP_HINTS = {"hint 64x too short": (1, 64), "hint 64x too long": (64, 1)}
+_K6_CASES = {}
+
+
+def _k6_cases(label):
+    """``k6_edge_cases`` of a K1 edge batch with their plain results,
+    computed once (the plain K6 loops once per sub-step)."""
+    if label not in _K6_CASES:
+        (_l, d, lens, C), = [e for e in k1_edge_inputs() if e[0] == label]
+        cases = k6_edge_cases(torch.from_numpy(d),
+                              torch.tensor(lens, dtype=torch.int32), C,
+                              sep_profile())
+        _K6_CASES[label] = [c + (decode_sep_plain_eob(*c[1:7]),)
+                            for c in cases]
+    return _K6_CASES[label]
+
+
+@pytest.mark.parametrize("m", THREADS + (32, KERNEL_M))
+@pytest.mark.parametrize("kind", K1_EDGES + list(SEP_HINTS))
+def test_decode_sep_warp_edges(lib, m, kind):
+    """K6's group code on the K1 edge batches encoded with the sep tree
+    (``edges.k6_edge_cases``): clean (ragged streams meet their EOF), 64
+    words corrupted per stream, an EOB spliced at each of the four
+    sub-step positions of a word, at a lane's first symbol, at its second
+    tile's first symbol (runs crossing that tile edge) and at its last
+    symbol, random unordered starts; and every batch's cases with the span
+    hint 64x too short or too long."""
+    labels = K1_EDGES if kind in SEP_HINTS else [kind]
+    serial = short = 0
+    for label in labels:
+        cases = _k6_cases(label)
+        if kind not in SEP_HINTS:
+            subs = {c[0] for c in cases if "sub-step" in c[0]}
+            assert len(subs) == 4 or label.startswith("all zeros"), subs
+        for case, words, starts, meta, vals, N, Ck, want, plain in cases:
+            stats = _check_sep(lib, words, starts, meta, vals, N, Ck, m,
+                               f"{label}: {case}", SEP_HINTS.get(kind, (1, 1)),
+                               want, plain)
+            serial += int(stats[4])
+            short += int(stats[2])
+    assert serial > 0                     # lanes that met an EOB went serial
+    if kind == "hint 64x too short" and m != 1:
+        assert short > 0
+
+
+def test_decode_sep_warp_clean_lanes_stay_parallel(lib):
+    """On full septree streams no lane meets an EOB: none is decoded
+    serially, even where a last lane's threads decode into the EOF token
+    speculatively, and 32 threads agree within a few sync rounds."""
+    tree = sep_profile()
+    meta, vals = sep_tables(tree.lens)
+    data = torch.from_numpy(make_idat_corpus(4, 1 << 16, seed=52))
+    lengths = torch.full((4,), 1 << 16, dtype=torch.int32)
+    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(data, lengths, 32,
+                                                           tree=tree)
+    out, bpos, stats, _m = _sep_warp(lib, words, starts, meta, vals, 1 << 16,
+                                     32, 32)
+    assert torch.equal(out, data)
+    assert int(stats[4]) == 0 and int(stats[0]) <= 4, stats
 
 
 @pytest.mark.parametrize("seed0", SEEDS)
@@ -833,19 +1032,135 @@ def test_combine_warp_matches_plain(lib, seed0):
         assert torch.equal(words, combine_plain(win, bits, pos0, B, W)), seed
 
 
-@pytest.mark.parametrize("seed", range(6))
-def test_validate_lane_matches_plain(lib, seed):
+def _validate_lanes(lib, words, cands, wend, n_bits, first=320):
+    """K5's lane code on the host: (good bool[L], end int64[L])."""
+    L = cands.numel()
+    good = torch.empty(L, dtype=torch.int32)
+    end = torch.empty(L, dtype=torch.int64)
+    cols = [torch.broadcast_to(torch.as_tensor(x, dtype=torch.int64), (L,))
+            .contiguous() for x in (cands, wend, n_bits)]
+    lib.validate_lanes(_ptr(words.contiguous()), *(_ptr(x) for x in cols),
+                       _ptr(good), _ptr(end), L, first)
+    return good.bool(), end
+
+
+def _k5_case(seed: int):
+    """A stream (a random zlib stream, or random bytes) with its stage-1
+    survivors and 500 random offsets (most with oversubscribed or
+    incomplete code-length codes)."""
     z = _foreign_stream(seed) if seed % 3 else np.random.default_rng(
         seed).bytes(6000)
     rng = np.random.default_rng(seed)
     cands = np.unique(np.concatenate([
         scan_stage1(z), rng.integers(0, max(1, len(z) * 8 - 80), 500)]))
-    words = torch.from_numpy(pad_words([z])[0])
-    c = torch.from_numpy(cands.astype(np.int64))
-    good = torch.empty(len(cands), dtype=torch.int32)
-    end = torch.empty(len(cands), dtype=torch.int64)
-    lib.validate_lanes(_ptr(words), words.numel(), _ptr(c), len(z) * 8,
-                       _ptr(good), _ptr(end), len(cands))
+    return z, torch.from_numpy(pad_words([z])[0]), torch.from_numpy(
+        cands.astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_validate_lane_matches_plain(lib, seed):
+    z, words, c = _k5_case(seed)
+    good, end = _validate_lanes(lib, words, c, words.numel(), len(z) * 8)
     want_good, want_end = validate_headers_plain(words, c, len(z) * 8)
-    assert torch.equal(good.bool(), want_good)
+    assert torch.equal(good, want_good)
     assert torch.equal(end, want_end)
+
+
+@pytest.mark.parametrize("first", (0, 1, 32))
+@pytest.mark.parametrize("seed", range(6, 12))
+def test_validate_lane_resumes(lib, seed, first):
+    """K5 as the kernel runs it: ``first`` sections, then the survivors
+    resume from their state's bit with a new reader."""
+    z, words, c = _k5_case(seed)
+    good, end = _validate_lanes(lib, words, c, words.numel(), len(z) * 8,
+                                first)
+    want_good, want_end = validate_headers_plain(words, c, len(z) * 8)
+    assert torch.equal(good, want_good)
+    assert torch.equal(end, want_end)
+
+
+def test_validate_lane_real_headers(lib):
+    """The stage-1 survivors of multi-block zlib streams (text at levels 1,
+    6, 9, IDAT, Huffman only): the dynamic block headers found good at
+    their header ends, as the plain version finds them."""
+    found = 0
+    for _label, z in k4_streams():
+        words = torch.from_numpy(pad_words([z])[0])
+        c = torch.from_numpy(scan_stage1(z).astype(np.int64))
+        good, end = _validate_lanes(lib, words, c, words.numel(), len(z) * 8)
+        want = validate_headers_plain(words, c, len(z) * 8)
+        assert torch.equal(good, want[0]) and torch.equal(end, want[1])
+        found += int(good.sum())
+    assert found >= 10
+
+
+def _cl_chain(cl) -> list[int]:
+    """validate_stage2's CL decode of every bit-reversed 7-bit peek: sym |
+    L << 5, or 0xFF (the compare chain over bound/kval/order)."""
+    cnt = [sum(1 for x in cl if x == n) for n in range(8)]
+    bound, kval = [0] * 8, [0] * 8
+    code = acc = 0
+    for n in range(1, 8):
+        bound[n] = (code + cnt[n]) << (7 - n)
+        kval[n] = acc - code
+        acc += cnt[n]
+        code = (code + cnt[n]) << 1
+    order = sorted(range(19), key=lambda s: (cl[s] if cl[s] else 99, s))
+    out = []
+    for r in range(128):
+        L = 1 + sum(1 for n in range(1, 7) if r >= bound[n] and bound[n] < 128)
+        idx = kval[L] + (r >> (7 - L))
+        ok = 0 <= idx <= 18 and cl[order[idx]] == L
+        out.append(order[idx] | L << 5 if ok else 0xFF)
+    return out
+
+
+def _cl_codes(kind: str, rng) -> list:
+    if kind == "random lengths":          # oversubscribed, mostly
+        return list(rng.integers(0, 8, 19))
+    if kind == "sparse random lengths":
+        return list(np.where(rng.random(19) < 0.8, 0, rng.integers(1, 8, 19)))
+    from fdeflate_tpu_torch.huffman import build_huffman_tree
+    freq = np.where(rng.random(19) < 0.3, 0, rng.integers(1, 1000, 19))
+    freq[:2] = np.maximum(freq[:2], 1)
+    cl = list(build_huffman_tree(freq.astype(np.int64), 7)[0][:19])
+    if kind == "incomplete":              # a complete code less one symbol
+        cl[int(np.flatnonzero(np.asarray(cl) > 0)[-1])] = 0
+    return cl
+
+
+@pytest.mark.parametrize("kind", ["random lengths", "sparse random lengths",
+                                  "complete", "incomplete"])
+def test_cl_table_matches_compare_chain(lib, kind):
+    """K5's 128-entry CL table (canonical fill, the chain for an
+    oversubscribed code) equals the compare chain of the plain version's
+    definitions for every peek."""
+    rng = np.random.default_rng(70)
+    cls = [_cl_codes(kind, rng) for _ in range(200)]
+    clp = torch.tensor([sum(int(x) << (3 * s) for s, x in enumerate(cl))
+                        for cl in cls], dtype=torch.int64)
+    out = torch.empty(len(cls), 128, dtype=torch.uint8)
+    lib.cl_tables(_ptr(clp), _ptr(out), len(cls))
+    for cl, row in zip(cls, out.tolist()):
+        assert row == _cl_chain([int(x) for x in cl]), cl
+
+
+def test_validate_lane_reads_only_its_stream(lib):
+    """Candidates over two streams' concatenated words, each with its own
+    stream's word end and payload end, give what each stream gives alone;
+    the candidates at the first stream's end would read the second
+    stream's words without their own word end."""
+    a = _foreign_stream(20)
+    b = np.random.default_rng(21).integers(1, 256, 4000, np.uint8).tobytes()
+    words, c, wend, nb, parts = k5_cross_stream(a, b)
+    good, end = _validate_lanes(lib, words, c, wend, nb)
+    plain = validate_headers_plain(words, c, nb, wend=wend)
+    assert torch.equal(good, plain[0]) and torch.equal(end, plain[1])
+    for lo, hi, z, cs, b0 in parts:
+        w1 = torch.from_numpy(pad_words([z])[0])
+        alone = validate_headers_plain(w1, torch.from_numpy(cs), len(z) * 8)
+        assert torch.equal(good[lo:hi], alone[0])
+        assert torch.equal(end[lo:hi] - b0, alone[1])
+    ca = parts[0][3]
+    blind = _validate_lanes(lib, words, c, words.numel(), nb)
+    assert not torch.equal(blind[1][: len(ca)], end[: len(ca)])
