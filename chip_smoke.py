@@ -74,8 +74,10 @@ process per source, all at once) and drives the port's paths:
      tokens -> ``pack_tokens`` -> K9 pack_v1 -> ``decode_blocked(
      light=False)`` (K8 decode2_canon) -> checks.  K9's windows equal K1's,
      K8's bytes and exit bits equal K3's on the same windows (clean and
-     corrupted), K8 and K9 equal their plain versions at full size; times of
-     K8, K9 and their plain versions beside K1 and K3 at the same C.
+     corrupted), K8 and K9 equal their plain versions at full size; K8's
+     spans, sync rounds and serial lanes (none on the trained tree), K8
+     with runs of base 0 against plain (every lane serial); times of K8,
+     K9 and their plain versions beside K1 and K3 at the same C.
 12.  K10 combine_grouped (``combine(..., group=8)``) at the headline
      geometry: the encode through it gives 16 streams that zlib.decompress
      takes back; K10 equals K2 and its plain version; K10 and K2 times.
@@ -118,9 +120,10 @@ CHECKSUM_BYTES = 64 << 20                   # adler32_pallas phase's buffer
 # 128 float32 lanes per SM and an FMA counted as two; an SM has 64 int32
 # lanes, so 67 / 4 = 16.75 TOP/s of int32.  Bytes count each input read
 # once and each output written once; operations count what the kernel's
-# function needs on this run's data, not what its algorithm does (K9's
-# quadratic pair tests and K6's and K8's compare chains are not counted:
-# the same function has linear or table-lookup forms), with the per-item
+# function needs on this run's data, not what its algorithm does (the
+# quadratic pair tests of K9's TPU kernel and the per-symbol compare
+# chains of K6's and K8's are not counted: the same function has linear or
+# table-lookup forms), with the per-item
 # costs stated at each kernel's count.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
@@ -855,7 +858,10 @@ def ab_phase(torch, P, dev, data, lengths, card):
     K9 -> ``decode_blocked(light=False)`` (K8) -> checks, with K8 and K9
     counted.  K9's windows equal K1's, K8's bytes and exit bits equal K3's
     on the same windows, each kernel equals its plain version (full size,
-    and K8 on corrupted windows).  Returns the rows of K8 and K9."""
+    and K8 on corrupted windows); K8's spans, sync rounds and serial lanes
+    (none on the trained tree), and K8 with a table that breaks K3's
+    protocol against plain, every lane serial.  Returns the rows of K8 and
+    K9."""
     from fdeflate_tpu_torch.ops.adler32 import adler32_batch
     from fdeflate_tpu_torch.ops.assign_pack import (assign_pack,
                                                     assign_tokens, wwin)
@@ -867,6 +873,7 @@ def ab_phase(torch, P, dev, data, lengths, card):
                                              pack_blocked_plain, pack_tokens,
                                              token_offsets)
     from fdeflate_tpu_torch.parallel.device_pipeline import _checks
+    from fdeflate_tpu_torch.tools.edges import k8_unsafe_packed
     from fdeflate_tpu_torch.trees import trained_tables
 
     B, N = data.shape
@@ -922,6 +929,26 @@ def ab_phase(torch, P, dev, data, lengths, card):
     print(f"A/B decoded == input, bpos_ok all, ck_ok all; K9 windows == K1's; "
           f"K8 bytes and exit bits == K3's (clean and corrupted); K8, K9 == "
           f"plain at full size: ok", flush=True)
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    decode2_canon(win, T, meta, packed, stats=stats)
+    s_ = stats.tolist()
+    print(f"decode2_canon (K8) at {B} x {N} B, C={C}: {s_[1]} spans ({s_[2]} "
+          f"continued by another), sync rounds {s_[3] / max(s_[1], 1):.3f} "
+          f"per span, at most {s_[0]}; {s_[4]} lanes decoded serially",
+          flush=True)
+    if s_[4] != 0 or s_[1] < L:
+        raise AssertionError(f"K8 on the trained tree: stats {s_}")
+    # A table that breaks K3's protocol (runs of base 0): every lane serial.
+    bad = k8_unsafe_packed(packed, "run of base 0")
+    stats.zero_()
+    sub = win[: 4 * 1024]
+    err8 = max(err8, check_equal(torch, "decode2_canon (runs of base 0)",
+                                 decode2_canon(sub, T, meta, bad, stats=stats),
+                                 decode2_canon_plain(sub, T, meta, bad)))
+    if int(stats[4]) != sub.shape[0] or int(stats[1]) != 0:
+        raise AssertionError(f"K8 on runs of base 0: stats {stats.tolist()}")
+    print(f"decode2_canon with runs of base 0 == plain on {sub.shape[0]} "
+          f"lanes, each decoded serially: ok", flush=True)
 
     ms = {
         "pack_v1": cuda_ms(torch, lambda: pack_blocked(tok, ww), KERNEL_REPS),

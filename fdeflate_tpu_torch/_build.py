@@ -51,10 +51,11 @@ _SIGNATURES = {
     # words, cands, wends (or null), nbits (or null), W, n_bits, good, end,
     # L, stream
     "fdt_validate_headers": [_P] * 4 + [_L, _L, _P, _P, _I, _P],
-    # win, meta, packed, out, bpos, L, wwin, T, stream
-    "fdt_decode2_canon": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # tok, win, L, S, wwin, stream
-    "fdt_pack_v1": [_P, _P, _I, _I, _I, _P],
+    # win, meta, packed, out, bpos, stats (or null), L, wwin, T, device,
+    # stream
+    "fdt_decode2_canon": [_P] * 6 + [_I] * 4 + [_P],
+    # tok, win, L, S, wwin, device, stream
+    "fdt_pack_v1": [_P, _P, _I, _I, _I, _I, _P],
     # win, chunk_bits, pos0, lo, hi, words, B, wwin, W, K, stream
     "fdt_combine_grouped": [_P] * 6 + [_I, _I, _I, _I, _P],
 }

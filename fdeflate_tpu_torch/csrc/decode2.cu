@@ -41,17 +41,10 @@
 #include <cuda_runtime.h>
 
 #include "grid.cuh"
-#include "lanes.cuh"
-#include "warp.cuh"
 
 namespace {
 
-constexpr int kWarps = 32;
-constexpr int kTable = 4 << fdt::kMaxL;
-constexpr int kWarpBytes = fdt::dec_warp_bytes();
-constexpr int kSmem = kTable + kWarps * kWarpBytes;
-
-__global__ void __launch_bounds__(32 * kWarps, 1)
+__global__ void __launch_bounds__(32 * fdt::kDecWarps, 1)
 decode_kernel(const uint32_t* __restrict__ words,
               const int32_t* __restrict__ chunk_starts,
               const int32_t* __restrict__ dtab_g, uint8_t* __restrict__ out,
@@ -60,21 +53,8 @@ decode_kernel(const uint32_t* __restrict__ words,
   int32_t* dtab = reinterpret_cast<int32_t*>(smem);
   for (int i = threadIdx.x; i < (1 << fdt::kMaxL); i += blockDim.x) dtab[i] = dtab_g[i];
   __syncthreads();
-
-  const int m = fdt::dec_threads(N / C), per_warp = 32 / m;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const fdt::WarpGroup g(m, lane);
-  uint8_t* tile = smem + kTable + warp * kWarpBytes +
-                  (lane / m) * fdt::dec_lane_bytes(m);
-  uint32_t* sw = reinterpret_cast<uint32_t*>(tile + fdt::dec_tile(m));
-  const int64_t L = static_cast<int64_t>(B) * C;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps * per_warp;
-  for (int64_t lane_id =
-           (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * per_warp + lane / m;
-       lane_id < L; lane_id += step) {
-    fdt::decode2_group(g, words, W, chunk_starts, N, C, lane_id, dtab,
-                       fdt::dec_tile(m), tile, sw, out, bpos);
-  }
+  fdt::decode_lanes<false>(smem, words, W, chunk_starts, B, N, C, out, bpos,
+                           nullptr);
 }
 
 }  // namespace
@@ -84,19 +64,10 @@ extern "C" int fdt_decode2(const void* words, const void* chunk_starts,
                            const void* dtab, void* out, void* bpos, int B,
                            int W, int N, int C, int dev, void* stream) {
   static std::atomic<int> caps[fdt::kMaxDevices];
-  int cap = 0;
-  cudaError_t err =
-      fdt::grid_cap(decode_kernel, 32 * kWarps, kSmem, dev, caps, &cap);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t L = static_cast<int64_t>(B) * C;
-  const int64_t per_block = static_cast<int64_t>(kWarps) * (32 / fdt::dec_threads(N / C));
-  const int64_t need = (L + per_block - 1) / per_block;
-  const int blocks = static_cast<int>(need < cap ? need : cap);
-  decode_kernel<<<blocks, 32 * kWarps, kSmem,
-                  static_cast<cudaStream_t>(stream)>>>(
+  return static_cast<int>(fdt::launch_decode(
+      decode_kernel, dev, caps, B, N, C, stream,
       static_cast<const uint32_t*>(words),
       static_cast<const int32_t*>(chunk_starts),
       static_cast<const int32_t*>(dtab), static_cast<uint8_t*>(out),
-      static_cast<int32_t*>(bpos), B, W, N, C);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<int32_t*>(bpos), B, W, N, C));
 }

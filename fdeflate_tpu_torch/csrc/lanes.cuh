@@ -8,9 +8,10 @@
 // together with the group's collectives, written once over a policy of
 // warp operations (warp.cuh): shuffles on the card, loops over m thread
 // slots on the host.  K6 (decode_sep.cu) runs decode2_group too, with the
-// sep tree's table and its own EOB rule.  K8 and K9 (decode2_canon.cu,
-// pack_v1.cu) run one lane or window word per thread with the whole-lane
-// functions further down.  Everything here is plain C++ (device
+// sep tree's table and its own EOB rule, and K8 (decode2_canon.cu) with a
+// table built from its canonical rows; K9 (pack_v1.cu) puts a group on a
+// lane's window (pack_v1_group).  The whole-lane functions further down
+// are the serial paths of K6 and K8.  Everything here is plain C++ (device
 // intrinsics only behind __CUDA_ARCH__, with a host equivalent), so the
 // same source also compiles for the host, where
 // tests/test_torch_lanes_host.py runs it.
@@ -644,7 +645,8 @@ FDT_HD int32_t clamp_hint(int64_t H, int32_t rel0, int32_t pmax) {
 // K3 lane `lane` (stream lane / C, chunk lane % C; W words per stream)
 // -> out[b, k*S : (k+1)*S] and bpos[lane], by the group g (warp.cuh) of m
 // threads, with `tile` (tcap output bytes) and `sw` (dec_words(31, tcap)
-// words) in shared memory.  Per tile: zero it; per span: stage its words,
+// words) in shared memory; a null `chunk_starts` starts every lane at bit
+// 0 (K8's windows, C = 1).  Per tile: zero it; per span: stage its words,
 // split the hint, decode every segment, sync rounds until each thread
 // starts at its predecessor's exit, the write pass at the scanned byte
 // offsets, and the span's end (filled, stalled, or short: another span);
@@ -669,8 +671,9 @@ FDT_GROUP void decode2_group(const G& g, const uint32_t* words, int64_t W,
   const int b = static_cast<int>(lane / C), k = static_cast<int>(lane % C);
   const int S = N / C;
   const uint32_t* row = words + static_cast<int64_t>(b) * W;
-  const int64_t start = chunk_starts[lane];
-  const int64_t next_span = k + 1 < C ? chunk_starts[lane + 1] - start : -1;
+  const int64_t start = chunk_starts ? chunk_starts[lane] : 0;
+  const int64_t next_span =
+      chunk_starts && k + 1 < C ? chunk_starts[lane + 1] - start : -1;
   uint8_t* dst = out + static_cast<int64_t>(b) * N + static_cast<int64_t>(k) * S;
   typename G::template Var<int32_t> st, stop, pre, px;
   typename G::template Var<int> nz;
@@ -916,8 +919,7 @@ FDT_GROUP void combine_group(const G& g, const uint32_t* win,
   });
 }
 
-// ---- K6 (through K3's group code), K8, K9: one lane (or window word) per
-// thread -------------------------------------------------------------------
+// ---- K6's and K8's serial paths: one lane per thread -----------------------
 
 // K6: decode one lane of S bytes of a class-separated tree (ops/septree)
 // starting at absolute bit `start` of the stream row `row` (W words; words
@@ -931,8 +933,10 @@ FDT_HD int32_t decode_sep_lane(const uint32_t* row, int64_t W, int64_t start,
   return sep_serial(row, W, start, SepRows{meta, vals}, dst, S);
 }
 
-// K8: decode one lane's window of the trained tree, T output words from bit
-// 0 of `win` (wwin words; words at or past wwin read as 0).
+// K8: decode one lane's window, T output words from bit 0 of `win` (wwin
+// words; words at or past wwin read as 0), serially.  The kernel runs the
+// lane through decode2_group with canon_table's table, and comes here for
+// every lane of a table canon_table flags.
 //
 // Semantics of pallas_decode2._kernel (the unrolled body): T word steps of
 // up to 4 sub-steps.  A sub-step first takes pending run bytes (zeros)
@@ -1000,6 +1004,63 @@ FDT_HD int32_t decode_canon_lane(const uint32_t* win, int wwin,
   return pos;
 }
 
+// K8's table: the entry in K3's format (val | extra << 9 | cls << 13 |
+// L << 16) of the 12-bit LSB-first peek x under the canonical rows
+// (bounds[0..12], kvals[0..12]) and the 512-entry symbol table `packed`
+// (val | extra << 9 | cls << 13; an index outside it reads 0, a zero
+// literal): decode_canon_lane's compare chain and lookup, once per peek.
+// K8's class e >> 13 is 0 for a literal, 2 for a run and anything else a
+// stall (K3's class 1).  Equals trees.decode_table for a canonical tree.
+FDT_HD int32_t canon_entry(const int32_t* bounds, const int32_t* kvals,
+                           const int32_t* packed, uint32_t x) {
+  const int r12 = bitrev12(x);
+  int L = 1;
+  for (int l = 1; l < kMaxL; ++l) L += r12 >= bounds[l];
+  const int idx = kvals[L] + (r12 >> (kMaxL - L));
+  const int32_t e = (idx >= 0 && idx < 512) ? packed[idx] : 0;
+  const int32_t cls = e >> 13;
+  return (cls == 0 || cls == 2 ? e : 1 << 13) | (L << 16);
+}
+
+// Whether K3's group decode with entry e (K3's format) may differ from
+// K8's word steps: a literal above 255 (K8 ORs it into the word, its high
+// bit spilling into the next byte; K3 stores its low byte) or a run of
+// base below 3 (K8's word may end short at a run of 0 bytes, and the
+// staging bound, at most 12 bits read per byte written, needs >= 3 bytes
+// for a run symbol's <= 28 bits).  A table with neither decodes the same
+// both ways: four sub-steps always fill a word, a stall stalls both.
+FDT_HD bool canon_unsafe(int32_t e) {
+  const int cls = (e >> 13) & 3, val = e & 0x1FF;
+  return (cls == 0 && val > 255) || (cls == 2 && val < 3);
+}
+
+// K8's prologue: entries x = i0, i0 + step, ... of the 4096-entry table
+// into dtab; returns whether any of them is canon_unsafe.
+FDT_HD bool canon_table(const int32_t* meta, const int32_t* packed,
+                        int32_t* dtab, int i0, int step) {
+  bool unsafe = false;
+  for (int x = i0; x < (1 << kMaxL); x += step) {
+    dtab[x] = canon_entry(meta, meta + 16, packed, static_cast<uint32_t>(x));
+    unsafe |= canon_unsafe(dtab[x]);
+  }
+  return unsafe;
+}
+
+// ---- K9, a group of threads per lane --------------------------------------
+//
+// Semantics of pallas_pack._kernel, the all-pairs select-accumulate:
+// win[lane, w] = OR over the lane's pairs p of (wi_p == w ? lo_p : 0) |
+// (wi_p == w - 1 ? hi_p : 0).  OR commutes, so it is a scatter: pair p ORs
+// lo_p into word wi_p and hi_p into word wi_p + 1, targets outside
+// [0, wwin) dropped, for any int32 tokens (no order of rel is assumed: a
+// pair with wi == -1 still ORs its hi into word 0; an empty pair, wi ==
+// -3, touches nothing).  rel = t0 >> 18 lies in [-8192, 8192), so wi <=
+// 255 and no pair reaches past word 256: the group ORs into a window of
+// kPackWords words in shared memory, and a wider window's words past it
+// are zero.
+
+constexpr int kPackWords = 260;  // words 0..256, rounded up to 16 bytes
+
 // K9: one pair of packed byte tokens (tok = v | nb << 13 | rel << 18, rel
 // the first token's lane-relative bit offset) -> its window word `wi`
 // (-3 for an empty pair) and the low and high words of its bits shifted to
@@ -1018,16 +1079,69 @@ FDT_HD void pack_pair(int32_t t0, int32_t t1, int* wi, uint32_t* lo,
   *wi = n0 + n1 > 0 ? rel >> 5 : -3;
 }
 
-// K9: window word `w` of a lane, the all-pairs select-accumulate of
-// pallas_pack._kernel over the lane's P decoded pairs:
-// OR_p (wi_p == w ? lo_p : 0) | (wi_p == w - 1 ? hi_p : 0).
-FDT_HD uint32_t pack_v1_word(const int* wi, const uint32_t* lo,
-                             const uint32_t* hi, int P, int w) {
-  uint32_t acc = 0;
-  for (int p = 0; p < P; ++p) {
-    acc |= (wi[p] == w ? lo[p] : 0u) | (wi[p] == w - 1 ? hi[p] : 0u);
-  }
-  return acc;
+// Four tokens from p (16-byte aligned on the card).
+FDT_HD void load4(const int32_t* p, int32_t* x) {
+#ifdef __CUDA_ARCH__
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+#else
+  memcpy(x, p, 16);
+#endif
+}
+
+// K9 lane `lane` of tokens int32[L, S] -> win[lane, :wwin], by the group g
+// (warp.cuh) of m threads, with `buf` (kPackWords words, 16-byte aligned)
+// in shared memory: zero the window, OR each pair's two words in (four
+// tokens, two pairs, to a thread's 16-byte load where the lane's row is
+// aligned), store the window, 16 bytes to a store where the row is
+// aligned.
+template <class G>
+FDT_GROUP void pack_v1_group(const G& g, const int32_t* tok, int S,
+                             int64_t lane, uint32_t* buf, uint32_t* win,
+                             int wwin) {
+  const int m = g.m;
+  const int nb = imin(wwin, kPackWords);
+  const int32_t* t = tok + lane * S;
+  g.each([&](int i) {
+    for (int j = i; j < nb; j += m) buf[j] = 0u;
+  });
+  g.sync();
+  auto put = [&](int32_t t0, int32_t t1) {
+    int wi;
+    uint32_t lo, hi;
+    pack_pair(t0, t1, &wi, &lo, &hi);
+    if (lo && wi >= 0 && wi < nb) or_word(buf + wi, lo);
+    if (hi && wi + 1 >= 0 && wi + 1 < nb) or_word(buf + wi + 1, hi);
+  };
+  const int nq = (reinterpret_cast<uintptr_t>(t) & 15) == 0 ? S >> 2 : 0;
+  g.each([&](int i) {
+    for (int q = i; q < nq; q += m) {
+      int32_t x[4];
+      load4(t + 4 * q, x);
+      put(x[0], x[1]);
+      put(x[2], x[3]);
+    }
+    for (int p = 2 * nq + i; p < S / 2; p += m) put(t[2 * p], t[2 * p + 1]);
+  });
+  g.sync();
+  uint32_t* d = win + lane * wwin;
+  const int nv = (reinterpret_cast<uintptr_t>(d) & 15) == 0 ? wwin >> 2 : 0;
+  g.each([&](int i) {
+    for (int c = i; c < nv; c += m) {
+      if (4 * c + 4 <= nb) {
+        g.store(d + 4 * c, buf + 4 * c, 16);
+      } else {
+        alignas(16) uint32_t v[4];
+        for (int q = 0; q < 4; ++q) v[q] = 4 * c + q < nb ? buf[4 * c + q] : 0u;
+        g.store(d + 4 * c, v, 16);
+      }
+    }
+    for (int j = 4 * nv + i; j < wwin; j += m) d[j] = j < nb ? buf[j] : 0u;
+  });
+  g.sync();
 }
 
 }  // namespace fdt

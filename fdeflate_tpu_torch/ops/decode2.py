@@ -22,8 +22,10 @@ K8 (``decode2_canon``) is the counterpart of the TPU kernel
 runs with ``light=False``: the same contract on lane windows, with the
 canonical compare chain and the 512-entry symbol table of
 ``canonical_meta`` in place of K3's 4096-entry peek table.  The CUDA kernel
-is ``csrc/decode2_canon.cu``; ``decode2_canon_plain`` is its plain
-version, a loop over word steps and sub-steps vectorised across lanes.
+is ``csrc/decode2_canon.cu``, K3's group decode with a table built from
+those rows (a table that breaks K3's protocol, ``canon_unsafe``, is decoded
+one thread per lane); ``decode2_canon_plain`` is its plain version, a loop
+over word steps and sub-steps vectorised across lanes.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..trees import (
     TreeTables,
     _bitrev,
     canonical_meta,
+    peek_index,
     trained_tables,
 )
 
@@ -193,14 +196,33 @@ def decode2_canon_plain(win: torch.Tensor, T: int, meta: torch.Tensor,
     return out, pos.to(torch.int32)
 
 
+def canon_unsafe(meta: torch.Tensor, packed: torch.Tensor) -> bool:
+    """Whether K8's CUDA kernel decodes every lane of this table serially
+    (``fdt::canon_unsafe``): some 12-bit peek's entry is a literal above
+    255 or a run of base below 3, where K3's group decode and K8's word
+    steps part.  False for ``canon_tables()``."""
+    m = meta.to(torch.int64)
+    _L, idx = peek_index(m[: MAXL + 1], m[16 : 16 + MAXL + 1])
+    tab = packed.to(torch.int64)
+    e = torch.where((idx >= 0) & (idx < TAB_PAD),
+                    tab[idx.clamp(0, TAB_PAD - 1)], 0)
+    cls, val = e >> 13, e & 0x1FF
+    return bool((((cls == CLS_LIT) & (val > 255))
+                 | ((cls == CLS_LEN) & (val < 3))).any())
+
+
 def decode2_canon(win: torch.Tensor, T: int, meta: torch.Tensor,
-                  packed: torch.Tensor):
+                  packed: torch.Tensor, stats=None):
     """K8 on ``win``'s device: (out u8[L, 4T], bpos int32[L]).
 
     ``win`` int32[L, wwin] lane windows (bit 0 at each lane's chunk start;
     words past ``wwin`` read as 0), ``meta``/``packed`` from
     ``canon_tables``.  CPU tensors take ``decode2_canon_plain``; CUDA
-    tensors launch ``csrc/decode2_canon.cu``.
+    tensors launch ``csrc/decode2_canon.cu`` (K3's group decode with the
+    table of these rows; every lane one thread where ``canon_unsafe``).
+    ``stats``: None, or a zeroed int64[5] on the card that the kernel fills
+    with its spans' counts (most sync rounds of a span, spans, spans
+    another span continues, sync rounds) and the lanes it decoded serially.
     """
     L, ww = win.shape
     if meta.shape != (32,) or packed.shape != (TAB_PAD,):
@@ -208,16 +230,22 @@ def decode2_canon(win: torch.Tensor, T: int, meta: torch.Tensor,
     if win.device.type == "cpu":
         return decode2_canon_plain(win, T, meta, packed)
     _build.require_cuda(win, meta, packed)
-    win = win.to(torch.int32).contiguous()
-    out = torch.empty(L, 4 * T, dtype=torch.uint8, device=win.device)
-    bpos = torch.empty(L, dtype=torch.int32, device=win.device)
+    dev = win.device
+    if stats is not None and (stats.shape != (5,) or stats.dtype != torch.int64
+                              or stats.device != dev):
+        raise ValueError("decode2_canon: stats must be int64[5] on the "
+                         "windows' device")
+    win = _build.i32(win)
+    out = torch.empty(L, 4 * T, dtype=torch.uint8, device=dev)
+    bpos = torch.empty(L, dtype=torch.int32, device=dev)
     if L == 0 or T == 0:
         return out, bpos.zero_()
-    meta = meta.to(torch.int32).contiguous()
-    packed = packed.to(torch.int32).contiguous()
-    _build.launch("decode2_canon", win.device, win.data_ptr(),
-                  meta.data_ptr(), packed.data_ptr(), out.data_ptr(),
-                  bpos.data_ptr(), L, ww, T)
+    meta = _build.i32(meta)
+    packed = _build.i32(packed)
+    _build.launch("decode2_canon", dev, win.data_ptr(), meta.data_ptr(),
+                  packed.data_ptr(), out.data_ptr(), bpos.data_ptr(),
+                  None if stats is None else stats.data_ptr(), L, ww, T,
+                  dev.index)
     decode2_canon.launches += 1
     return out, bpos
 

@@ -1,10 +1,12 @@
-"""K9 pack_v1: packed byte tokens -> lane bit windows (the quadratic pack).
+"""K9 pack_v1: packed byte tokens -> lane bit windows (the v1 pack).
 
 JAX counterparts (``fdeflate_tpu/ops/pallas_pack.py``): ``pack_tokens``
 :281 and the TPU kernel ``_kernel`` :35 (via ``pack_blocked_pallas`` :76),
 the all-pairs pack the JAX package keeps for A/B beside the linear
 ``_kernel_v2`` (which the port has in K1).  The CUDA kernel is
-``csrc/pack_v1.cu``; ``pack_blocked_plain`` is its plain version.
+``csrc/pack_v1.cu``, the same function as a linear scatter (each pair ORs
+its two words into the window); ``pack_blocked_plain`` is its plain
+version, the TPU kernel's all-pairs select-accumulate.
 
 A token packs one byte's code bits, bit count and lane-relative bit offset
 into one int32, ``v | nb << 13 | rel << 18``; ``rel`` has 13 bits, so a
@@ -117,7 +119,7 @@ def pack_blocked(tok: torch.Tensor, wwin: int) -> torch.Tensor:
     if L == 0:
         return win
     _build.launch("pack_v1", tok.device, tok.data_ptr(), win.data_ptr(), L,
-                  S, wwin)
+                  S, wwin, tok.device.index)
     pack_blocked.launches += 1
     return win
 

@@ -124,7 +124,7 @@ def encode_ultrafast_blocked(data: torch.Tensor, lengths: torch.Tensor,
     port has one path (K1 on CUDA tensors, its plain version on CPU
     tensors) and accepts and ignores them.  None of them selects K9: JAX's
     ``kernel_pack=True`` is the linear pack ``pack_blocked_pallas_v2``,
-    which K1 holds; the quadratic pack is ``ops/pack.py``'s alone.
+    which K1 holds; the v1 pack (K9) is ``ops/pack.py``'s alone.
     """
     B, N = data.shape
     C = num_chunks

@@ -1,5 +1,6 @@
 """Edge inputs of K1 (assign_pack), K2 (combine), K3 (decode2), K4
-(inflate_records), K5 (validate_headers) and K6 (decode_sep).
+(inflate_records), K5 (validate_headers), K6 (decode_sep), K8
+(decode2_canon) and K9 (pack_v1).
 
 These kernels put a group of threads on each lane: thread segments,
 staged tiles, spans and lane ownership have edges the headline corpus may
@@ -256,6 +257,37 @@ def k6_edge_cases(data: torch.Tensor, lengths: torch.Tensor, C: int, tree):
     cases.append(("random unordered starts", words,
                   torch.from_numpy(rand).to(dev), None))
     return [(lab, w, s, meta, vals, N, C, want) for lab, w, s, want in cases]
+
+
+def k9_noise_tokens(S: int, L: int, seed: int) -> torch.Tensor:
+    """Random token words int32[L, S] at K9's edges: offsets over the whole
+    13-bit range, negative ones included; offsets in [-64, 64) (pairs with
+    wi == -1, whose hi lands in word 0); offsets at the top (words 255 and
+    256); bit counts up to 31; one pair in eight empty (both counts 0)."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, 1 << 13, (L, S))
+    nb = rng.integers(0, 32, (L, S))
+    nb[np.repeat(rng.random((L, S // 2)) < 0.125, 2, axis=1)] = 0
+    kind = rng.integers(0, 3, (L, S))
+    rel = np.where(kind == 0, rng.integers(-8192, 8192, (L, S)),
+                   np.where(kind == 1, rng.integers(-64, 64, (L, S)),
+                            rng.integers(8100, 8192, (L, S))))
+    tok = (v | (nb << 13) | (rel << 18)) & 0xFFFFFFFF
+    return torch.from_numpy(tok.astype(np.uint32).view(np.int32))
+
+
+K8_UNSAFE = ("literal above 255", "run of base 0", "run of base 2")
+
+
+def k8_unsafe_packed(packed: torch.Tensor, kind: str) -> torch.Tensor:
+    """K8's packed symbol table with every literal above 255, or every
+    run's base set to 0 or 2 (``K8_UNSAFE``): tables K8's kernel must
+    decode serially (``ops/decode2.canon_unsafe``)."""
+    cls = packed >> 13
+    if kind == "literal above 255":
+        return torch.where(cls == 0, packed | 256, packed)
+    base = {"run of base 0": 0, "run of base 2": 2}[kind]
+    return torch.where(cls == 2, (packed & ~0x1FF) | base, packed)
 
 
 def k5_cross_stream(a: bytes, b: bytes):

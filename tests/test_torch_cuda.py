@@ -58,11 +58,12 @@ from fdeflate_tpu_torch.ops.validate_headers import (
 from fdeflate_tpu_torch.parallel import discovery as PD
 from fdeflate_tpu_torch.ops.ultrafast import _encode, lane_starts, stream_words
 from fdeflate_tpu_torch.parallel.device_pipeline import fused_zlib_roundtrip
-from fdeflate_tpu_torch.tools.edges import (K4_KINDS, corrupt_words,
-                                            k1_edge_inputs, k1_long_lane,
-                                            k2_edge_cases, k3_edge_cases,
-                                            k4_edge_case, k5_cross_stream,
-                                            k6_edge_cases)
+from fdeflate_tpu_torch.tools.edges import (K4_KINDS, K8_UNSAFE,
+                                            corrupt_words, k1_edge_inputs,
+                                            k1_long_lane, k2_edge_cases,
+                                            k3_edge_cases, k4_edge_case,
+                                            k5_cross_stream, k6_edge_cases,
+                                            k8_unsafe_packed, k9_noise_tokens)
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 pytestmark = pytest.mark.cuda
@@ -235,7 +236,9 @@ def test_decode2_matches_plain(dev, name, corrupt):
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_decode2_canon_matches_plain(dev, name, corrupt):
     """K8 on K1's lane windows: bytes and exit bits equal its plain version
-    and K3 on the same windows."""
+    and K3 on the same windows, no lane serial; with tables that break
+    K3's protocol (``K8_UNSAFE``), equal to the plain version with every
+    lane serial (stats[4])."""
     data, lengths, C = _inputs(dev, name)
     B, N = data.shape
     S = N // C
@@ -245,20 +248,33 @@ def test_decode2_canon_matches_plain(dev, name, corrupt):
         win[-1, 0] ^= 0x7FFFFFFF
     meta, packed = canon_tables(str(dev))
     before = decode2_canon.launches
-    got = decode2_canon(win, S // 4, meta, packed)
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    got = decode2_canon(win, S // 4, meta, packed, stats=stats)
     assert decode2_canon.launches == before + 1
     want = decode2_canon_plain(win, S // 4, meta, packed)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(stats[4]) == 0 and int(stats[1]) >= win.shape[0]
     starts = torch.zeros(win.shape[0], 1, dtype=torch.int32, device=dev)
     k3 = decode2(win, starts, trained_tables(str(dev)).dtab, S, 1)
     assert torch.equal(got[0], k3[0]) and torch.equal(got[1], k3[1].reshape(-1))
     if not corrupt:
         assert torch.equal(got[0].reshape(B, N), data)
+    # Tables that break K3's protocol: every lane serial, counted.
+    for kind in K8_UNSAFE:
+        bad = k8_unsafe_packed(packed, kind)
+        stats.zero_()
+        before = decode2_canon.launches
+        got = decode2_canon(win, S // 4, meta, bad, stats=stats)
+        assert decode2_canon.launches == before + 1
+        want = decode2_canon_plain(win, S // 4, meta, bad)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kind
+        assert int(stats[4]) == win.shape[0] and int(stats[1]) == 0, kind
 
 
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))
 def test_pack_v1_matches_plain(dev, name):
-    """K9 on the lanes' tokens (S <= 630) and on random token words."""
+    """K9 on the lanes' tokens (S <= 630) and on random token words (edge
+    offsets, empty pairs), at window widths 1, wwin(S) and 300."""
     data, lengths, C = _inputs(dev, name)
     B, N = data.shape
     C = max(C, N // 512)
@@ -275,6 +291,14 @@ def test_pack_v1_matches_plain(dev, name):
     noise = torch.randint(-2**31, 2**31 - 1, (64, S), dtype=torch.int32,
                           device=dev, generator=torch.Generator(dev).manual_seed(5))
     assert torch.equal(pack_blocked(noise, 40), pack_blocked_plain(noise, 40))
+    noise = k9_noise_tokens(S, 64, 6).to(dev)
+    for width in (1, wwin(S), 300):
+        before = pack_blocked.launches
+        got = pack_blocked(noise, width)
+        assert pack_blocked.launches == before + 1
+        assert torch.equal(got, pack_blocked_plain(noise, width)), width
+        got = pack_blocked(tok, width)
+        assert torch.equal(got, pack_blocked_plain(tok, width)), width
 
 
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))

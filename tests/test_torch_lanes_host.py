@@ -1,13 +1,15 @@
 """The kernels' per-lane code, built for the host, against the plain versions.
 
 ``fdeflate_tpu_torch/csrc/lanes.cuh`` holds, as plain C++, the lane code
-of K1, K2, K3 and K6 (a group of m threads per lane: K1's group
+of K1, K2, K3, K6, K8 and K9 (a group of m threads per lane: K1's group
 classification, run scan and segment emit; K2's owned words; K3's segment
 decode, sync rounds and span hints, put together by ``assign_pack_group``,
 ``combine_group`` and ``decode2_group``, which K6 runs with the sep tree's
-table and its serial path for lanes that meet an EOB) and the whole
-sequential work of a K6 (its serial path) and a K8 lane and of a K9 window
-word; ``csrc/inflate_lanes.cuh`` that of K4 (``inflate_group``, K3's
+table and its serial path for lanes that meet an EOB, and K8 with the
+table of its canonical rows and its serial path for tables that break
+K3's protocol; K9's scatter of token pairs into a window,
+``pack_v1_group``) and the whole sequential work of a K6 and a K8 lane
+(their serial paths); ``csrc/inflate_lanes.cuh`` that of K4 (``inflate_group``, K3's
 protocol on records, with its lookup tables) and of a K5 candidate (its
 code-length table, bit buffer and resumable section decode).  Here g++ builds the same headers into a small
 host library: the lane loops around the one-lane machines, and the group
@@ -24,6 +26,7 @@ covered only on the card (tests/test_torch_cuda.py, chip_smoke.py).
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 import shutil
 import subprocess
@@ -41,6 +44,7 @@ from fdeflate_tpu_torch.ops.assign_pack import assign_pack_plain, wwin
 from fdeflate_tpu.ops.septree import sep_profile
 from fdeflate_tpu_torch.ops.decode2 import (
     canon_tables,
+    canon_unsafe,
     decode2_canon_plain,
     decode2_plain,
 )
@@ -69,6 +73,7 @@ from fdeflate_tpu_torch.ops.validate_headers import validate_headers_plain
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 from fdeflate_tpu_torch.tools.edges import (
     K4_KINDS,
+    K8_UNSAFE,
     corrupt_words,
     k1_edge_inputs,
     k1_long_lane,
@@ -77,17 +82,20 @@ from fdeflate_tpu_torch.tools.edges import (
     k4_streams,
     k5_cross_stream,
     k6_edge_cases,
+    k8_unsafe_packed,
+    k9_noise_tokens,
     mid_lane_bit,
     splice_eob,
 )
+from fdeflate_tpu_torch.tables import HUFFMAN_LENGTHS
 from fdeflate_tpu_torch.trees import decode_table, sep_tables, trained_tables
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "fdeflate_tpu_torch" / "csrc"
 
-# The kernels' lane loops (validate_headers.cu, decode2_canon.cu,
-# pack_v1.cu, K6's serial path) and the group code of assign_pack.cu,
-# combine.cu, decode2.cu, decode_sep.cu and inflate_records.cu, serial on
-# the host.
+# The kernels' lane loops (validate_headers.cu, K6's and K8's serial
+# paths) and the group code of assign_pack.cu, combine.cu, decode2.cu,
+# decode_sep.cu, decode2_canon.cu, pack_v1.cu and inflate_records.cu,
+# serial on the host.
 _HARNESS = r"""
 #include <cstring>
 #include <vector>
@@ -226,17 +234,44 @@ extern "C" void decode_canon_lanes(const uint32_t* win, const int32_t* meta,
     bpos[lane] = fdt::decode_canon_lane(win + lane * wwin, wwin, meta,
         meta + 16, packed, out + lane * T, T);
 }
-extern "C" void pack_v1_lanes(const int32_t* tok, uint32_t* win, int L, int S,
-    int wwin) {
-  int wi[315];
-  uint32_t lo[315], hi[315];
-  for (int64_t lane = 0; lane < L; ++lane) {
-    for (int p = 0; p < S / 2; ++p)
-      fdt::pack_pair(tok[lane * S + 2 * p], tok[lane * S + 2 * p + 1],
-                     wi + p, lo + p, hi + p);
-    for (int w = 0; w < wwin; ++w)
-      win[lane * wwin + w] = fdt::pack_v1_word(wi, lo, hi, S / 2, w);
+// K8's table as its kernel's prologue builds it; returns the unsafe flag.
+extern "C" int canon_entries(const int32_t* meta, const int32_t* packed,
+    int32_t* out) {
+  return fdt::canon_table(meta, packed, out, 0, 1);
+}
+// K8 as its kernel runs it, with HostGroup: the table from (meta,
+// packed); an unsafe table decodes every lane serially (stats[4] counts
+// them), a safe one runs K3's group code on each lane's window, a C = 1
+// stream from bit 0 (null chunk starts), m threads (0: the kernel's
+// fdt::dec_threads(4T) and its tile), the hint times hnum / hden.
+extern "C" void decode_canon_warp(const uint32_t* win, const int32_t* meta,
+    const int32_t* packed, uint8_t* out, int32_t* bpos, int L, int wwin,
+    int T, int m, int tcap, int64_t hnum, int64_t hden, int64_t* stats) {
+  std::vector<int32_t> dtab(1 << fdt::kMaxL);
+  if (fdt::canon_table(meta, packed, dtab.data(), 0, 1)) {
+    for (int64_t lane = 0; lane < L; ++lane) {
+      bpos[lane] = fdt::decode_canon_lane(win + lane * wwin, wwin, meta,
+          meta + 16, packed, (uint32_t*)(out + lane * 4 * T), T);
+      stats[4] += 1;
+    }
+    return;
   }
+  if (m == 0) m = fdt::dec_threads(4 * T), tcap = 0;
+  if (tcap == 0) tcap = fdt::dec_tile(m);
+  std::vector<uint8_t> tile(tcap + 16);
+  std::vector<uint32_t> sw(fdt::dec_words(31, tcap));
+  fdt::HostGroup g{m, hnum, hden, stats};
+  for (int64_t lane = 0; lane < L; ++lane)
+    fdt::decode2_group(g, win, wwin, nullptr, 4 * T, 1, lane, dtab.data(),
+                       tcap, tile.data(), sw.data(), out, bpos);
+}
+// K9's group code with HostGroup, m threads to a lane.
+extern "C" void pack_v1_lanes(const int32_t* tok, uint32_t* win, int L, int S,
+    int wwin, int m) {
+  alignas(16) uint32_t buf[fdt::kPackWords];
+  fdt::HostGroup g{m};
+  for (int64_t lane = 0; lane < L; ++lane)
+    fdt::pack_v1_group(g, tok, S, lane, buf, win, wwin);
 }
 """
 
@@ -756,38 +791,57 @@ def test_decode_sep_warp_clean_lanes_stay_parallel(lib):
 @pytest.mark.parametrize("seed0", SEEDS)
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_decode_canon_lane_matches_plain(lib, seed0, corrupt):
-    """K8's lane machine on K1's windows: clean, ragged and empty lanes,
-    and windows with flipped words (EOB stalls, runs over the lane end)."""
-    t = trained_tables()
+    """K8's serial path (``decode_canon_lane``) on K1's windows: clean,
+    ragged and empty lanes, and windows with flipped words (EOB stalls,
+    runs over the lane end)."""
     meta, packed = canon_tables()
     for seed in range(seed0, seed0 + 6):
-        data, lengths, C = _case(seed)
-        B, N = data.shape
-        S = N // C
-        if S % 4:
+        case = _canon_case(seed, corrupt)
+        if case is None:
             continue
-        win, _bits = assign_pack_plain(data, lengths, C, t)
-        if corrupt:
-            rng = np.random.default_rng(seed)
-            for _ in range(4):
-                win[int(rng.integers(0, B * C)), int(rng.integers(
-                    0, win.shape[1]))] ^= int(rng.integers(1, 2**31))
+        win, T, want_out, want_bpos, data = case
         L, ww = win.shape
-        out = torch.empty(L, S, dtype=torch.uint8)
+        out = torch.empty(L, 4 * T, dtype=torch.uint8)
         bpos = torch.empty(L, dtype=torch.int32)
         lib.decode_canon_lanes(_ptr(win), _ptr(meta), _ptr(packed), _ptr(out),
-                               _ptr(bpos), L, ww, S // 4)
-        want_out, want_bpos = decode2_canon_plain(win, S // 4, meta, packed)
+                               _ptr(bpos), L, ww, T)
         assert torch.equal(bpos, want_bpos), seed
         assert torch.equal(out, want_out), seed
         if not corrupt:
-            assert torch.equal(out.reshape(B, N), data), seed
+            assert torch.equal(out.reshape(data.shape), data), seed
+
+
+_CANON_CASES = {}
+
+
+def _canon_case(seed: int, corrupt: bool):
+    """K1's windows of ``_case(seed)`` (None where S % 4), 4 words flipped
+    if ``corrupt``, with K8's plain result, computed once:
+    (win, T, out, bpos, data)."""
+    if (seed, corrupt) not in _CANON_CASES:
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        S = N // C
+        case = None
+        if S % 4 == 0:
+            win, _bits = assign_pack_plain(data, lengths, C, trained_tables())
+            if corrupt:
+                rng = np.random.default_rng(seed)
+                for _ in range(4):
+                    win[int(rng.integers(0, B * C)), int(rng.integers(
+                        0, win.shape[1]))] ^= int(rng.integers(1, 2**31))
+            meta, packed = canon_tables()
+            case = (win, S // 4) + decode2_canon_plain(win, S // 4, meta,
+                                                       packed) + (data,)
+        _CANON_CASES[seed, corrupt] = case
+    return _CANON_CASES[seed, corrupt]
 
 
 @pytest.mark.parametrize("seed0", SEEDS)
 def test_pack_v1_lane_matches_plain(lib, seed0):
-    """K9's pair decode and window words, on every lane's tokens and on
-    random token words (garbage pairs, negative offsets)."""
+    """K9's group code (a warp to a lane, as the kernel runs it) on every
+    lane's tokens and on random token words (garbage pairs, negative
+    offsets)."""
     from fdeflate_tpu_torch.ops.assign_pack import assign_tokens
 
     t = trained_tables()
@@ -806,8 +860,163 @@ def test_pack_v1_lane_matches_plain(lib, seed0):
             L = tok.shape[0]
             ww = wwin(S) + seed % 3
             win = torch.empty(L, ww, dtype=torch.int32)
-            lib.pack_v1_lanes(_ptr(tok.contiguous()), _ptr(win), L, S, ww)
+            lib.pack_v1_lanes(_ptr(tok.contiguous()), _ptr(win), L, S, ww,
+                              32)
             assert torch.equal(win, pack_blocked_plain(tok, ww)), seed
+
+
+_PACK_PLAIN = {}
+
+
+def _pack_plain(tok: torch.Tensor, label: str, width: int) -> torch.Tensor:
+    """``pack_blocked_plain(tok, width)``, computed once per source."""
+    if (label, width) not in _PACK_PLAIN:
+        _PACK_PLAIN[label, width] = pack_blocked_plain(tok, width)
+    return _PACK_PLAIN[label, width]
+
+
+@functools.lru_cache(maxsize=1)
+def _pack_sources():
+    """(label, tok int32[L, S]) K9 is held to its plain version on:
+    ``pack_tokens`` of the K1 edge batches and of IDAT rows at S <= 512,
+    and random token words."""
+    from fdeflate_tpu_torch.ops.assign_pack import assign_tokens
+
+    t = trained_tables()
+    inputs = [(label, torch.from_numpy(d), torch.tensor(lens), C)
+              for label, d, lens, C in k1_edge_inputs()]
+    idat = torch.from_numpy(make_idat_corpus(2, 8192, seed=44))
+    inputs.append(("idat", idat, torch.tensor([8192, 6001]), 16))
+    out = []
+    for label, d, lens, C in inputs:
+        B, N = d.shape
+        C = max(C, N // 512)
+        S = N // C
+        v, nb, _ = assign_tokens(d, lens.to(torch.int32), S, t)
+        out.append((label, pack_tokens(v, nb, token_offsets(nb, C), C)))
+    out.append(("random words, S = 512", k9_noise_tokens(512, 24, 45)))
+    out.append(("random words, S = 630", k9_noise_tokens(630, 8, 46)))
+    out.append(("random words, S = 2", k9_noise_tokens(2, 64, 47)))
+    return out
+
+
+@pytest.mark.parametrize("m", (1, 2, 5, 32))
+@pytest.mark.parametrize("ww", ("1", "wwin(S)", "300"))
+def test_pack_v1_warp_threads(lib, m, ww):
+    """K9's group code (the pairs scattered into a shared window) with m
+    threads to a lane, at window widths 1, ``wwin(S)`` and 300 (wider than
+    the 257 words a pair can reach), on every token source: equal to the
+    all-pairs plain version bit for bit."""
+    from fdeflate_tpu_torch.ops.pack import _pairs
+
+    reached = 0
+    for label, tok in _pack_sources():
+        L, S = tok.shape
+        width = {"1": 1, "wwin(S)": wwin(S), "300": 300}[ww]
+        win = torch.empty(L, width, dtype=torch.int32)
+        lib.pack_v1_lanes(_ptr(tok.contiguous()), _ptr(win), L, S, width, m)
+        assert torch.equal(win, _pack_plain(tok, label, width)), label
+        wi, _lo, hi = _pairs(tok)
+        reached += int(((wi == -1) & (hi != 0)).sum())
+    assert reached > 0      # pairs before the window that reach word 0
+
+
+def _canon_meta(lens) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8's (meta int32[32], packed int32[512]) of a code-length vector."""
+    from fdeflate_tpu_torch.trees import canonical_meta
+
+    bounds, kvals, packed = canonical_meta(torch.from_numpy(lens))
+    meta = torch.zeros(32, dtype=torch.int64)
+    meta[:13], meta[16:29] = bounds, kvals
+    return meta.to(torch.int32), packed.to(torch.int32)
+
+
+@pytest.mark.parametrize("tree", ["trained", "sep_profile", 0, 1])
+def test_canon_entry_matches_decode_table(lib, tree):
+    """K8's table (``fdt::canon_table``: the compare chain once per peek,
+    in K3's entry format) equals ``trees.decode_table`` for all 4096 peeks,
+    and flags none of a canonical tree's entries."""
+    lens = (np.asarray(HUFFMAN_LENGTHS, np.int64) if tree == "trained"
+            else sep_profile().lens if tree == "sep_profile"
+            else _random_sep_lens(tree))
+    meta, packed = canon_tables() if tree == "trained" else _canon_meta(lens)
+    got = torch.empty(4096, dtype=torch.int32)
+    unsafe = lib.canon_entries(_ptr(meta), _ptr(packed), _ptr(got))
+    assert torch.equal(got, decode_table(torch.from_numpy(lens)))
+    assert unsafe == 0 and not canon_unsafe(meta, packed)
+
+
+def _canon_warp(lib, win, meta, packed, T, m, hint=(1, 1)):
+    """K8 as its kernel runs it, on the host (m = 0: the kernel's m and
+    tile): (out, bpos, stats)."""
+    L, ww = win.shape
+    out = torch.empty(L, 4 * T, dtype=torch.uint8)
+    bpos = torch.empty(L, dtype=torch.int32)
+    stats = torch.zeros(5, dtype=torch.int64)
+    lib.decode_canon_warp(_ptr(win.contiguous()), _ptr(meta), _ptr(packed),
+                          _ptr(out), _ptr(bpos), L, ww, T, m, 2048,
+                          ctypes.c_int64(hint[0]), ctypes.c_int64(hint[1]),
+                          _ptr(stats))
+    return out, bpos, stats
+
+
+@pytest.mark.parametrize("m", THREADS + (32, KERNEL_M))
+@pytest.mark.parametrize("seed0", SEEDS)
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decode_canon_warp_matches_plain(lib, m, seed0, corrupt):
+    """K8's redesign: K3's group code over each lane's window with the
+    table of the trained tree's canonical rows, m threads to a lane, the
+    span hint as computed and 64x too short or too long, on K1's windows
+    (clean, ragged, empty lanes; flipped words: stalls, runs over the lane
+    end): bytes and exit bits equal the plain version's, and no lane
+    decoded serially."""
+    meta, packed = canon_tables()
+    for seed in range(seed0, seed0 + 6):
+        case = _canon_case(seed, corrupt)
+        if case is None:
+            continue
+        win, T, want_out, want_bpos, data = case
+        for hint in ((1, 1), (1, 64), (64, 1)):
+            out, bpos, stats = _canon_warp(lib, win, meta, packed, T, m, hint)
+            assert torch.equal(bpos, want_bpos), (seed, hint)
+            assert torch.equal(out, want_out), (seed, hint)
+            assert int(stats[4]) == 0, (seed, hint)
+            assert int(stats[0]) <= (m or 32), (seed, hint)
+        if not corrupt:
+            assert torch.equal(out.reshape(data.shape), data), seed
+
+
+@pytest.mark.parametrize("kind", K8_UNSAFE)
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decode_canon_warp_unsafe_tables(lib, kind, corrupt):
+    """A table with a literal above 255 or a run of base below 3 is flagged
+    (``canon_unsafe``, in the kernel's prologue and in the plain helper),
+    every lane is decoded serially and counted in stats[4], and the result
+    equals the plain version's, where K3's group decode with the same table
+    would differ (literals above 255, runs of base 0)."""
+    meta = canon_tables()[0]
+    packed = k8_unsafe_packed(canon_tables()[1], kind)
+    dtab = torch.empty(4096, dtype=torch.int32)
+    assert lib.canon_entries(_ptr(meta), _ptr(packed), _ptr(dtab)) == 1
+    assert canon_unsafe(meta, packed)
+    differs = False
+    for seed in (0, 8, 14, 22):
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        S = N // C
+        win, _bits = assign_pack_plain(data, lengths, C, trained_tables())
+        if corrupt:
+            win[::3, 1] ^= 0x5A5A5A5A
+        out, bpos, stats = _canon_warp(lib, win, meta, packed, S // 4, 32)
+        want_out, want_bpos = decode2_canon_plain(win, S // 4, meta, packed)
+        assert torch.equal(bpos, want_bpos), seed
+        assert torch.equal(out, want_out), seed
+        assert int(stats[4]) == win.shape[0], seed
+        k3 = _decode_warp(lib, win, torch.zeros(win.shape[0], 1), dtab, S, 1,
+                          32)[:2]
+        differs |= not (torch.equal(k3[0].reshape(out.shape), want_out)
+                        and torch.equal(k3[1].reshape(-1), want_bpos))
+    assert differs or kind == "run of base 2"
 
 
 def _foreign_stream(seed: int) -> bytes:
