@@ -18,7 +18,10 @@ process per source, all at once) and drives the port's paths:
      word-aligned starts, the last word's high half at W and trailing
      words); the roundtrip through the public entry points
      (zlib.decompress of every stream, decoded bytes, exit bits,
-     Adler-32), kernel and leg times.
+     Adler-32) with K1, K2, K3 and K7 (the encode's Adler-32) counted;
+     ``adler32_batch`` through K7 against its plain body on the corpus
+     and on ragged lengths; kernel and leg times, the encode leg split
+     into K1, K2, K7 and framing.
 4.   K4 inflate_records and K5 validate_headers against their plain
      versions, bit for bit: blocks of a 1 MiB zlib-6 text stream, a Z_FIXED
      block, a block with one distance code and one with none, an invalid
@@ -64,8 +67,11 @@ process per source, all at once) and drives the port's paths:
      payload bits against the trained tree.
 9.   The checksum entry point ``adler32_pallas`` (K7 adler32_tiles) on a
      64 MiB buffer with a length mask, at a size that is not a multiple of
-     1024 and on an unaligned view: equal to zlib.adler32, K7 equal to its
-     plain version, K7 and plain times.
+     1024 and on an unaligned view, and K7 on a batch with lengths 0, 1,
+     1023, 1025 and N: equal to zlib.adler32, K7's tile sums equal to its
+     plain version's; K7 alone, the whole ``adler32_pallas``, the torch
+     tile-sum reduction (the yardstick) and the plain version, one call
+     and back to back.
 10.  The blocked layout at the headline geometry:
      ``fused_ultrafast_roundtrip_v2`` (K1 into lane windows, K3 on each
      window; K2 must not launch), every stream decoded with both checks,
@@ -80,7 +86,9 @@ process per source, all at once) and drives the port's paths:
      K9 and their plain versions beside K1 and K3 at the same C.
 12.  K10 combine_grouped (``combine(..., group=8)``) at the headline
      geometry: the encode through it gives 16 streams that zlib.decompress
-     takes back; K10 equals K2 and its plain version; K10 and K2 times.
+     takes back; one K10 launch per call and no torch op but allocations
+     before it; K10 equals K2 and its plain version; K10 and K2 times, one
+     call and back to back.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
@@ -88,7 +96,8 @@ run.  Every kernel's row carries its bound (``bound_ms``, ``bound_by``:
 bytes over 3.35 TB/s or int32 operations over 16.75 TOP/s, counted from
 this run's inputs, for the work the kernel's function needs) and
 ``library_ms`` (null: no single PyTorch call computes any of these
-functions).  Output: progress lines, then the
+functions; K7's row adds the yardstick, ``yardstick_ms``).  Output:
+progress lines, then the
 kernel JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is nonzero; without CUDA it exits 1 and prints no result.  It imports
@@ -213,6 +222,29 @@ def back_to_back_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+# Ops a wrapper may dispatch besides its launch: allocations and views.
+NO_COMPUTE = {"aten.empty.memory_format", "aten.select.int",
+              "aten.unsqueeze.default", "aten.view.default"}
+
+
+def torch_ops(fn):
+    """(fn's result, the names of the torch ops it dispatched)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as mode:
+        out = fn()
+    return out, mode.names
 
 
 def max_abs_err(torch, pairs) -> float:
@@ -745,13 +777,20 @@ def adaptive_phase(torch, P, dev, data, lengths, card):
     return errs
 
 
-def checksum_phase(torch, P, dev, card):
-    """Phase 9, the checksum entry point: adler32_pallas on a 64 MiB buffer
-    with a length mask, at a size that is not a multiple of 1024 and on an
-    unaligned view, with K7 counted and held to zlib.adler32; K7 against
-    its plain version; K7 and plain times.  Returns K7's row."""
-    from fdeflate_tpu_torch.ops.adler32_pallas import (adler32_tiles,
-                                                       adler32_tiles_plain)
+def checksum_phase(torch, P, dev, card, main_launches):
+    """Phase 9, the checksum entry point and K7's batch: adler32_pallas on
+    a 64 MiB buffer with a length mask, at a size that is not a multiple
+    of 1024 and on an unaligned view, and K7 on a batch with lengths 0, 1,
+    1023, 1025 and N, with K7 counted (one launch a call) and held to
+    zlib.adler32, its tile sums to the plain version's; then K7 alone,
+    the whole adler32_pallas, the torch tile-sum reduction (the
+    yardstick: one call, half of the function) and the plain version, one
+    call and back to back.  Returns K7's row, with its main-path launches
+    ``main_launches``."""
+    from fdeflate_tpu_torch.ops.adler32_pallas import (adler32_checksums,
+                                                       adler32_tiles,
+                                                       adler32_tiles_plain,
+                                                       fold_tiles)
 
     n = CHECKSUM_BYTES
     gen = torch.Generator(device=dev)
@@ -759,44 +798,77 @@ def checksum_phase(torch, P, dev, card):
     buf = torch.randint(0, 256, (n,), generator=gen, dtype=torch.uint8,
                         device=dev)
     host = buf.cpu().numpy()
-    cases = [("64 MiB, length 64 MiB - 12345", buf, n - 12345, host),
-             ("64 MiB - 777 B, whole", buf[: n - 777], None, host[: n - 777]),
-             ("unaligned view of 5000001 B", buf[3:5000004], None,
-              host[3:5000004])]
+    view, N = min(5000001, n - 3), 70001
+    rows = buf[5:5 + 6 * (N + 3)].reshape(6, N + 3)[:, :N]
+    row_lens = [0, 1, 1023, 1025, N, 4096]
+    cases = [("64 MiB, length 64 MiB - 12345", buf[None], [n - 12345],
+              host[None]),
+             ("64 MiB - 777 B, whole", buf[None, : n - 777], [n - 777],
+              host[None, : n - 777]),
+             (f"unaligned view of {view} B", buf[None, 3:3 + view], [view],
+              host[None, 3:3 + view]),
+             (f"6 unaligned rows of {N} B, lengths {row_lens}", rows,
+              row_lens, rows.cpu().numpy())]
     torch.cuda.synchronize()
     adler32_tiles.launches = 0
-    got = [P.adler32_pallas(x, ln) for _l, x, ln, _h in cases]
+    got = [P.adler32_pallas(x[0], ln[0]) for _l, x, ln, _h in cases[:3]]
+    lens = [torch.tensor(ln, dtype=torch.int64, device=dev)
+            for _l, _x, ln, _h in cases]
+    tiles = [(torch.empty(x.shape[0], -(-x.shape[1] // 1024),
+                          dtype=torch.int32, device=dev),
+              torch.empty(x.shape[0], -(-x.shape[1] // 1024),
+                          dtype=torch.int32, device=dev))
+             for _l, x, _ln, _h in cases]
+    batch = [adler32_checksums(x, lt, *sw)
+             for (_l, x, _ln, _h), lt, sw in zip(cases, lens, tiles)]
     torch.cuda.synchronize()
     launches = adler32_tiles.launches
-    if launches == 0:
-        raise AssertionError("adler32_tiles was not launched")
+    if launches != len(cases) + 3:
+        raise AssertionError(f"adler32_tiles launched {launches} times for "
+                             f"{len(cases) + 3} calls")
     err = 0.0
-    for (label, x, ln, h), g in zip(cases, got):
-        want = zlib.adler32(h[:ln].tobytes())
-        if int(g) != want:
-            raise AssertionError(f"adler32_pallas {label}: {int(g)} != {want}")
-        lt = torch.tensor([x.numel() if ln is None else ln],
-                          dtype=torch.int64, device=dev)
+    for k, (label, x, ln, h) in enumerate(cases):
+        want = [zlib.adler32(h[b, :ln[b]].tobytes()) for b in range(len(ln))]
+        if batch[k].tolist() != want or (k < 3 and int(got[k]) != want[0]):
+            raise AssertionError(f"K7 {label}: {batch[k].tolist()} != {want}")
+        plain = adler32_tiles_plain(x, lens[k])
         err = max(err, check_equal(torch, f"adler32_tiles {label}",
-                                   adler32_tiles(x, lt),
-                                   adler32_tiles_plain(x, lt)))
-    print(f"adler32_pallas == zlib.adler32 on {[c[0] for c in cases]}; "
-          f"adler32_tiles == plain; launches {launches}: ok", flush=True)
+                                   tiles[k], plain))
+        if not torch.equal(fold_tiles(*plain, lens[k]), batch[k]):
+            raise AssertionError(f"K7 {label}: != the plain fold")
+    print(f"adler32_pallas and K7's batch == zlib.adler32 on "
+          f"{[c[0] for c in cases]}; tile sums == plain; one launch a call: "
+          f"ok", flush=True)
     lt = torch.tensor([n - 12345], dtype=torch.int64, device=dev)
-    ms = cuda_ms(torch, lambda: adler32_tiles(buf, lt), KERNEL_REPS)
-    plain_ms = cuda_ms(torch, lambda: adler32_tiles_plain(buf, lt), PLAIN_REPS)
-    whole_ms = cuda_ms(torch, lambda: P.adler32_pallas(buf, lt), KERNEL_REPS)
+    fns = {
+        "K7 alone": lambda: adler32_checksums(buf[None], lt),
+        "adler32_pallas": lambda: P.adler32_pallas(buf, lt),
+        "yardstick": lambda: torch.sum(buf.view(-1, 1024), 1,
+                                       dtype=torch.int32),
+    }
+    one = {k: cuda_ms(torch, fn, KERNEL_REPS) for k, fn in fns.items()}
+    queued = {k: back_to_back_ms(torch, fn, KERNEL_REPS)
+              for k, fn in fns.items()}
+    def plain():
+        return fold_tiles(*adler32_tiles_plain(buf, lt), lt)
+
+    plain_ms = cuda_ms(torch, plain, PLAIN_REPS)
+    plain_queued = back_to_back_ms(torch, plain, PLAIN_REPS)
     host_s = min(timed(lambda: zlib.adler32(host)) for _ in range(3))
-    print(f"adler32_tiles (K7) at 64 MiB: kernel {ms:.4f} ms "
-          f"({n / ms / 1e6:.3f} GB/s), plain {plain_ms:.4f} ms; "
-          f"adler32_pallas (K7 + fold) {whole_ms:.4f} ms; host zlib.adler32 "
-          f"{host_s * 1e3:.4f} ms [{card}]", flush=True)
-    # per byte: plain sum, weighted sum, weight (3)
-    work = (n - 12345 + out_bytes(adler32_tiles(buf, lt)), 3 * (n - 12345))
-    return kernel_row("adler32_tiles",
-                      "fdeflate_tpu_torch/csrc/adler32_tiles.cu",
-                      "fdeflate_tpu/ops/adler32_pallas.py:32 (_tile_kernel)",
-                      launches, err, ms, plain_ms, work)
+    print("checksum at 64 MiB: " + "; ".join(
+        f"{k} {one[k]:.4f} ms one call ({queued[k]:.4f} back to back)"
+        for k in fns) + f"; plain {plain_ms:.4f} ms ({plain_queued:.4f}); "
+          f"K7 {n / queued['K7 alone'] / 1e6:.3f} GB/s back to back; host "
+          f"zlib.adler32 {host_s * 1e3:.4f} ms [{card}]", flush=True)
+    # per byte: plain sum, weighted sum, weight (3); the length in, the
+    # checksum out
+    work = (n - 12345 + 16, 3 * (n - 12345))
+    row = kernel_row("adler32_tiles",
+                     "fdeflate_tpu_torch/csrc/adler32_tiles.cu",
+                     "fdeflate_tpu/ops/adler32_pallas.py:32 (_tile_kernel)",
+                     main_launches, err, one["K7 alone"], plain_ms, work)
+    row["yardstick_ms"] = one["yardstick"]
+    return row
 
 
 def v2_phase(torch, P, dev, data, lengths, card):
@@ -996,13 +1068,14 @@ def ab_phase(torch, P, dev, data, lengths, card):
 def grouped_phase(torch, P, dev, data, lengths, streams_in, card):
     """Phase 12, K10 at the headline geometry: the encode with
     ``combine(..., group=8)`` (K10 counted) gives 16 streams that
-    zlib.decompress takes back; K10 equals K2 and its plain version on
-    K1's windows; times of the K10 launch alone (its slab lanes found
-    beforehand), of the whole ``combine(group=8)`` call, of its torch lane
-    search and of K2.  Returns K10's row, timed as the launch alone."""
+    zlib.decompress takes back; one K10 launch per ``combine(group=8)``
+    call, and no torch op but allocations and views in it (the slab
+    search is on the card); K10 equals K2 and its plain version on K1's
+    windows; K10's whole call and K2, one call and back to back.  Returns
+    K10's row."""
     from fdeflate_tpu_torch.ops.assign_pack import assign_pack
     from fdeflate_tpu_torch.ops.repack import (combine, combine_grouped,
-                                               combine_plain, slab_lanes)
+                                               combine_plain)
     from fdeflate_tpu_torch.ops.ultrafast import (_encode, lane_starts,
                                                   stream_words)
     from fdeflate_tpu_torch.trees import trained_tables
@@ -1020,8 +1093,8 @@ def grouped_phase(torch, P, dev, data, lengths, streams_in, card):
     streams = P.finalize_streams(words, total_bits, adler)
     torch.cuda.synchronize()
     launches = combine_grouped.launches
-    if launches == 0:
-        raise AssertionError("combine_grouped was not launched")
+    if launches != 1:
+        raise AssertionError(f"the encode launched K10 {launches} times")
     n_ok = sum(zlib.decompress(s) == streams_in[i] for i, s in enumerate(streams))
     if n_ok != B:
         raise AssertionError(f"K10 path: {n_ok}/{B} streams through zlib")
@@ -1029,39 +1102,37 @@ def grouped_phase(torch, P, dev, data, lengths, streams_in, card):
     pos0 = lane_starts(bits, B, CHUNKS, t.header_bits)[0].reshape(-1).to(
         torch.int32)
     W = stream_words(N, t)
-    got = combine(win, bits, pos0, B, W, group=GROUP)
+    before = combine_grouped.launches
+    got, ops = torch_ops(lambda: combine(win, bits, pos0, B, W, group=GROUP))
+    torch.cuda.synchronize()
+    if combine_grouped.launches != before + 1 or not set(ops) <= NO_COMPUTE:
+        raise AssertionError(f"combine(group={GROUP}): launches "
+                             f"{combine_grouped.launches - before}, ops {ops}")
     if not torch.equal(got, combine(win, bits, pos0, B, W)):
         raise AssertionError("K10 differs from K2")
     err = check_equal(torch, "combine_grouped", (got,),
                       (combine_plain(win, bits, pos0, B, W),))
-    lanes = slab_lanes(bits, pos0, B, W)
-    if not torch.equal(combine_grouped(win, bits, pos0, B, W, GROUP,
-                                       lanes=lanes), got):
-        raise AssertionError("K10 with its slab lanes given differs")
-    ms = cuda_ms(torch, lambda: combine_grouped(win, bits, pos0, B, W, GROUP,
-                                                lanes=lanes), KERNEL_REPS)
-    call_ms = cuda_ms(torch, lambda: combine(win, bits, pos0, B, W,
-                                             group=GROUP), KERNEL_REPS)
-    search_ms = cuda_ms(torch, lambda: slab_lanes(bits, pos0, B, W),
-                        KERNEL_REPS)
-    k2_ms = cuda_ms(torch, lambda: combine(win, bits, pos0, B, W), KERNEL_REPS)
+    fns = {"K10": lambda: combine(win, bits, pos0, B, W, group=GROUP),
+           "K2": lambda: combine(win, bits, pos0, B, W)}
+    one = {k: cuda_ms(torch, fn, KERNEL_REPS) for k, fn in fns.items()}
+    queued = {k: back_to_back_ms(torch, fn, KERNEL_REPS)
+              for k, fn in fns.items()}
     plain_ms = cuda_ms(torch, lambda: combine_plain(win, bits, pos0, B, W),
                        PLAIN_REPS)
     print(f"K10 combine_grouped (group={GROUP}): launches {launches}, "
-          f"{n_ok}/{B} streams through zlib.decompress, == K2 == plain; "
-          f"K10 launch alone {ms:.4f} ms; combine(group={GROUP}) whole "
-          f"{call_ms:.4f} ms, its torch lane search alone {search_ms:.4f} "
-          f"ms; K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
-          flush=True)
+          f"{n_ok}/{B} streams through zlib.decompress, one launch and ops "
+          f"{sorted(set(ops))} per call, == K2 == plain; combine(group="
+          f"{GROUP}) {one['K10']:.4f} ms one call ({queued['K10']:.4f} back "
+          f"to back); K2 {one['K2']:.4f} ms ({queued['K2']:.4f}); plain "
+          f"{plain_ms:.4f} ms [{card}]", flush=True)
     nw = used_words(torch, bits)
     L = B * CHUNKS
     # per payload word: shift, split, two ORs (4)
     return kernel_row("combine_grouped",
                       "fdeflate_tpu_torch/csrc/combine_grouped.cu",
                       "fdeflate_tpu/ops/repack.py:306 (_combine_kernel_grouped)",
-                      launches, err, ms, plain_ms,
-                      (4 * nw + 8 * L + 8 * lanes[0].numel()
-                       + 4 * words.numel(), 4 * nw))
+                      launches, err, one["K10"], plain_ms,
+                      (4 * nw + 8 * L + 4 * words.numel(), 4 * nw))
 
 
 def main() -> int:
@@ -1073,6 +1144,9 @@ def main() -> int:
         return 1
     import fdeflate_tpu_torch as P
     from fdeflate_tpu_torch import _build
+    from fdeflate_tpu_torch.ops.adler32 import (adler32_batch,
+                                                adler32_batch_plain)
+    from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
     from fdeflate_tpu_torch.ops.assign_pack import assign_pack, assign_pack_plain
     from fdeflate_tpu_torch.ops.decode2 import decode2, decode2_plain
     from fdeflate_tpu_torch.ops.repack import combine, combine_plain
@@ -1142,7 +1216,7 @@ def main() -> int:
     streams_in = [r.tobytes() for r in corpus]
     torch.cuda.synchronize()
     kernels = {"assign_pack": assign_pack, "combine": combine,
-               "decode2": decode2}
+               "decode2": decode2, "adler32_tiles": adler32_tiles}
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1158,6 +1232,8 @@ def main() -> int:
           f"incl. host copies; launches {launches}", flush=True)
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    if launches["adler32_tiles"] != 2:
+        raise AssertionError("K7 did not launch once per encode (2 encodes)")
     n_ok = sum(zlib.decompress(s) == streams_in[i] for i, s in enumerate(streams))
     print(f"zlib.decompress: {n_ok}/{len(streams)} streams equal the input",
           flush=True)
@@ -1170,6 +1246,19 @@ def main() -> int:
     ratio = sum(map(len, streams)) / (BATCH * LENGTH)
     print(f"decoded == input, bpos_ok all, ck_ok all; compressed/raw = {ratio:.4f}",
           flush=True)
+    # K7 under the encode's Adler-32, against the plain body.
+    rng = np.random.default_rng(12)
+    ragged_len = torch.tensor(
+        [0, 1, 1023, 1025, LENGTH]
+        + rng.integers(0, LENGTH + 1, BATCH - 5).tolist(),
+        dtype=torch.int32, device=dev)
+    for label, ln in (("headline corpus", lengths),
+                      ("ragged lengths", ragged_len)):
+        if not torch.equal(adler32_batch(data, ln),
+                           adler32_batch_plain(data, ln)):
+            raise AssertionError(f"adler32_batch (K7) != plain on the {label}")
+    print(f"adler32_batch (K7) == its plain body on the headline corpus and "
+          f"on ragged lengths {ragged_len[:5].tolist()}...: ok", flush=True)
 
     # ---- 3. times at the main path's shapes (card: see the line above) ----
     res = run_kernels(torch, t, data, lengths, CHUNKS)
@@ -1216,6 +1305,7 @@ def main() -> int:
     # temporaries would reshape the caching allocator the legs draw on.
     fns = [(k, kern) for k, (kern, _plain, _err) in res.items()]
     fns += [(f"{leg} leg", kern) for leg, (kern, _plain) in legs.items()]
+    fns.append(("adler32_batch", lambda: adler32_batch(data, lengths)))
     one_call = {k: cuda_ms(torch, fn, KERNEL_REPS) for k, fn in fns}
     queued = {k: back_to_back_ms(torch, fn, KERNEL_REPS) for k, fn in fns}
     for kname, (_kern, plain, err) in res.items():
@@ -1229,6 +1319,18 @@ def main() -> int:
               f"({queued[kname]:.4f} ms back to back), plain {plain_ms:.4f} "
               f"ms, bound {rows[-1]['bound_ms']:.6f} ms "
               f"({rows[-1]['bound_by']}) [{card}]", flush=True)
+    ad_plain = cuda_ms(torch, lambda: adler32_batch_plain(data, lengths),
+                       PLAIN_REPS)
+    print(f"adler32_batch (K7) at the main path: {one_call['adler32_batch']:.4f} "
+          f"ms one call ({queued['adler32_batch']:.4f} ms back to back), "
+          f"plain body {ad_plain:.4f} ms [{card}]", flush=True)
+    for how, t_ in (("one call", one_call), ("back to back", queued)):
+        parts = {k: t_[k] for k in ("assign_pack", "combine", "adler32_batch")}
+        rest = t_["encode leg"] - sum(parts.values())
+        print(f"encode leg split, {how}: leg {t_['encode leg']:.4f} ms = K1 "
+              f"{parts['assign_pack']:.4f} + K2 {parts['combine']:.4f} + K7 "
+              f"(Adler-32) {parts['adler32_batch']:.4f} + framing and the "
+              f"rest {rest:.4f} [{card}]", flush=True)
     mib = BATCH * LENGTH / 2**20
     for leg, (_kern, plain) in legs.items():
         ms = one_call[f"{leg} leg"]
@@ -1430,7 +1532,8 @@ def main() -> int:
         if row["name"] in adaptive_errs:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      adaptive_errs[row["name"]])
-    rows.append(checksum_phase(torch, P, dev, card))
+    rows.append(checksum_phase(torch, P, dev, card,
+                               launches["adler32_tiles"]))
 
     # ---- 10-12. the blocked layout: v2 roundtrip, A/B chain, K10 ---------
     v2_phase(torch, P, dev, data, lengths, card)

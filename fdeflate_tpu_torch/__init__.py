@@ -6,21 +6,22 @@ bit-identical outputs.  Four slices are ported:
 * the standard-zlib, fixed-geometry roundtrip of PNG IDAT streams (the
   benchmark's headline path):
 
-      encode  K1 assign_pack -> K2 combine -> framing -> Adler-32
+      encode  K1 assign_pack -> K2 combine -> framing -> K7 Adler-32
       decode  K3 decode2 -> exit-bit check -> decode-side Adler-32
 
 * decoding foreign zlib streams (any encoder, no chunk index):
 
       discovery  stage 1 (torch, every bit offset) -> K5 validate_headers
       decode     K4 inflate_records (one block per lane) -> chain walk
-                 -> materialize (torch) -> Adler-32
+                 -> materialize (torch) -> K7 Adler-32
       sequential K4 per block, host header parsing between launches
 
 * runtime trees (slice 3): the class-separated "septree" profile
   (``tree=sep_profile()`` on the codec's steps: K1/K2 with the profile's
   codes and header, decode by K6 decode_sep), the per-batch adaptive tree
   (tree built on the device, K1 and K3 with its runtime tables), and the
-  checksum entry point ``adler32_pallas`` (K7 adler32_tiles)
+  checksum entry point ``adler32_pallas`` (K7 adler32_tiles, which also
+  computes every per-stream Adler-32 of the encodes and the stitch)
 
 * the blocked layout (slice 4): ``fused_ultrafast_roundtrip_v2``
   (``encode_ultrafast_blocked``: K1 into lane windows; ``decode_blocked``:
@@ -35,7 +36,8 @@ modules it needs are its own copies (``errors``, ``tables``, ``huffman``,
 ``ops/septree``, ``ops/inflate_host``), held equal to the originals by
 tests/test_torch_hostcopies.py.
 
-Public API (the caller names the device):
+Public API (``device`` is "cuda" unless the caller asks for "cpu"; without
+CUDA a call that leaves it raises RuntimeError):
 
     compress_batch_ultra_fast(streams, with_index=C, device=...)
     zlib_encode_step(C, tree=None)(data, lengths)

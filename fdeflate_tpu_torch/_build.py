@@ -43,8 +43,9 @@ _SIGNATURES = {
     # words, chunk_starts, meta, vals, out, bpos, stats (or null), B, W, N,
     # C, device, stream
     "fdt_decode_sep": [_P] * 7 + [_I] * 5 + [_P],
-    # data, n, length, sums, wsums, tiles, stream
-    "fdt_adler32_tiles": [_P, _L, _P, _P, _P, _L, _P],
+    # data, row stride, B, n, lengths (or null), lengths are int64, length,
+    # acc, out, sums (or null), wsums (or null), device, stream
+    "fdt_adler32_tiles": [_P, _L, _L, _L, _P, _I, _L, _P, _P, _P, _P, _I, _P],
     # words, start, wend, bit_end, out0, meta, tab, recs, bpos, nout, done,
     # stats (or null), L, K, stream
     "fdt_inflate_records": [_P] * 12 + [_I, _I, _P],
@@ -56,8 +57,8 @@ _SIGNATURES = {
     "fdt_decode2_canon": [_P] * 6 + [_I] * 4 + [_P],
     # tok, win, L, S, wwin, device, stream
     "fdt_pack_v1": [_P, _P, _I, _I, _I, _I, _P],
-    # win, chunk_bits, pos0, lo, hi, words, B, wwin, W, K, stream
-    "fdt_combine_grouped": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # win, chunk_bits, pos0, words, B, C, wwin, W, stream
+    "fdt_combine_grouped": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 build_seconds: float | None = None  # wall time of this process's nvcc run

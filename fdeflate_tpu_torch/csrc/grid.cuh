@@ -1,7 +1,7 @@
 // The grid of the kernels whose blocks loop over lanes (decode2.cu,
-// decode_sep.cu, decode2_canon.cu, pack_v1.cu): as many blocks as are
-// resident on the device at once; and the shape the three decode kernels
-// share, K3's.
+// decode_sep.cu, decode2_canon.cu, pack_v1.cu) or take a share of the
+// tiles (adler32_tiles.cu): as many blocks as are resident on the device
+// at once; and the shape the three decode kernels share, K3's.
 #pragma once
 
 #include <atomic>

@@ -11,7 +11,9 @@
 // sep tree's table and its own EOB rule, and K8 (decode2_canon.cu) with a
 // table built from its canonical rows; K9 (pack_v1.cu) puts a group on a
 // lane's window (pack_v1_group).  The whole-lane functions further down
-// are the serial paths of K6 and K8.  Everything here is plain C++ (device
+// are the serial paths of K6 and K8.  At the end, K7 (adler32_tiles.cu)
+// puts a group on a 1024-byte tile (adler_tile_group) and K10
+// (combine_grouped.cu) on a 1024-word output slab (combine_slab_group).  Everything here is plain C++ (device
 // intrinsics only behind __CUDA_ARCH__, with a host equivalent), so the
 // same source also compiles for the host, where
 // tests/test_torch_lanes_host.py runs it.
@@ -1142,6 +1144,310 @@ FDT_GROUP void pack_v1_group(const G& g, const int32_t* tok, int S,
     for (int j = 4 * nv + i; j < wwin; j += m) d[j] = j < nb ? buf[j] : 0u;
   });
   g.sync();
+}
+
+// ---- K7, a group of threads per 1024-byte tile ----------------------------
+//
+// Semantics of ops/adler32_pallas.adler32_tiles_plain and its fold: tile t
+// of a row covers bytes [1024 t, 1024 t + 1024); bytes at or past the
+// row's limit (min(length, n)) count as zero.  S_t = sum d_i and W_t = sum
+// (1024 - i) d_i over the tile's positions i, both below 2^31.  The
+// checksum folds the tiles: A = 1 + sum S_t, B = length + sum ((length -
+// o_t - 1024) S_t + W_t), both mod 65521, the coefficient taken as its
+// non-negative residue (it is negative for the tile that holds the
+// length and every tile past it).
+
+constexpr int kAdlerTile = 1024;
+constexpr int64_t kAdlerMod = 65521;
+constexpr int kAdlerAhead = 5;   // chunks a thread loads before summing them
+
+// acc + the four byte products of x and w (__dp4a on the card).
+FDT_HD uint32_t dot4(uint32_t x, uint32_t w, uint32_t acc) {
+#ifdef __CUDA_ARCH__
+  return __dp4a(x, w, acc);
+#else
+  for (int k = 0; k < 4; ++k)
+    acc += ((x >> (8 * k)) & 0xFFu) * ((w >> (8 * k)) & 0xFFu);
+  return acc;
+#endif
+}
+
+// The four words of the 16-aligned chunk at p.
+FDT_HD void load16(const uint8_t* p, uint32_t x[4]) {
+#ifdef __CUDA_ARCH__
+  const uint4 v = __ldcs(reinterpret_cast<const uint4*>(p));
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+#else
+  memcpy(x, p, 16);
+#endif
+}
+
+// x's bytes outside [jlo, jhi) cleared.
+FDT_HD void keep_bytes(uint32_t x[4], int jlo, int jhi) {
+  for (int k = 0; k < 4; ++k) {
+    uint32_t keep = 0;
+    for (int j = 0; j < 4; ++j)
+      if (4 * k + j >= jlo && 4 * k + j < jhi) keep |= 0xFFu << (8 * j);
+    x[k] &= keep;
+  }
+}
+
+// x mod 65521 in [0, 65521), for x of either sign (C++ % truncates).
+FDT_HD int64_t mod_adler(int64_t x) {
+  const int64_t r = x % kAdlerMod;
+  return r < 0 ? r + kAdlerMod : r;
+}
+
+struct TileSums {
+  int32_t s, w;
+};
+
+// Tile sums of row bytes [o, o + 1024) below `limit`.  The row need not be
+// 16-byte aligned: the group reads the 16-aligned chunks that hold the
+// tile's bytes (65 of them when the row is not aligned), each once, and
+// clears the bytes of a chunk outside the tile or at or past the limit.
+// A chunk is read only if it holds a byte of the row below the limit.
+// Each thread loads up to kAdlerAhead of its chunks before it sums any
+// (with 16 threads to a tile, all of them: one memory round trip a tile),
+// then sums them with byte dot products: the plain sum, and sum p d with
+// p = 16 q - mis + j the tile position of byte j of chunk q;
+// W = 1024 S - sum p d.
+template <class G>
+FDT_GROUP TileSums adler_tile_group(const G& g, const uint8_t* row, int64_t o,
+                                    int64_t limit) {
+  const int m = g.m;
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+  const uint8_t* base = row + o - mis;  // 16-aligned: o is a multiple of 1024
+  const int64_t end = limit - o + mis;  // valid bytes of base: [mis, vhi)
+  const int vhi = static_cast<int>(end < kAdlerTile + mis ? end
+                                                          : kAdlerTile + mis);
+  const int nq = vhi > mis ? (vhi + 15) >> 4 : 0;
+  typename G::template Var<int> s, r;
+  g.each([&](int i) {
+    int si = 0, ri = 0;
+    for (int q0 = i; q0 < nq; q0 += kAdlerAhead * m) {
+      uint32_t x[kAdlerAhead][4];
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+      for (int u = 0; u < kAdlerAhead; ++u)
+        if (q0 + u * m < nq) load16(base + 16 * (q0 + u * m), x[u]);
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+      for (int u = 0; u < kAdlerAhead; ++u) {
+        const int q = q0 + u * m;
+        if (q >= nq) continue;
+        const int jlo = mis - 16 * q, jhi = vhi - 16 * q;
+        if (jlo > 0 || jhi < 16) keep_bytes(x[u], jlo, jhi);
+        uint32_t cs = 0, cj = 0;
+        for (int k = 0; k < 4; ++k) {
+          cs = dot4(x[u][k], 0x01010101u, cs);
+          cj = dot4(x[u][k], 0x03020100u + 0x04040404u * k, cj);  // j = 4k..
+        }
+        si += static_cast<int>(cs);
+        ri += (16 * q - mis) * static_cast<int>(cs) + static_cast<int>(cj);
+      }
+    }
+    s[i] = si;
+    r[i] = ri;
+  });
+  const int S = g.sum(s);
+  return {S, kAdlerTile * S - g.sum(r)};
+}
+
+// Tile t's term of B (at offset o, of a row of `length` bytes), in
+// [0, 2 * 65521): the product reduced, then W_t reduced, as the JAX fold
+// takes them.
+FDT_HD uint64_t adler_term(int64_t length, int64_t o, TileSums t) {
+  const uint64_t coef =
+      static_cast<uint64_t>(mod_adler(length - o - kAdlerTile));
+  return coef * static_cast<uint32_t>(t.s) % kAdlerMod +
+         static_cast<uint32_t>(t.w) % kAdlerMod;
+}
+
+// The checksum from the row's sum of S_t (a) and of its terms (b).
+FDT_HD int64_t adler_finish(int64_t length, uint64_t a, uint64_t b) {
+  const uint64_t A = (1 + a) % kAdlerMod;
+  const uint64_t B = (static_cast<uint64_t>(mod_adler(length)) + b) % kAdlerMod;
+  return static_cast<int64_t>((B << 16) | A);
+}
+
+// ---- K10, a group of threads per 1024-word output slab --------------------
+//
+// K2's output (ops/repack.combine_plain), slab by slab: slab s of stream b
+// is words [1024 s, 1024 s + 1024) of words[b, 0:W].  K2's precondition
+// holds (lanes in order along the stream, each lane's payload ending at
+// or before the next lane's start, window bits past chunk_bits zero), so
+// along a stream both pos0 and pos0 + max(chunk_bits, 1) rise, and the
+// lanes that can touch the slab are one range [lo, hi), found by two
+// searches over the stream's C lanes: lo is the first lane whose last
+// payload word (a 0-bit lane: its start word) is at or past the slab's
+// start, hi the first lane starting at or past its end.  These are the
+// ranges of ops/repack.slab_lanes.  The group stages the window words that
+// reach the slab (16-byte copies where the windows are 16-byte aligned)
+// for up to m lanes at a time, and each thread forms its own output words
+// from the staged lanes that reach them; a slab with no lane is stored as
+// zeros.
+
+FDT_HD int popc32(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+constexpr int kSlabWords = 1024;
+constexpr int kSlabMeta = 8;        // ints of a staged lane's entry
+constexpr int kSlabStage = 1152;    // staged words: one lane's reach + 128
+constexpr int kSlabBuf = 32 * kSlabMeta + kSlabStage;  // a group's buffer
+
+// The first i in [lo, hi) with pred(i), hi if none; pred is false, then
+// true, along [lo, hi).  Each round, the m threads test m points that
+// split the range into m + 1 parts (m = 1: a binary search).
+template <class G, class P>
+FDT_GROUP int64_t first_true(const G& g, int64_t lo, int64_t hi, P pred) {
+  const int m = g.m;
+  typename G::template Var<bool> p;
+  while (lo < hi) {
+    const int64_t n = hi - lo, a = lo;
+    g.each([&](int i) { p[i] = pred(a + (i + 1) * n / (m + 1)); });
+    const uint32_t hit = g.ballot(p);
+    if (hit) {
+      const int j = ctz64(hit);
+      hi = a + (j + 1) * n / (m + 1);
+      if (j) lo = a + j * n / (m + 1) + 1;
+    } else {
+      lo = a + m * n / (m + 1) + 1;
+    }
+  }
+  return lo;
+}
+
+// The lanes [*lo, *hi) of stream b that can touch the slab at word s0.
+template <class G>
+FDT_GROUP void slab_range(const G& g, const int32_t* chunk_bits,
+                          const int32_t* pos0, int64_t b, int C, int64_t s0,
+                          int64_t* lo, int64_t* hi) {
+  const int64_t first = b * C, end = first + C;
+  // Past the last lane's key (the largest) no lane reaches: most slabs of
+  // a stream that compresses well, settled by one load.
+  const int32_t cl = C ? chunk_bits[end - 1] : 0;
+  if (C == 0 || static_cast<int64_t>(pos0[end - 1]) + (cl > 0 ? cl : 1) <=
+                    32 * s0) {
+    *lo = *hi = end;
+    return;
+  }
+  *lo = first_true(g, first, end, [&](int64_t i) {
+    const int32_t c = chunk_bits[i];
+    return static_cast<int64_t>(pos0[i]) + (c > 0 ? c : 1) > 32 * s0;
+  });
+  *hi = first_true(g, *lo, end, [&](int64_t i) {
+    return static_cast<int64_t>(pos0[i]) >= 32 * (s0 + kSlabWords);
+  });
+}
+
+// Slab `slab` of stream b: words [s0, s1) of words[b, 0:W], written once
+// each (the first staging round stores, later rounds OR into the group's
+// own words).  `buf`: kSlabBuf words, 16-byte aligned, the group's own.
+template <class G>
+FDT_GROUP void combine_slab_group(const G& g, const uint32_t* win,
+                                  const int32_t* chunk_bits,
+                                  const int32_t* pos0, uint32_t* words, int C,
+                                  int wwin, int W, int64_t L, int64_t b,
+                                  int64_t slab, uint32_t* buf) {
+  const int m = g.m;
+  const int64_t s0 = slab * kSlabWords;
+  const int64_t s1 = s0 + kSlabWords < W ? s0 + kSlabWords : W;
+  const int64_t rowf = b * W;
+  int64_t lo, hi;
+  slab_range(g, chunk_bits, pos0, b, C, s0, &lo, &hi);
+  int32_t* meta = reinterpret_cast<int32_t*>(buf);
+  uint32_t* stage = buf + 32 * kSlabMeta;
+  const bool al16 = (reinterpret_cast<uintptr_t>(win) & 15) == 0;
+  const int64_t total = L * wwin;
+  typename G::template Var<int> sz;
+  typename G::template Var<bool> fits;
+  for (int64_t i0 = lo, round = 0; round == 0 || i0 < hi; ++round) {
+    // Each thread takes lane i0 + i: the window words [ja, jb) that reach
+    // the slab, staged from the 16-aligned word a0 on.
+    g.each([&](int i) {
+      const int64_t lane = i0 + i;
+      int32_t* e = meta + i * kSlabMeta;
+      sz[i] = 0;
+      if (lane >= hi) return;
+      const int32_t p = pos0[lane];
+      const int64_t f = p >> 5;
+      const int64_t nw = (chunk_bits[lane] + 31) >> 5;
+      const int64_t ja = s0 - f - 1 > 0 ? s0 - f - 1 : 0;
+      const int64_t jb = s1 - f < nw ? s1 - f : nw;
+      const int64_t a = lane * wwin;
+      const int64_t a0 = (a + (ja < jb ? ja : 0)) & ~int64_t{3};
+      e[0] = static_cast<int32_t>(f - s0);  // may be negative
+      e[1] = p & 31;
+      e[2] = static_cast<int32_t>(ja);
+      e[3] = static_cast<int32_t>(jb > ja ? jb : ja);
+      e[5] = static_cast<int32_t>(a - a0);  // staged index of word 0, less off
+      sz[i] = jb > ja ? static_cast<int>(((a + jb + 3) & ~int64_t{3}) - a0) : 0;
+    });
+    typename G::template Var<int> off = sz;
+    g.excl_scan(off, 0, [](int x, int y) { return x + y; });
+    g.each([&](int i) {
+      fits[i] = i0 + i < hi && off[i] + sz[i] <= kSlabStage;
+      meta[i * kSlabMeta + 4] = off[i];
+      meta[i * kSlabMeta + 6] = sz[i];
+    });
+    const int nk = popc32(g.ballot(fits));
+    g.sync();
+    // Stage: the group's threads copy each lane's chunks in turn.
+    for (int k = 0; k < nk; ++k) {
+      const int32_t* e = meta + k * kSlabMeta;
+      const int64_t a0 = (i0 + k) * wwin - e[5];
+      uint32_t* dst = stage + e[4];
+      const int n4 = e[6] >> 2;
+      g.each([&](int i) {
+        for (int c = i; c < n4; c += m) {
+          const int64_t w = a0 + 4 * c;
+          if (al16 && w + 4 <= total) {
+            g.copy(dst + 4 * c, win + w, 16);
+          } else {
+            for (int q = 0; q < 4; ++q)
+              if (w + q < total) g.copy(dst + 4 * c + q, win + w + q, 4);
+          }
+        }
+      });
+    }
+    g.wait();
+    // Each thread's quads of output words: the staged lanes that reach them.
+    const int64_t fa = (rowf + s0) & ~int64_t{3};
+    g.each([&](int i) {
+      for (int64_t f = fa + 4 * i; f < rowf + s1; f += 4 * m) {
+        const int64_t w = f - rowf;  // first word of the quad in the stream
+        alignas(16) uint32_t v[4] = {0u, 0u, 0u, 0u};
+        if (round) {
+          for (int q = 0; q < 4; ++q)
+            if (w + q >= s0 && w + q < s1) v[q] = words[f + q];
+        }
+        for (int k = 0; k < nk; ++k) {
+          const int32_t* e = meta + k * kSlabMeta;
+          const int64_t lf = s0 + e[0];        // the lane's first word
+          const int ja = e[2], jb = e[3];
+          if (w + 3 < lf + ja || w > lf + jb) continue;
+          const uint32_t* row = stage + e[4] + e[5];
+          uint32_t x[5];
+          for (int q = 0; q < 5; ++q) {
+            const int64_t j = w - lf - 1 + q;
+            x[q] = j >= ja && j < jb ? row[j] : 0u;
+          }
+          for (int q = 0; q < 4; ++q) v[q] |= funnel_l(x[q], x[q + 1], e[1]);
+        }
+        combine_store(g, words, f, rowf, s0, s1, v);
+      }
+    });
+    g.sync();
+    i0 += nk;
+  }
 }
 
 }  // namespace fdt

@@ -1,6 +1,6 @@
 // The warp operations of the group lane code (lanes.cuh assign_pack_group,
-// combine_group and decode2_group, K3's and K6's; inflate_lanes.cuh
-// inflate_group), two ways.
+// combine_group and decode2_group, K3's and K6's, adler_tile_group and
+// combine_slab_group; inflate_lanes.cuh inflate_group), two ways.
 //
 // The lane code is written once, for a group of m threads that works one
 // lane: `each(f)` runs a thread's part f(i), `Var<T>` holds one value per
@@ -124,6 +124,7 @@ struct WarpGroup {
   }
   __device__ bool any(const Var<bool>& p) const { return __any_sync(mask, p.v); }
   __device__ int max(const Var<int>& v) const { return __reduce_max_sync(mask, v.v); }
+  __device__ int sum(const Var<int>& v) const { return __reduce_add_sync(mask, v.v); }
 
   // Hooks of K3's, K4's and K6's span loops: the hint as computed; with
   // `stats` set (K4's and K6's optional counters), HostGroup's record
@@ -198,6 +199,11 @@ struct HostGroup {
   int max(const Var<int>& v) const {
     int r = v[0];
     for (int i = 1; i < m; ++i) r = v[i] > r ? v[i] : r;
+    return r;
+  }
+  int sum(const Var<int>& v) const {
+    int r = 0;
+    for (int i = 0; i < m; ++i) r += v[i];
     return r;
   }
 

@@ -1,9 +1,12 @@
-"""Adler-32 for byte batches, in plain PyTorch.
+"""Adler-32 for byte batches.
 
 JAX counterparts:
   * ``adler32_batch`` <- ``fdeflate_tpu/ops/adler32.py`` ``adler32_jax``
     (vmapped by ``ops/ultrafast_kernel.py`` ``adler32_batch``): the masked
-    checksum of each stream's first ``lengths[b]`` bytes;
+    checksum of each stream's first ``lengths[b]`` bytes.  On CUDA tensors
+    it is one launch of K7 (``ops/adler32_pallas.adler32_checksums``),
+    which folds its tile sums itself; CPU tensors take
+    ``adler32_batch_plain``;
   * ``adler_lanes`` <- ``fdeflate_tpu/ops/pallas_decode2.py``
     ``adler_step_major``: the decode side's checksum from per-lane sums
     over ALL S bytes of every lane, folded in order.  Bytes past a stream's
@@ -11,7 +14,7 @@ JAX counterparts:
     65521), exactly as the JAX fold counts them, so corrupted decodes that
     write past the length give the same verdict in both.
 
-Both use int64, where the JAX versions keep to int32 tile sums (a TPU
+The plain versions use int64, where the JAX versions keep to int32 tile sums (a TPU
 dtype limit, ``255 * S**2 < 2**31``); the results are identical.  Values
 are returned as int64 tensors holding the u32 checksum.
 """
@@ -20,11 +23,21 @@ from __future__ import annotations
 
 import torch
 
-MOD = 65521
+from .adler32_pallas import MOD, adler32_checksums
 
 
 def adler32_batch(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """u8[B, N], i32[B] -> int64[B] Adler-32 of each stream's bytes."""
+    """u8[B, N], i32[B] -> int64[B] Adler-32 of each stream's first
+    ``lengths[b]`` bytes: K7 on CUDA tensors, the plain version on CPU
+    tensors."""
+    if data.device.type == "cpu":
+        return adler32_batch_plain(data, lengths)
+    return adler32_checksums(data, lengths)
+
+
+def adler32_batch_plain(data: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ``adler32_batch``: int64 sums over a masked copy."""
     B, N = data.shape
     length = lengths.to(torch.int64)[:, None]
     g = torch.arange(N, device=data.device, dtype=torch.int64)[None, :]

@@ -6,9 +6,10 @@ JAX counterparts: the TPU kernels ``fdeflate_tpu/ops/repack.py``
 ``ops/ultrafast_kernel.py`` ``_pack_linear_words``), which place every lane
 window at its stream bit offset.  The CUDA kernels are ``csrc/combine.cu``
 (a warp per lane, each word stored once by the lane its first bit lies
-in) and ``csrc/combine_grouped.cu`` (one block
-per 1024-word output slab, its lanes staged ``group`` at a time);
-``combine_plain`` is the plain version of both.
+in) and ``csrc/combine_grouped.cu`` (a warp per 1024-word output slab,
+which finds the slab's lanes itself and stages their words);
+``combine_plain`` is the plain version of both, and ``slab_lanes`` the
+plain version of K10's lane search.
 
 ``pos0[lane]`` is the absolute bit at which lane ``b * C + k`` starts in
 stream ``b``: the header bits plus the exclusive prefix sum of the stream's
@@ -22,7 +23,7 @@ import torch
 
 from .. import _build
 
-SLAB = 1024          # words per output slab (K10's block)
+SLAB = 1024          # words per output slab (K10's warp)
 _MAX_GROUP = 32
 
 
@@ -55,7 +56,9 @@ def slab_lanes(chunk_bits: torch.Tensor, pos0: torch.Tensor, B: int,
     1024-word output slab s (``nslabs = ceil(W / 1024)`` per stream), found
     by searches over the lanes' first and last payload words (JAX's
     ``searchsorted`` over origin slabs, ``repack.py:408-411``).  Lanes must
-    start in order along each stream, as ``lane_starts`` gives them."""
+    start in order along each stream, as ``lane_starts`` gives them.  K10
+    finds each slab's range on the card (``lanes.cuh`` ``slab_range``);
+    this is its plain version."""
     L = pos0.shape[0]
     C = L // B
     dev = pos0.device
@@ -77,11 +80,13 @@ def combine(win: torch.Tensor, chunk_bits: torch.Tensor, pos0: torch.Tensor,
     int32[B, W] stream words, payload placed.
 
     ``win`` int32[L, wwin], ``chunk_bits`` / ``pos0`` int32[L], L = B * C.
-    ``group`` is the counterpart of ``linear_from_rows(group=)``: the lanes
-    K10 stages at a time (1..32, and 2 * group * min(wwin, 1025) words of
-    shared memory at most 227 KiB).  Lanes start in order along each stream
-    and window bits past ``chunk_bits`` are zero, as ``lane_starts`` and K1
-    give them.  CPU tensors take ``combine_plain``; CUDA tensors launch
+    ``group`` is the counterpart of ``linear_from_rows(group=)``, validated
+    as the TPU kernel's staging bounds it (1..32 lanes, two buffers of
+    ``group * min(wwin, 1025)`` words within a block's 227 KiB); K10 stages
+    the words that reach each slab, whatever ``group`` is.  Lanes start in
+    order along each stream, each lane's payload ends at or before the next
+    lane's start, and window bits past ``chunk_bits`` are zero, as
+    ``lane_starts`` and K1 give them.  CPU tensors take ``combine_plain``; CUDA tensors launch
     ``csrc/combine.cu`` or ``csrc/combine_grouped.cu``, each of which writes
     every word once (no zero fill).
     """
@@ -95,10 +100,10 @@ def combine(win: torch.Tensor, chunk_bits: torch.Tensor, pos0: torch.Tensor,
         return combine_plain(win, chunk_bits, pos0, B, W)
     _build.require_cuda(win, chunk_bits, pos0)
     win = win.contiguous()
-    chunk_bits = chunk_bits.to(torch.int32).contiguous()
-    pos0 = pos0.to(torch.int32).contiguous()
+    chunk_bits = _build.i32(chunk_bits)
+    pos0 = _build.i32(pos0)
     if group > 1:
-        return combine_grouped(win, chunk_bits, pos0, B, W, group)
+        return combine_grouped(win, chunk_bits, pos0, B, W)
     if L == 0:
         return torch.zeros(B, W, dtype=torch.int32, device=win.device)
     words = torch.empty(B, W, dtype=torch.int32, device=win.device)
@@ -112,19 +117,16 @@ def combine(win: torch.Tensor, chunk_bits: torch.Tensor, pos0: torch.Tensor,
 combine.launches = 0
 
 
-def combine_grouped(win, chunk_bits, pos0, B: int, W: int, group: int,
-                    lanes=None):
-    """K10 (``combine`` with ``group > 1`` on CUDA tensors): one block per
-    output slab, lanes staged ``group`` at a time.  ``lanes``: the slabs'
-    ``slab_lanes``, found here when not given (given, the call is the
-    launch alone)."""
-    lo, hi = slab_lanes(chunk_bits, pos0, B, W) if lanes is None else lanes
+def combine_grouped(win, chunk_bits, pos0, B: int, W: int):
+    """K10 (``combine`` with ``group > 1`` on CUDA tensors, its checks
+    done): one launch, a warp per 1024-word output slab, each finding the
+    lanes that reach its slab on the card."""
     words = torch.empty(B, W, dtype=torch.int32, device=win.device)
     if words.numel() == 0:
         return words
     _build.launch("combine_grouped", win.device, win.data_ptr(),
-                  chunk_bits.data_ptr(), pos0.data_ptr(), lo.data_ptr(),
-                  hi.data_ptr(), words.data_ptr(), B, win.shape[1], W, group)
+                  chunk_bits.data_ptr(), pos0.data_ptr(), words.data_ptr(), B,
+                  win.shape[0] // B, win.shape[1], W)
     combine_grouped.launches += 1
     return words
 

@@ -9,7 +9,7 @@ return_eof=True, tree=)`` with ``_frame_words``, ``finalize_streams`` and
     pos0 = header bits + exclusive cumsum of chunk bits         (torch)
     K2 combine      (ops/repack.py)       windows -> linear words
     framing: the tree's header words and EOF token              (torch)
-    Adler-32                              (ops/adler32.py)
+    K7 Adler-32     (ops/adler32.py)      per-stream checksums
 
 Every stream is cut into C lanes of S = N / C bytes and zero runs are cut
 at every lane boundary, so lane k decodes exactly S bytes from bit
@@ -168,7 +168,7 @@ def finalize_streams(words, total_bits, adler) -> list[bytes]:
 
 
 def compress_batch_ultra_fast(streams: list[bytes], with_index: int = 0, *,
-                              device):
+                              device="cuda"):
     """Host-facing batch API: ultra-fast-compress many streams on ``device``.
 
     The streams equal the JAX package's byte for byte: each is encoded in

@@ -106,7 +106,7 @@ def zlib_decode_step(C: int, N: int, wwin: int | None = None, U: int = 32,
 
 
 def fused_zlib_roundtrip(C: int, N: int, wwin: int | None = None, U: int = 32,
-                         R: int | None = None, tree=None, *, device):
+                         R: int | None = None, tree=None, *, device="cuda"):
     """Encode -> decode -> verify on ``device``, through a standard zlib
     artifact.  fn(data u8[B, N], lengths i32[B]) -> (out, bpos_ok, ck_ok);
     numpy or tensor inputs are moved to ``device``."""
@@ -150,7 +150,7 @@ def _blocked_roundtrip(C: int, N: int, encode, device, name: str):
 
 
 def fused_ultrafast_roundtrip_v2(C: int, N: int, U: int = 32,
-                                 R: int | None = None, *, device):
+                                 R: int | None = None, *, device="cuda"):
     """Blocked-layout roundtrip on ``device``: ``encode_ultrafast_blocked``
     (K1 into lane windows), ``decode_blocked`` (K3 on each window from bit
     0), then both checks, exit bits against ``chunk_bits``.
@@ -167,7 +167,7 @@ def fused_ultrafast_roundtrip_v2(C: int, N: int, U: int = 32,
     return lambda data, lengths: step(data, lengths)[:3]
 
 
-def fused_adaptive_roundtrip(C: int, N: int, U: int = 8, *, device):
+def fused_adaptive_roundtrip(C: int, N: int, U: int = 8, *, device="cuda"):
     """Adaptive-tree roundtrip on ``device``: the batch's own tree built on
     the device, K1 into lane windows with its tokens, K3 on each window
     with its decode table, both checks.

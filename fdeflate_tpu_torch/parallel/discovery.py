@@ -312,7 +312,7 @@ def _stitch(recs, mask, ranges, produced):
     return out, adler32_batch(out, prod), bad
 
 
-def try_foreign(data: bytes, max_steps: int = 6144, *, device,
+def try_foreign(data: bytes, max_steps: int = 6144, *, device="cuda",
                 words_dev=None, return_device: bool = False,
                 materialize: str | None = None):
     """``decompress_foreign`` without the fallback: the bytes of a confirmed,
@@ -363,7 +363,7 @@ def _cap_bucket(produced: int) -> int:
 
 
 def try_foreign_batch(streams: list[bytes], max_steps: int = 6144, *,
-                      device):
+                      device="cuda"):
     """Block-parallel decode of many foreign streams in one K5 and one K4
     launch.
 
@@ -432,7 +432,8 @@ def try_foreign_batch(streams: list[bytes], max_steps: int = 6144, *,
     return results
 
 
-def decompress_foreign(data: bytes, max_steps: int = 6144, *, device) -> bytes:
+def decompress_foreign(data: bytes, max_steps: int = 6144, *,
+                       device="cuda") -> bytes:
     """Block-parallel decode of a foreign zlib stream, falling back to the
     sequential path for the whole stream when the chain cannot cover it;
     raises the stream's decode error."""
@@ -448,7 +449,7 @@ def decompress_foreign(data: bytes, max_steps: int = 6144, *, device) -> bytes:
 
 
 def decompress_batch(streams: list[bytes], max_steps: int = 8192, *,
-                     device):
+                     device="cuda"):
     """Decode many zlib streams; per stream the bytes or the error.
 
     Routing of JAX ``ops/inflate.decompress_batch``: streams of 49152 bytes

@@ -18,9 +18,12 @@ import pytest
 import torch
 
 import fdeflate_tpu_torch as P
+from fdeflate_tpu_torch.ops.adler32 import adler32_batch, adler32_batch_plain
 from fdeflate_tpu_torch.ops.adler32_pallas import (
+    adler32_checksums,
     adler32_tiles,
     adler32_tiles_plain,
+    fold_tiles,
 )
 from fdeflate_tpu_torch.ops.assign_pack import (
     assign_pack,
@@ -50,7 +53,7 @@ from fdeflate_tpu_torch.ops.pack import (
     token_offsets,
 )
 from fdeflate_tpu_torch.ops.repack import (combine, combine_grouped,
-                                           combine_plain, slab_lanes)
+                                           combine_plain)
 from fdeflate_tpu_torch.ops.validate_headers import (
     validate_headers,
     validate_headers_plain,
@@ -67,6 +70,28 @@ from fdeflate_tpu_torch.tools.edges import (K4_KINDS, K8_UNSAFE,
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 pytestmark = pytest.mark.cuda
+
+# Ops a wrapper may dispatch besides its launch: allocations and views.
+_NO_COMPUTE = {"aten.empty.memory_format", "aten.select.int",
+               "aten.unsqueeze.default", "aten.view.default"}
+
+
+def torch_ops(fn):
+    """(fn's result, the names of the torch ops it dispatched)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as mode:
+        out = fn()
+    return out, mode.names
 
 
 @pytest.fixture(scope="module")
@@ -316,9 +341,24 @@ def test_combine_grouped_matches_plain(dev, name, group):
     assert combine_grouped.launches == before + 1
     assert torch.equal(got, combine_plain(win, bits, pos0, B, W))
     assert torch.equal(got, combine(win, bits, pos0, B, W))
-    lanes = slab_lanes(bits, pos0, B, W)
-    assert torch.equal(combine_grouped(win, bits, pos0, B, W, group,
-                                       lanes=lanes), got)
+    got, ops = torch_ops(lambda: combine(win, bits, pos0, B, W, group=group))
+    assert set(ops) <= _NO_COMPUTE, ops      # no torch search before K10
+    assert torch.equal(got, combine_plain(win, bits, pos0, B, W))
+
+
+@pytest.mark.parametrize("case", range(len(k2_edge_cases())))
+@pytest.mark.parametrize("group", [2, 8, 32])
+def test_combine_grouped_edges(dev, case, group):
+    """K10 on K2's edge inputs (lanes of 0 bits, lanes shorter than a
+    word, word-aligned starts, the last word's high half at W, trailing
+    words, a mix): one launch, equal to K2 and the plain version."""
+    label, win, bits, pos0, B, W = k2_edge_cases()[case]
+    win, bits, pos0 = (x.to(dev) for x in (win, bits, pos0))
+    before = combine_grouped.launches
+    got = combine(win, bits, pos0, B, W, group=group)
+    assert combine_grouped.launches == before + 1
+    assert torch.equal(got, combine_plain(win, bits, pos0, B, W)), label
+    assert torch.equal(got, combine(win, bits, pos0, B, W)), label
 
 
 def test_v2_roundtrip_on_the_card(dev):
@@ -442,6 +482,62 @@ def test_adler32_tiles_matches_plain(dev, n, length, offset):
     assert int(P.adler32_pallas(x, length)) == want_ck
 
 
+def _k7_rows(dev, B, n, stride, off, seed):
+    """u8[B, n] rows at ``stride`` bytes from ``off`` in a noisy buffer."""
+    host = np.random.default_rng(seed).integers(
+        0, 256, B * stride + off + 64, np.uint8)
+    buf = torch.from_numpy(host).to(dev)
+    return buf[off:off + B * stride].reshape(B, stride)[:, :n]
+
+
+K7_BATCHES = {
+    "ragged 0, 1, 1023, 1025, n, unaligned rows": (
+        6, 5000, 5007, 3, [0, 1, 1023, 1025, 5000, 77]),
+    "16 x 1 MiB": (16, 1 << 20, 1 << 20, 0, [1 << 20] * 15 + [12345]),
+    "64 MiB, one unaligned row": (1, 64 << 20, 64 << 20, 5, [(64 << 20) - 9]),
+    "many short rows": (300, 40, 41, 1, list(range(0, 41)) * 7 + [40] * 13),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_BATCHES))
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_adler32_checksums_matches_plain(dev, case, dtype):
+    """K7 on a batch: one launch, tile sums equal to the plain version's,
+    checksums to the plain fold, the plain batch and zlib.adler32."""
+    B, n, stride, off, lens = K7_BATCHES[case]
+    rows = _k7_rows(dev, B, n, stride, off, n + B)
+    lengths = torch.tensor(lens, dtype=dtype, device=dev)
+    T = -(-n // 1024)
+    sums = torch.empty(B, T, dtype=torch.int32, device=dev)
+    wsums = torch.empty(B, T, dtype=torch.int32, device=dev)
+    before = adler32_tiles.launches
+    got = adler32_checksums(rows, lengths, sums, wsums)
+    assert adler32_tiles.launches == before + 1
+    want_s, want_w = adler32_tiles_plain(rows, lengths)
+    assert torch.equal(sums, want_s) and torch.equal(wsums, want_w)
+    assert torch.equal(got, fold_tiles(want_s, want_w, lengths))
+    assert torch.equal(got, adler32_batch_plain(rows, lengths))
+    assert torch.equal(adler32_checksums(rows, lengths), got)
+    host = rows.cpu().numpy()
+    for b, ln in enumerate(lens):
+        assert int(got[b]) == zlib.adler32(host[b, :ln].tobytes())
+
+
+def test_adler32_batch_is_one_k7_launch(dev):
+    """``adler32_batch`` on CUDA tensors launches K7 once and runs no torch
+    op besides allocations; the encode launches it once."""
+    data, lengths, C = _inputs(dev, "ragged_B3_N8192_C4")
+    adler32_batch(data, lengths)                  # the workspace, once
+    before = adler32_tiles.launches
+    got, ops = torch_ops(lambda: adler32_batch(data, lengths))
+    assert adler32_tiles.launches == before + 1
+    assert set(ops) <= _NO_COMPUTE, ops
+    assert torch.equal(got, adler32_batch_plain(data, lengths))
+    before = adler32_tiles.launches
+    P.zlib_encode_step(C)(data, lengths)
+    assert adler32_tiles.launches == before + 1
+
+
 def _foreign(seed: int, n: int = 200_000) -> bytes:
     rng = np.random.default_rng(seed)
     wp = [rng.bytes(int(rng.integers(2, 12))) for _ in range(200)]
@@ -562,8 +658,8 @@ def test_inflate_records_edges(dev, kind):
 
 
 def _every_wrapper(dev):
-    """(name, kernel call, plain call) of each of the ten entry points on
-    small inputs on ``dev``."""
+    """(name, kernel call, plain call) of each of the ten kernels' entry
+    points (K7's through both its wrappers) on small inputs on ``dev``."""
     data, lengths, C = _inputs(dev, "ragged_B3_N8192_C4")
     B, N = data.shape
     t = trained_tables(str(dev))
@@ -597,6 +693,8 @@ def _every_wrapper(dev):
          lambda: decode_sep_plain(sw, sst, meta, vals, N, C)),
         ("adler32_tiles", lambda: adler32_tiles(buf, lt),
          lambda: adler32_tiles_plain(buf, lt)),
+        ("adler32_tiles (batch)", lambda: adler32_batch(data, lengths),
+         lambda: (adler32_batch_plain(data, lengths),)),
         ("inflate_records", lambda: inflate_records(*args4, K),
          lambda: inflate_records_plain(*args4, K)),
         ("validate_headers", lambda: validate_headers(zw, c, len(z) * 8),

@@ -63,7 +63,10 @@ from fdeflate_tpu_torch.ops.inflate_records import (
     inflate_records_plain,
     pack_tables,
 )
-from fdeflate_tpu_torch.ops.repack import combine_plain
+from fdeflate_tpu_torch.ops.adler32 import adler32_batch_plain
+from fdeflate_tpu_torch.ops.adler32_pallas import (adler32_checksums,
+                                                   adler32_tiles_plain)
+from fdeflate_tpu_torch.ops.repack import combine_plain, slab_lanes
 from fdeflate_tpu_torch.ops.ultrafast import (
     encode_ultrafast_batch,
     lane_starts,
@@ -136,6 +139,56 @@ extern "C" void combine_warp(const uint32_t* win, const int32_t* chunk_bits,
   for (int64_t b = 0; b < B; ++b)
     for (int64_t c = 0; c * fdt::kCombineZero < W; ++c)
       fdt::combine_zero_group(g, chunk_bits, pos0, words, C, W, b, c);
+}
+// K7's tile code with HostGroup, m threads to a tile, and its fold: the
+// checksums of B rows (row b at data + b * stride, n bytes, lengths[b]
+// of them counted) and their tile sums (int32[B, T], or null).
+extern "C" void adler32_warp(const uint8_t* data, int64_t stride, int64_t B,
+    int64_t n, const int64_t* lengths, int64_t* out, int32_t* sums,
+    int32_t* wsums, int m) {
+  fdt::HostGroup g{m};
+  const int64_t T = (n + fdt::kAdlerTile - 1) / fdt::kAdlerTile;
+  for (int64_t b = 0; b < B; ++b) {
+    const int64_t len = lengths[b], limit = len < n ? len : n;
+    uint64_t a = 0, terms = 0;
+    for (int64_t k = 0; k < T; ++k) {
+      const int64_t o = k * fdt::kAdlerTile;
+      const fdt::TileSums ts =
+          fdt::adler_tile_group(g, data + b * stride, o, limit);
+      if (sums) {
+        sums[b * T + k] = ts.s;
+        wsums[b * T + k] = ts.w;
+      }
+      a += static_cast<uint32_t>(ts.s);
+      terms += fdt::adler_term(len, o, ts);
+    }
+    out[b] = fdt::adler_finish(len, a, terms);
+  }
+}
+// K10's slab code with HostGroup, m threads to a slab, every slab of
+// every stream in turn.
+extern "C" void combine_slabs_warp(const uint32_t* win,
+    const int32_t* chunk_bits, const int32_t* pos0, uint32_t* words, int B,
+    int C, int wwin, int W, int m) {
+  fdt::HostGroup g{m};
+  std::vector<uint32_t> buf(fdt::kSlabBuf + 4);
+  uint32_t* b16 = reinterpret_cast<uint32_t*>(
+      (reinterpret_cast<uintptr_t>(buf.data()) + 15) & ~uintptr_t{15});
+  for (int64_t b = 0; b < B; ++b)
+    for (int64_t s = 0; s * fdt::kSlabWords < W; ++s)
+      fdt::combine_slab_group(g, win, chunk_bits, pos0, words, C, wwin, W,
+                              (int64_t)B * C, b, s, b16);
+}
+// K10's lane search with HostGroup: lanes [lo, hi) of each slab.
+extern "C" void slab_ranges_warp(const int32_t* chunk_bits,
+    const int32_t* pos0, int B, int C, int W, int m, int64_t* lo,
+    int64_t* hi) {
+  fdt::HostGroup g{m};
+  const int64_t nslabs = (W + fdt::kSlabWords - 1) / fdt::kSlabWords;
+  for (int64_t b = 0; b < B; ++b)
+    for (int64_t s = 0; s < nslabs; ++s)
+      fdt::slab_range(g, chunk_bits, pos0, b, C, s * fdt::kSlabWords,
+                      lo + b * nslabs + s, hi + b * nslabs + s);
 }
 // K5's lane code, each candidate with its stream's word end and payload
 // end: one pass (validate_lane) for first >= kValSteps, else `first`
@@ -1239,6 +1292,137 @@ def test_combine_warp_matches_plain(lib, seed0):
         lib.combine_warp(_ptr(win), _ptr(bits), _ptr(pos0), _ptr(words), B, C,
                          win.shape[1], W, 32)
         assert torch.equal(words, combine_plain(win, bits, pos0, B, W)), seed
+
+
+# K7's rows: (B, n, row stride, offset of row 0 in the buffer, lengths).
+# Unaligned rows and strides put a row's first and last bytes inside
+# 16-byte chunks shared with noise that must not count.
+K7_CASES = {
+    "ragged lengths 0, 1, 1023, 1025, n, unaligned": (
+        6, 5000, 5007, 3, [0, 1, 1023, 1025, 5000, 3072]),
+    "aligned rows, whole tiles": (2, 4096, 4096, 0, [4096, 2048]),
+    "one unaligned row": (1, 70001, 70001, 13, [69996]),
+    "rows shorter than a chunk": (3, 9, 25, 1, [9, 5, 0]),
+    "no bytes": (2, 0, 16, 0, [0, 0]),
+}
+
+
+def _adler32_warp(lib, case, m):
+    """K7's tile and fold code on the host for one K7_CASES case: (rows
+    u8[B, n] as a strided view of a noisy buffer, lengths, checksums,
+    sums, wsums)."""
+    B, n, stride, off, lens = K7_CASES[case]
+    rng = np.random.default_rng(n + off)
+    buf = torch.from_numpy(rng.integers(0, 256, B * stride + off + 64,
+                                        dtype=np.uint8))
+    rows = buf[off:off + B * stride].reshape(B, stride)[:, :n]
+    lengths = torch.tensor(lens, dtype=torch.int64)
+    T = -(-n // 1024)
+    out = torch.empty(B, dtype=torch.int64)
+    sums = torch.empty(B, T, dtype=torch.int32)
+    wsums = torch.empty(B, T, dtype=torch.int32)
+    lib.adler32_warp.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_int64, ctypes.c_int64] + [
+                                     ctypes.c_void_p] * 4 + [ctypes.c_int]
+    lib.adler32_warp(ctypes.c_void_p(rows.data_ptr()), stride, B, n,
+                     _ptr(lengths), _ptr(out), _ptr(sums), _ptr(wsums), m)
+    return rows, lengths, out, sums, wsums
+
+
+@pytest.mark.parametrize("m", (1, 2, 5, 32))
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_adler32_tile_warp_matches_plain(lib, m, case):
+    """K7's group code, m threads to a tile, and its fold on rows that
+    start and end inside 16-byte chunks of noise, lengths that end inside
+    a tile (the tile's coefficient is negative before its residue is
+    taken) and rows past their length: tile sums equal the plain
+    version's, checksums the plain fold's, the plain batch's and
+    zlib.adler32."""
+    rows, lengths, out, sums, wsums = _adler32_warp(lib, case, m)
+    want_s, want_w = adler32_tiles_plain(rows, lengths)
+    assert torch.equal(sums, want_s) and torch.equal(wsums, want_w)
+    assert torch.equal(out, adler32_checksums(rows, lengths))
+    assert torch.equal(out, adler32_batch_plain(rows, lengths))
+    for b, ln in enumerate(lengths.tolist()):
+        assert int(out[b]) == zlib.adler32(rows[b, :ln].numpy().tobytes())
+
+
+def _slab_cases():
+    """K10's inputs: K2's edge cases, then K1's windows of two random
+    seeds placed by ``lane_starts``."""
+    cases = [c[1:] for c in k2_edge_cases()]
+    t = trained_tables()
+    for seed in (3, 8):
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        win, bits = assign_pack_plain(data, lengths, C, t)
+        pos0 = lane_starts(bits, B, C, 32037)[0].reshape(-1).to(torch.int32)
+        cases.append((win, bits, pos0, B, 1024 + stream_words(N, t)))
+    return cases
+
+
+@pytest.mark.parametrize("m", (1, 2, 5, 32))
+@pytest.mark.parametrize("case", range(len(k2_edge_cases()) + 2))
+def test_slab_range_contains_slab_lanes(lib, m, case):
+    """K10's lane search, m threads a round: each slab's range holds every
+    lane of ``slab_lanes``' range for it (the plain search), inside the
+    slab's stream."""
+    win, bits, pos0, B, W = _slab_cases()[case]
+    C = bits.numel() // B
+    nslabs = -(-W // 1024)
+    lo = torch.empty(B * nslabs, dtype=torch.int64)
+    hi = torch.empty(B * nslabs, dtype=torch.int64)
+    lib.slab_ranges_warp.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    lib.slab_ranges_warp(_ptr(bits), _ptr(pos0), B, C, W, m, _ptr(lo),
+                         _ptr(hi))
+    want_lo, want_hi = (x.to(torch.int64) for x in slab_lanes(bits, pos0, B, W))
+    stream = torch.arange(B * nslabs) // nslabs
+    assert bool(((lo >= stream * C) & (hi <= (stream + 1) * C)
+                 & (lo <= hi)).all())
+    busy = want_lo < want_hi
+    assert bool(((lo <= want_lo) & (hi >= want_hi))[busy].all())
+
+
+def _combine_slabs(lib, win, bits, pos0, B, W, m, fill):
+    words = torch.full((B, W), fill, dtype=torch.int32)
+    lib.combine_slabs_warp(_ptr(win), _ptr(bits), _ptr(pos0), _ptr(words), B,
+                           bits.numel() // B, win.shape[1], W, m)
+    return words
+
+
+@pytest.mark.parametrize("m", (1, 2, 5, 32))
+@pytest.mark.parametrize("case", range(len(k2_edge_cases())))
+def test_combine_slab_warp_edges(lib, m, case):
+    """K10's group code, m threads to a slab, on K2's edge inputs (lanes
+    of 0 bits, lanes shorter than a word, word-aligned starts, the last
+    word's high half at W, trailing words, a mix): every word written (the
+    buffer starts as noise), equal to the plain version.  At m < 32 a slab
+    whose lanes do not fit one staging round ORs the later rounds in."""
+    label, win, bits, pos0, B, W = k2_edge_cases()[case]
+    got = _combine_slabs(lib, win, bits, pos0, B, W, m, -0x5A5A5A5B)
+    assert torch.equal(got, combine_plain(win, bits, pos0, B, W)), label
+
+
+@pytest.mark.parametrize("seed0", SEEDS)
+@pytest.mark.parametrize("aligned", (True, False))
+def test_combine_slab_warp_matches_plain(lib, seed0, aligned):
+    """K10's group code at the card's m = 32 on K1's windows of the random
+    seeds, lanes placed after headers of 0..95 bits, the windows 16-byte
+    aligned (16-byte staging) or a view one word in (4-byte staging)."""
+    t = trained_tables()
+    for seed in range(seed0, seed0 + 6):
+        data, lengths, C = _case(seed)
+        B, N = data.shape
+        win, bits = assign_pack_plain(data, lengths, C, t)
+        if not aligned:
+            win = torch.cat([torch.full((1,), 9, dtype=torch.int32),
+                             win.reshape(-1)])[1:].reshape(win.shape)
+        pos0 = lane_starts(bits, B, C, seed * 7 % 96)[0].reshape(-1).to(
+            torch.int32)
+        W = stream_words(N, t)
+        got = _combine_slabs(lib, win, bits, pos0, B, W, 32, 77)
+        assert torch.equal(got, combine_plain(win, bits, pos0, B, W)), seed
 
 
 def _validate_lanes(lib, words, cands, wend, n_bits, first=320):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import fdeflate_tpu_torch as P
+from fdeflate_tpu_torch.ops.adler32 import adler32_batch
 from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack
 from fdeflate_tpu_torch.ops.decode2 import (
@@ -165,6 +166,30 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         P.fused_adaptive_roundtrip(8, 2048, device="cuda")
 
 
+_Z = zlib.compress(bytes(range(256)) * 200, 6)
+DEFAULT_DEVICE_CALLS = {
+    "compress_batch_ultra_fast": lambda: P.compress_batch_ultra_fast([b"abc"]),
+    "fused_zlib_roundtrip": lambda: P.fused_zlib_roundtrip(8, 2048),
+    "fused_ultrafast_roundtrip_v2":
+        lambda: P.fused_ultrafast_roundtrip_v2(8, 2048),
+    "fused_adaptive_roundtrip": lambda: P.fused_adaptive_roundtrip(8, 2048),
+    "try_foreign": lambda: P.try_foreign(_Z),
+    "try_foreign_batch": lambda: P.try_foreign_batch([_Z, _Z]),
+    "decompress_foreign": lambda: P.decompress_foreign(_Z),
+    "decompress_batch": lambda: P.decompress_batch([_Z]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_DEVICE_CALLS))
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    """Each entry point runs on the card unless the caller asks for the
+    CPU: without CUDA, a call that leaves ``device`` raises, and nothing
+    falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DEFAULT_DEVICE_CALLS[name]()
+
+
 def test_wrappers_take_no_plain_path_off_the_cpu():
     """A tensor that is neither on the CPU nor on CUDA raises: the plain
     version is chosen only because a tensor lies on the CPU."""
@@ -195,6 +220,10 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
         decode_sep(words, starts, sm, sv, 64, 2)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         adler32_tiles(data.reshape(-1), lane[:1])
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        adler32_batch(data, lengths)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        P.adler32_pallas(data.reshape(-1), 5)
     cmeta, packed = (x.to(meta) for x in canon_tables())
     with pytest.raises(ValueError, match="no kernel for device meta"):
         decode2_canon(win, 4, cmeta, packed)
