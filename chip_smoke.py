@@ -89,6 +89,20 @@ process per source, all at once) and drives the port's paths:
      takes back; one K10 launch per call and no torch op but allocations
      before it; K10 equals K2 and its plain version; K10 and K2 times, one
      call and back to back.
+13.  The indexed chunk-parallel decode at the headline width: the 16 x 1
+     MiB corpus through ``compress_batch_ultra_fast(with_index=512)`` (one
+     lane per stream: K1 at C = 1, K2, K7) and ``decompress_batch_indexed``
+     (K11 decode_symbols once over the 8192 chunk lanes, materialize);
+     every stream equal to its input and none decoded by the fallback
+     (``decompress_batch``); ``fused_ultrafast_roundtrip(512, max_steps,
+     N)`` with ``ok``, ``checksum_ok``, ``produced == lengths`` and ``out
+     == data``; K11 against its plain version on the card on all 8192
+     headline lanes and on its edge inputs (tools/edges.py: codes of up to
+     15 bits through the secondary tables, truncation, reads past the last
+     word, corrupted fixed-code streams, invalid entries, stacked tables,
+     exhausted steps); times of K11, the rearrangement and materialize,
+     the whole ``indexed_decode_step``, the one-lane encode and the whole
+     ``decompress_batch_indexed`` (decoded GB/s), and its peak memory.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
@@ -1135,6 +1149,134 @@ def grouped_phase(torch, P, dev, data, lengths, streams_in, card):
                       (4 * nw + 8 * L + 4 * words.numel(), 4 * nw))
 
 
+def indexed_phase(torch, P, dev, corpus, card):
+    """Phase 13, the indexed decode at the headline width (see the module
+    docstring).  Returns K11's row."""
+    from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
+    from fdeflate_tpu_torch.ops.assign_pack import assign_pack
+    from fdeflate_tpu_torch.ops.decode_symbols import STOPPED, decode_symbols
+    from fdeflate_tpu_torch.ops.repack import combine
+    from fdeflate_tpu_torch.parallel import device_pipeline as DP
+    from fdeflate_tpu_torch.tools.edges import K11_KINDS, k11_edge_case
+    from fdeflate_tpu_torch.tools.time_k11 import headline_lanes, plain_k11
+
+    B, N = corpus.shape
+    streams_in = [r.tobytes() for r in corpus]
+    data = torch.from_numpy(corpus).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    kernels = {"assign_pack": assign_pack, "combine": combine,
+               "adler32_tiles": adler32_tiles, "decode_symbols": decode_symbols}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    DP.decompress_batch_indexed.fallbacks = 0
+    t0 = time.perf_counter()
+    streams, index = P.compress_batch_ultra_fast(streams_in,
+                                                 with_index=CHUNKS)
+    back = P.decompress_batch_indexed(streams, index)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    fallbacks = DP.decompress_batch_indexed.fallbacks
+    print(f"indexed path ({B} x {N} B, C={CHUNKS}): {wall:.3f} s wall incl. "
+          f"host copies; launches {launches}; fallbacks {fallbacks}",
+          flush=True)
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the indexed path was not launched: "
+                             f"{launches}")
+    if launches["decode_symbols"] != 1:
+        raise AssertionError("decompress_batch_indexed did not launch K11 once")
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} clean streams fell back to "
+                             "decompress_batch")
+    if back != streams_in:
+        raise AssertionError("decompress_batch_indexed differs from the input")
+    case, staged, cap = headline_lanes(streams, index, dev)
+    max_steps = case["max_steps"]
+    decode_symbols.launches = 0
+    out, produced, ok, ck_ok = P.fused_ultrafast_roundtrip(
+        CHUNKS, max_steps, N)(data, lengths)
+    torch.cuda.synchronize()
+    if decode_symbols.launches != 1:
+        raise AssertionError("fused_ultrafast_roundtrip did not launch K11 once")
+    if not (bool(ok.all()) and bool(ck_ok.all())
+            and torch.equal(produced, lengths) and torch.equal(out, data)):
+        raise AssertionError(f"fused_ultrafast_roundtrip: ok {ok.tolist()} "
+                             f"ck_ok {ck_ok.tolist()}")
+    print(f"decompress_batch_indexed == input ({len(streams)} streams, "
+          f"{sum(map(len, streams))} B, max_steps {max_steps}, cap {cap}); "
+          f"fused_ultrafast_roundtrip({CHUNKS}, {max_steps}, {N}): ok, ck_ok "
+          f"all, produced == lengths, out == data", flush=True)
+
+    # K11 against its plain version on the card, on the headline lanes and
+    # on the edge inputs.
+    got = decode_symbols(**case)
+    err = check_equal(torch, "decode_symbols (headline lanes)",
+                      got[0] + got[1], (lambda w: w[0] + w[1])(plain_k11(case)))
+    statuses = sorted(set(got[1][2].tolist()))
+    ran = int((got[0][5] >= 0).sum())
+    print(f"decode_symbols == plain on the {case['bit_pos'].numel()} headline "
+          f"lanes ({max_steps} steps, {ran} lane steps run, statuses "
+          f"{statuses}): ok", flush=True)
+    for kind in K11_KINDS:
+        e = k11_edge_case(kind)
+        on = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in e.items()}
+        g = decode_symbols(**on)
+        err = max(err, check_equal(torch, f"decode_symbols ({kind})",
+                                   g[0] + g[1],
+                                   (lambda w: w[0] + w[1])(plain_k11(on))))
+        print(f"decode_symbols == plain on the {kind} edge input (chain "
+              f"{e['chain']}, statuses {sorted(set(g[1][2].tolist()))}): ok",
+              flush=True)
+
+    # Times: one call and back to back (card: see the line below).
+    records, state = got
+    status = torch.where(case["active"], state[2], STOPPED)
+    step = DP.indexed_decode_step(CHUNKS, max_steps, cap)
+    fns = {
+        "K11 decode_symbols": lambda: decode_symbols(**case),
+        "rearrange + materialize (indexed_materialize)":
+            lambda: DP.indexed_materialize(records, status, None, CHUNKS, cap),
+        "indexed_decode_step": lambda: step(*staged),
+        "one-lane encode (encode_indexed)":
+            lambda: DP.encode_indexed(data, lengths, CHUNKS),
+    }
+    one = {k: cuda_ms(torch, fn, 5) for k, fn in fns.items()}
+    queued = {k: back_to_back_ms(torch, fn, 5) for k, fn in fns.items()}
+    plain_ms = cuda_ms(torch, lambda: plain_k11(case), 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    P.decompress_batch_indexed(streams, index)
+    api_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    for k in fns:
+        print(f"{k}: {one[k]:.4f} ms one call ({queued[k]:.4f} ms back to "
+              f"back) [{card}]", flush=True)
+    leg = one["indexed_decode_step"]
+    print(f"K11 plain version {plain_ms:.4f} ms; indexed decode leg "
+          f"{B * N / leg / 1e6:.4f} GB/s of output one call "
+          f"({B * N / queued['indexed_decode_step'] / 1e6:.4f} back to back); "
+          f"decompress_batch_indexed {api_s * 1e3:.4f} ms host clock "
+          f"({B * N / api_s / 1e9:.4f} GB/s of output), peak device memory "
+          f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
+
+    L = case["bit_pos"].numel()
+    tb = staged[1].to(torch.int64)
+    words_read = int(((tb + 31) // 32).sum())
+    syms = symbol_count(torch, data, lengths, N)
+    # bytes: the words read once, six records of 21 B per lane and step,
+    # the lanes' inputs (7 int32) and state (9 B), the tables; operations:
+    # 8 per symbol, as K3, K6 and K8
+    nbytes = (4 * words_read + 21 * max_steps * L + 28 * L + 9 * L
+              + 4 * (2 * 4096 + 512 + 2))
+    return kernel_row("decode_symbols", "fdeflate_tpu_torch/csrc/decode_symbols.cu",
+                      "fdeflate_tpu/ops/inflate.py:64 (decode_symbols, an XLA "
+                      "while_loop; no TPU kernel)",
+                      launches["decode_symbols"], err, one["K11 decode_symbols"],
+                      plain_ms, (nbytes, 8 * syms))
+
+
 def main() -> int:
     import torch
 
@@ -1539,6 +1681,9 @@ def main() -> int:
     v2_phase(torch, P, dev, data, lengths, card)
     rows += ab_phase(torch, P, dev, data, lengths, card)
     rows.append(grouped_phase(torch, P, dev, data, lengths, streams_in, card))
+
+    # ---- 13. the indexed chunk-parallel decode: K11 ----------------------
+    rows.append(indexed_phase(torch, P, dev, corpus, card))
 
     print(json.dumps({"kernels": rows}))
     print(card)

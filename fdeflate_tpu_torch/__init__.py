@@ -1,7 +1,7 @@
 """fdeflate_tpu_torch — the PyTorch/CUDA port of fdeflate_tpu for Hopper GPUs.
 
 The JAX package ``fdeflate_tpu`` is the reference; this package gives
-bit-identical outputs.  Four slices are ported:
+bit-identical outputs.  Five slices are ported:
 
 * the standard-zlib, fixed-geometry roundtrip of PNG IDAT streams (the
   benchmark's headline path):
@@ -29,7 +29,16 @@ bit-identical outputs.  Four slices are ported:
   (``decode_blocked(light=False)``), K9 pack_v1 (``ops/pack.py``) and K10
   combine_grouped (``combine(..., group>1)``)
 
-K1-K10 are hand-written CUDA kernels (``csrc/``) launched for CUDA
+* the indexed chunk-parallel decode (slice 5): streams encoded in one lane
+  with an exact chunk index (``compress_batch_ultra_fast(with_index=C)``)
+  decode in C lanes each from the index's bits:
+
+      decode  K11 decode_symbols (a thread per lane, the table-gather
+              symbol engine) -> records rearranged per stream
+              -> materialize (torch) -> Adler-32 (host, or K7 in
+              ``fused_ultrafast_roundtrip``)
+
+K1-K11 are hand-written CUDA kernels (``csrc/``) launched for CUDA
 tensors; CPU tensors take their plain PyTorch versions.  The package
 imports ``torch`` and nothing of ``jax`` or of the JAX package: the host
 modules it needs are its own copies (``errors``, ``tables``, ``huffman``,
@@ -47,6 +56,9 @@ CUDA a call that leaves it raises RuntimeError):
         -> out, bpos_ok, ck_ok
     fused_adaptive_roundtrip(C, N, device=...)(data, lengths)
         -> out, bpos_ok, ck_ok, total_bits
+    fused_ultrafast_roundtrip(C, max_steps, N, device=...)(data, lengths)
+        -> out, produced, ok, checksum_ok
+    decompress_batch_indexed(streams, index, device=...) -> bytes per stream
     adler32_pallas(data, length=None) -> int64 0-d checksum tensor
     decompress_batch(streams, device=...) -> bytes or error per stream
     decompress_foreign(data, device=...) -> bytes (raises the decode error)
@@ -58,7 +70,9 @@ from .ops.adler32_pallas import adler32_pallas
 from .ops.septree import sep_profile
 from .ops.ultrafast import compress_batch_ultra_fast, finalize_streams
 from .parallel.device_pipeline import (
+    decompress_batch_indexed,
     fused_adaptive_roundtrip,
+    fused_ultrafast_roundtrip,
     fused_ultrafast_roundtrip_v2,
     fused_zlib_roundtrip,
     zlib_decode_step,
@@ -75,9 +89,11 @@ __all__ = [
     "adler32_pallas",
     "compress_batch_ultra_fast",
     "decompress_batch",
+    "decompress_batch_indexed",
     "decompress_foreign",
     "finalize_streams",
     "fused_adaptive_roundtrip",
+    "fused_ultrafast_roundtrip",
     "fused_ultrafast_roundtrip_v2",
     "fused_zlib_roundtrip",
     "sep_profile",

@@ -45,9 +45,10 @@ from .inflate_records import (
     pack_tables,
     recs_to_records,
 )
-from .ultrafast import device_of
+from .ultrafast import device_of, row_cumsum
 
 WINDOW = host.WINDOW
+_M32 = 0xFFFFFFFF
 _STATUS = {
     DONE_BAD_LITLEN: E.Status.INVALID_LITERAL_LENGTH_CODE,
     DONE_BAD_DIST: E.Status.INVALID_DISTANCE_CODE,
@@ -56,58 +57,102 @@ _STATUS = {
 }
 
 
+def _literals(lo, hi, s_abs, sel, row, B: int, ext: int) -> torch.Tensor:
+    """Literal bytes of records of up to eight literals, int64[B * ext]:
+    each record of ``sel`` (those with literals) adds its two words,
+    shifted to its byte offset, into three output words (JAX's
+    word-granular scatter; sums wrap at 32 bits)."""
+    if ext % 4:
+        raise ValueError("materialize: out_capacity must be a multiple of 4")
+    extw = ext // 4
+    lo = lo.reshape(-1)[sel].to(torch.int64) & _M32
+    hi = hi.reshape(-1)[sel].to(torch.int64) & _M32
+    p0 = s_abs.reshape(-1)[sel]
+    s = (p0 & 3) * 8
+    rsh = lambda x: torch.where(s == 0, 0, x >> (32 - s))  # noqa: E731
+    parts = ((lo << s) & _M32, rsh(lo) | ((hi << s) & _M32), rsh(hi))
+    wi = p0 >> 2
+    words = torch.zeros(B * extw, dtype=torch.int64, device=lo.device)
+    for off, wc in enumerate(parts):
+        m = wi + off < extw
+        words.index_add_(0, (row * extw + wi + off)[m], wc[m])
+    words = (words & _M32).reshape(-1, 1)
+    shifts = torch.tensor([0, 8, 16, 24], device=lo.device)
+    return ((words >> shifts) & 0xFF).reshape(-1)
+
+
+def _last_index(mask: torch.Tensor) -> torch.Tensor:
+    """For each flat position, the index of the last True of ``mask`` at
+    or before it (0 where there is none): a flat count and a gather."""
+    where_true = mask.nonzero().squeeze(1)
+    k = mask.to(torch.int64).cumsum(0) - 1
+    if where_true.numel() == 0:
+        return torch.zeros_like(k)
+    return torch.where(k >= 0, where_true[k.clamp(min=0)], 0)
+
+
 def materialize(records, window, produced, out_capacity: int,
-                want_window: bool = True):
-    """Expand decode records into output bytes (JAX ``materialize`` with
-    ``max_lit_bytes=2``: K4 records carry at most two literals).
+                want_window: bool = True, ptr_rounds: int | None = None):
+    """Expand decode records into output bytes (JAX ``materialize``).
 
-    ``records`` = (lit, cnt, len, dist), each [K, B] (``recs_to_records``);
-    ``window`` u8[B, 32768] prior output, right-aligned; ``produced``
-    int[B] bytes the records make (used for masking); ``out_capacity`` a
-    bound on ``produced``.  Returns (u8[B, out_capacity], new window).
+    ``records`` = (lit, cnt, len, dist), each [K, B]: K4's records of at
+    most two literals (``recs_to_records``; JAX ``max_lit_bytes=2``), or
+    (lit_lo, lit_hi, cnt, len, dist): ``decode_symbols``' records of up to
+    eight literals packed LSB first into two words (JAX
+    ``max_lit_bytes=8``).  ``window`` u8[B, 32768] prior output,
+    right-aligned; ``produced`` int[B] bytes the records make (used for
+    masking); ``out_capacity`` a bound on ``produced``.  Returns
+    (u8[B, out_capacity], new window).
 
-    Literals land by scatter; every back-reference position gets a pointer
-    to its source through the containing record's (start, dist), found with
-    one scatter-max and one cummax over int64 keys ``start << 16 | dist``;
-    dist-1 spans collapse with one cummax; pointer doubling runs to a fixed
-    point; one gather reads the bytes.
+    Only records that make bytes are scattered (empty ones, most of the
+    slots of a chunk-parallel decode, are left out first).  Literals land
+    word by word, as JAX scatters them, each record's literal words added
+    at its byte offset (K4's records with a zero second word); each
+    position finds
+    the record that contains it by a flat count of record starts, and so
+    its (start, dist); a back-reference position points to start - dist +
+    (i - start) mod dist; dist-1 spans point to the byte before the span;
+    pointer doubling runs to a fixed point, which is JAX's result with
+    ``ptr_rounds=None`` (its default; the port accepts and ignores the
+    option); one gather reads the bytes.  Records that start past
+    ``out_capacity`` are dropped.
     """
-    rl, rc, rn, rd = records
+    del ptr_rounds  # doubling runs to its fixed point
+    if len(records) == 5:
+        rl, rlh, rc, rn, rd = records
+    else:
+        (rl, rc, rn, rd), rlh = records, None
     K, B = rl.shape
     dev = rl.device
     i64 = torch.int64
     produced = torch.as_tensor(produced, device=dev).to(i64).reshape(B)
     ext = WINDOW + out_capacity
 
-    adv = (rc.to(i64) + rn.to(i64)).T                    # [B, K]
-    start = adv.cumsum(dim=1) - adv                       # per-stream offsets
-    s_abs = WINDOW + start
-    row = torch.arange(B, device=dev)[:, None]
-    dump = B * ext
+    adv = (rc.to(i64) + rn.to(i64)).T.contiguous()       # [B, K]
+    s_abs = WINDOW + row_cumsum(adv) - adv                # record starts
+    lits = (rc.T > 0).reshape(-1).nonzero().squeeze(1)
+    lo = rl.T.contiguous()
+    hi = torch.zeros_like(lo) if rlh is None else rlh.T.contiguous()
+    vals = _literals(lo, hi, s_abs, lits, lits // K, B, ext).reshape(B, ext)
 
-    # literal bytes (at most two per record, packed LSB first)
-    cnt = rc.to(i64).T
-    lit = rl.to(i64).T & 0xFFFF
-    vals = torch.zeros(B * ext + 1, dtype=i64, device=dev)
-    for j in range(2):
-        byte = (lit >> (8 * j)) & 0xFF
-        p = s_abs + j
-        tgt = torch.where((j < cnt) & (p < ext), row * ext + p, dump)
-        vals.index_add_(0, tgt.reshape(-1), byte.reshape(-1))
-    vals = vals[:dump].reshape(B, ext)
-
-    # back-reference pointers: the containing record's (start, dist) per
-    # position; keys grow with start, so a running max carries them.
-    is_ref = rn.T > 0
-    dist = torch.where(is_ref, (rd.to(i64).T - 1).clamp(min=0) + 1, 0)
-    has = adv > 0
-    tgt = torch.where(has & (s_abs < ext), row * ext + s_abs, dump)
-    key = torch.where(has, (s_abs << 16) | dist, 0)
-    c = torch.zeros(B * ext + 1, dtype=i64, device=dev)
-    c.scatter_reduce_(0, tgt.reshape(-1), key.reshape(-1), reduce="amax")
-    c = c[:dump].reshape(B, ext).cummax(dim=1).values
-    rec_start = c >> 16
-    pos_dist = c & 0xFFFF
+    # The record containing each position: starts of the records that
+    # make bytes, in (row, start) order, counted along the flat positions.
+    recs = ((adv > 0) & (s_abs < ext)).reshape(-1).nonzero().squeeze(1)
+    r_start = s_abs.reshape(-1)[recs]
+    r_len = rn.T.reshape(-1)[recs].to(i64)
+    r_dist = torch.where(r_len > 0,
+                         (rd.T.reshape(-1)[recs].to(i64) - 1).clamp(min=0) + 1,
+                         0)
+    marks = torch.zeros(B * ext, dtype=torch.bool, device=dev)
+    marks[(recs // K) * ext + r_start] = True
+    k = marks.to(i64).cumsum(0) - 1
+    found = k >= 0
+    k = k.clamp(min=0)
+    if recs.numel():
+        rec_start = torch.where(found, r_start[k], 0).reshape(B, ext)
+        pos_dist = torch.where(found, r_dist[k], 0).reshape(B, ext)
+    else:
+        rec_start = pos_dist = torch.zeros((B, ext), dtype=i64, device=dev)
 
     posi = torch.arange(ext, device=dev, dtype=i64)[None, :]
     in_new = (posi >= WINDOW) & (posi < WINDOW + produced[:, None])
@@ -117,8 +162,11 @@ def materialize(records, window, produced, out_capacity: int,
     d_safe = pos_dist.clamp(min=1)
     hop = rec_start - d_safe + torch.remainder(posi - rec_start, d_safe)
     ptr = torch.where(is_copy, hop, posi.expand(B, ext))
+    # A dist-1 span copies the byte before it: the last position at or
+    # before i that is not in such a span (every row's window is not).
     is_d1 = is_copy & (pos_dist == 1)
-    left = torch.where(is_d1, -1, posi).cummax(dim=1).values
+    row0 = torch.arange(B, device=dev, dtype=i64)[:, None] * ext
+    left = _last_index(~is_d1.reshape(-1)).reshape(B, ext) - row0
     ptr = torch.where(is_d1, left, ptr)
     for _ in range(max(1, (ext - 1).bit_length())):   # chains halve each round
         nxt = ptr.gather(1, ptr)

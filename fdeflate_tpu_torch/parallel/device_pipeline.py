@@ -1,12 +1,21 @@
 """Standard-zlib encode and decode legs, their fused roundtrip, the
-blocked-layout roundtrip and the adaptive-tree roundtrip.
+blocked-layout roundtrip, the adaptive-tree roundtrip and the indexed
+chunk-parallel decode.
 
 JAX counterpart: ``fdeflate_tpu/parallel/device_pipeline.py``
 ``zlib_encode_step``, ``zlib_decode_step``, ``fused_zlib_roundtrip``,
 ``fused_ultrafast_roundtrip_v2`` and ``fused_adaptive_roundtrip``, with the
 same signatures and returns except
 the decoded output: here it is u8[B, N] in standard byte order, where JAX
-returns the TPU kernel's step-major ``out_sm i32[LB, T, 8, 128]``.
+returns the TPU kernel's step-major ``out_sm i32[LB, T, 8, 128]``; and
+the indexed decode (``_trained_tables``, ``stitch_and_materialize``,
+``indexed_materialize``, ``indexed_decode_step``,
+``decompress_batch_indexed``, ``fused_ultrafast_roundtrip``) with the same
+signatures and returns, ``device=`` added to the entry points.  Its lanes
+start at the encoder's exact chunk index (symbol-boundary bits) and run
+K11 decode_symbols (``ops/decode_symbols.py``) from the stream words; the
+records rearrange stream by stream and ``ops/inflate.materialize`` (plain
+torch, as the JAX package's XLA) expands them.
 
 The decode leg runs K3 (ops/decode2.py) straight from the linear words —
 or, for a ``tree=`` profile, K6 (ops/decode_sep.py) with that tree's own
@@ -30,18 +39,36 @@ reads every lane straight from the words, so it accepts and ignores them.
 
 from __future__ import annotations
 
+import functools
+import zlib
+
+import numpy as np
 import torch
 
+from .. import errors as E
+from ..huffman import build_table
+from ..ops import decode_symbols as DS
 from ..ops.adaptive import encode_adaptive_blocked
-from ..ops.adler32 import adler_lanes
+from ..ops.adler32 import adler32_batch, adler_lanes
 from ..ops.decode2 import decode2, decode_blocked
 from ..ops.decode_sep import decode_sep
+from ..ops.inflate import WINDOW, materialize
 from ..ops.ultrafast import (
     device_of,
     encode_ultrafast_batch,
     encode_ultrafast_blocked,
+    row_cumsum,
+    symbol_index,
+)
+from ..tables import (
+    DEFAULT_DIST_TABLE_SIZE,
+    DEFAULT_LITLEN_TABLE_SIZE,
+    DISTANCE_TABLE_ENTRIES,
+    HUFFMAN_LENGTHS,
+    LITLEN_TABLE_ENTRIES,
 )
 from ..trees import TreeTables, sep_tables, trained_tables
+from .discovery import decompress_batch
 
 
 def zlib_encode_step(C: int, tree=None):
@@ -191,3 +218,289 @@ def fused_adaptive_roundtrip(C: int, N: int, U: int = 8, *, device="cuda"):
         return out, bpos_ok, ck_ok, chunk_bits.sum()
 
     return roundtrip
+
+
+# ---- the indexed chunk-parallel decode ------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _trained_tables():
+    """The trained tree's reference decode tables as ``decode_symbols``
+    reads them (JAX ``_trained_tables`` :40): (litlen u32[1, 4096],
+    litlen_sec u32[1, 1] zeros, dist u32[1, 512] of the one distance code,
+    dist_sec u32[1, 1] zeros, litlen_first i32[1, 4096])."""
+    litlen = build_table(
+        HUFFMAN_LENGTHS, LITLEN_TABLE_ENTRIES, DEFAULT_LITLEN_TABLE_SIZE,
+        is_distance_table=False, double_literal=True,
+    )
+    dl = np.zeros(32, np.int64)
+    dl[0] = 1
+    dist = build_table(
+        dl, DISTANCE_TABLE_ENTRIES, DEFAULT_DIST_TABLE_SIZE,
+        is_distance_table=True, double_literal=False,
+    )
+    return (
+        litlen.primary[None].astype(np.uint32),
+        np.zeros((1, 1), np.uint32),
+        dist.primary[None].astype(np.uint32),
+        np.zeros((1, 1), np.uint32),
+        litlen.first_len[None].astype(np.int32),
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def trained_symbol_tables(device: str) -> tuple[torch.Tensor, ...]:
+    """``_trained_tables`` as int32 tensors on ``device``, made once."""
+    return tuple(torch.from_numpy(x.view(np.int32).copy()).to(device)
+                 for x in _trained_tables())
+
+
+def encode_indexed(data: torch.Tensor, lengths: torch.Tensor, C: int):
+    """JAX ``encode_ultrafast_batch(data, lengths, num_chunks=C)`` (no
+    fixed geometry): each stream encoded in one lane (K1, K2, framing, K7)
+    and its exact chunk index (``symbol_index``).  Returns (words
+    int32[B, W], total_bits int32[B], adler int64[B], chunk_starts
+    int32[B, C]); N must be a multiple of 8."""
+    words, total_bits, adler, _s, eof = encode_ultrafast_batch(data, lengths, 1)
+    index = symbol_index(data, lengths, C, eof, trained_tables(str(data.device)))
+    return words, total_bits, adler, index
+
+
+def chunk_lanes(total_bits: torch.Tensor, chunk_starts: torch.Tensor):
+    """Per-lane inputs of the chunk-parallel decode, lanes stream-major
+    (JAX :212-221): (starts, bit_end = the stream's bits, stops = the next
+    lane's start or the stream's end, stream_row, active = start < stop),
+    int32 (active bool) [B * C]."""
+    B, C = chunk_starts.shape
+    dev = chunk_starts.device
+    cs = chunk_starts.to(torch.int32)
+    starts = cs.reshape(-1)
+    nxt = torch.cat([cs[:, 1:], torch.full((B, 1), 1 << 30, dtype=torch.int32,
+                                          device=dev)], dim=1).reshape(-1)
+    bits_l = total_bits.to(torch.int32).repeat_interleave(C)
+    stops = torch.minimum(nxt, bits_l)
+    srow = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(C)
+    return starts, bits_l, stops, srow, starts < stops
+
+
+def _rearrange(a: torch.Tensor, C: int) -> torch.Tensor:
+    """[K, B * C] step-major records -> [B, C * K]: each stream's lanes one
+    after another in its row (the transpose of JAX's [C * K, B]; per-stream
+    scans then run along rows)."""
+    K, L = a.shape
+    B = L // C
+    return a.reshape(K, B, C).permute(1, 2, 0).reshape(B, C * K)
+
+
+def _place(records5, ok, C: int, out_capacity: int):
+    """Rearrange masked records stream by stream, check every distance
+    against its absolute output position and materialize.  Returns (out
+    u8[B, out_capacity], produced int32[B], ok bool[B])."""
+    rl2, rlh2, rc2, rn2, rd2 = (_rearrange(a, C) for a in records5)
+    adv = rc2.to(torch.int64) + rn2
+    pos = row_cumsum(adv) - adv
+    ok = ok & ~((rd2 > 0) & (rd2 > pos)).any(dim=1)
+    produced = adv.sum(dim=1).to(torch.int32)
+    B = rl2.shape[0]
+    window = torch.zeros((B, WINDOW), dtype=torch.uint8, device=rl2.device)
+    out, _ = materialize(tuple(x.T for x in (rl2, rlh2, rc2, rn2, rd2)),
+                         window, produced, out_capacity, want_window=False)
+    return out, produced, ok
+
+
+def stitch_and_materialize(records, bpos, status, starts, payload_start,
+                           C: int, out_capacity: int,
+                           ptr_rounds: int | None = None):
+    """Stitch speculative chunk lanes' records and materialize (JAX
+    ``stitch_and_materialize`` :60).
+
+    ``records``: ``decode_symbols``' six records, each [K, B * C]
+    (stream-major lanes, chain 1); ``bpos``/``status`` [B * C] the lanes'
+    exits; ``starts`` [B * C] their start bits; ``payload_start`` [B] each
+    stream's first payload bit.  Lane k's true entry is lane k-1's exit (the
+    payload start for lane 0); a lane is synced where a step began at its
+    entry, and its records before that step are dropped, as are lanes past
+    the stream's first EOB lane.  A stream is ok when every used lane
+    synced without an error status, an EOB was found and no distance
+    reaches before the stream.  Returns (out u8[B, out_capacity], produced
+    int32[B], ok bool[B]); ``ptr_rounds`` is accepted and ignored
+    (``materialize``).
+    """
+    del starts, ptr_rounds
+    rl, rlh, rc, rn, rd, rp = records
+    K, L = rl.shape
+    B = L // C
+    dev = rl.device
+    k = torch.arange(C, device=dev).repeat(B)
+    prev_exit = torch.cat([bpos[:1] * 0, bpos[:-1]])
+    entries = torch.where(k == 0, payload_start.to(bpos.dtype)
+                          .repeat_interleave(C), prev_exit)
+    hit = rp == entries[None, :]
+    synced = hit.any(dim=0)
+    step = torch.arange(K, device=dev)[:, None]
+    first = torch.where(hit, step, K).amin(dim=0)
+    is_eob = status.reshape(B, C) == DS.EOB
+    eob_k = torch.where(is_eob, torch.arange(C, device=dev)[None, :],
+                        C).amin(dim=1)
+    lane_used = k <= eob_k.repeat_interleave(C)
+    keep = lane_used[None, :] & (step >= first[None, :])
+    lane_err = (status != DS.EOB) & (status != DS.STOPPED)
+    ok = ((eob_k < C)
+          & (synced | ~lane_used).reshape(B, C).all(dim=1)
+          & (~lane_err | ~lane_used).reshape(B, C).all(dim=1))
+    masked = [torch.where(keep, a, 0) for a in (rl, rlh, rc, rn, rd)]
+    return _place(masked, ok, C, out_capacity)
+
+
+def indexed_materialize(records, status, starts_mat, C: int,
+                        out_capacity: int, ptr_rounds: int | None = None):
+    """Output of exactly indexed chunk lanes, no stitching (JAX
+    ``indexed_materialize`` :150): every lane started at a symbol boundary,
+    so all its records count.  A stream is ok when no lane has an error
+    status (EOB and STOPPED are not errors), one reached EOB and no
+    distance reaches before the stream.  Returns (out u8[B, out_capacity],
+    produced int32[B], ok bool[B]); ``starts_mat`` and ``ptr_rounds`` are
+    accepted and ignored, as ``starts_mat`` is in JAX."""
+    del starts_mat, ptr_rounds
+    rl = records[0]
+    B = rl.shape[1] // C
+    st2 = status.reshape(B, C)
+    lane_err = (st2 != DS.EOB) & (st2 != DS.STOPPED)
+    ok = ~lane_err.any(dim=1) & (st2 == DS.EOB).any(dim=1)
+    return _place(records[:5], ok, C, out_capacity)
+
+
+def _indexed_symbols(words, total_bits, chunk_starts, max_steps: int,
+                     chain: int):
+    """K11 over the chunk lanes with the trained tables: (records, status
+    with inactive lanes STOPPED, starts).  Distances are checked later,
+    against the stitched positions, so ``out_pos`` is 1 << 30."""
+    t = trained_symbol_tables(str(words.device))
+    starts, bits_l, stops, srow, active = chunk_lanes(total_bits, chunk_starts)
+    records, (_bpos, _opos, status) = DS.decode_symbols(
+        words, starts, bits_l, torch.full_like(starts, 1 << 30), active,
+        torch.zeros_like(starts), t[0], t[1], t[2], t[3],
+        max_steps=max_steps, bit_stop=stops, chain=chain, stream_row=srow,
+        litlen_first=t[4])
+    return records, torch.where(active, status, DS.STOPPED), starts
+
+
+def indexed_decode_step(C: int, max_steps: int, out_capacity: int,
+                        chain: int = 4, ptr_rounds: int | None = None):
+    """Chunk-parallel decoder of indexed ultra-fast streams (JAX
+    ``indexed_decode_step`` :197).
+
+    fn(words int32[B, W], total_bits int32[B], chunk_starts int32[B, C]) ->
+    (out u8[B, out_capacity], produced int32[B], ok bool[B]) on the words'
+    device: K11 (one launch), then ``indexed_materialize``.
+    """
+
+    def step(words, total_bits, chunk_starts):
+        records, status, starts = _indexed_symbols(
+            words, total_bits, chunk_starts, max_steps, chain)
+        return indexed_materialize(records, status, starts, C, out_capacity,
+                                   ptr_rounds)
+
+    return step
+
+
+def stage_indexed(streams: list[bytes], index: np.ndarray, device):
+    """The inputs of ``decompress_batch_indexed``'s decode on ``device``, as
+    JAX stages them: (words int32[B, W] with W a power of two, total_bits
+    int32[B] of each stream but its Adler-32, chunk_starts int32[B, C],
+    cap: the first output capacity, a power of two at or above half the
+    largest stream's bits plus 256)."""
+    B = len(streams)
+    Wmax = 1 << int(np.ceil(np.log2(max(len(s) for s in streams) // 4 + 2)))
+    words_np = np.zeros((B, Wmax), np.uint32)
+    bits = np.zeros(B, np.int32)
+    for i, s in enumerate(streams):
+        body = s[:-4]  # the trailing Adler-32 is framing, not bitstream
+        padded = body + bytes((-len(body)) % 4) + bytes(8)
+        words_np[i, : len(padded) // 4] = np.frombuffer(padded, "<u4")
+        bits[i] = len(body) * 8
+    cap = 1 << int(np.ceil(np.log2(max(int(b) for b in bits) // 2 + 256)))
+    words = torch.from_numpy(words_np.view(np.int32)).to(device)
+    total_bits = torch.from_numpy(bits).to(device)
+    chunk_starts = torch.from_numpy(np.array(index, np.int32)).to(device)
+    return words, total_bits, chunk_starts, cap
+
+
+def decompress_batch_indexed(streams: list[bytes], index: np.ndarray,
+                             max_steps: int | None = None, *,
+                             device="cuda") -> list[bytes]:
+    """Decode indexed ultra-fast streams with chunk-parallel lanes on
+    ``device`` (JAX ``decompress_batch_indexed`` :240).
+
+    ``index`` comes from ``compress_batch_ultra_fast(..., with_index=C)``.
+    The output capacity starts at the JAX guess and grows (a power of two
+    at or above the largest ``produced``) until every stream fits; the
+    records are decoded once (K11) and only materialized again.  A stream
+    the pipeline rejects (``ok`` False) is decoded by ``decompress_batch``
+    instead (its error raised; counted in
+    ``decompress_batch_indexed.fallbacks``), and every stream's Adler-32 is
+    checked on the host (``WrongChecksum``).
+    """
+    dev = device_of(device)
+    C = index.shape[1]
+    words, total_bits, chunk_starts, cap = stage_indexed(streams, index, dev)
+    if max_steps is None:
+        max_steps = max(2048, cap // C)
+    records, status, starts = _indexed_symbols(words, total_bits,
+                                               chunk_starts, max_steps, 4)
+    for _ in range(8):
+        out, produced, ok = indexed_materialize(records, status, starts, C,
+                                                cap)
+        produced = produced.cpu().numpy()
+        if int(produced.max(initial=0)) <= cap:
+            break
+        cap = 1 << int(np.ceil(np.log2(int(produced.max()))))
+    out = out.cpu().numpy()
+    ok = ok.cpu().numpy()
+
+    results: list[bytes] = []
+    for i, s in enumerate(streams):
+        if not ok[i]:
+            decompress_batch_indexed.fallbacks += 1
+            r = decompress_batch([s], device=dev)[0]
+            if isinstance(r, E.DecompressionError):
+                raise r
+            results.append(r)
+            continue
+        data = out[i, : produced[i]].tobytes()
+        if zlib.adler32(data) != int.from_bytes(s[-4:], "big"):
+            raise E.WrongChecksum()
+        results.append(data)
+    return results
+
+
+decompress_batch_indexed.fallbacks = 0
+
+
+def fused_ultrafast_roundtrip(C: int, max_steps: int, N: int, chain: int = 4,
+                              ptr_rounds: int | None = None,
+                              lut_matmul: bool = False, *, device="cuda"):
+    """Encode -> chunk-parallel decode -> verify on ``device`` (JAX
+    ``fused_ultrafast_roundtrip`` :489).
+
+    The encoder's exact chunk index starts every lane at a true symbol
+    boundary (``encode_indexed``); the decode is ``indexed_decode_step``
+    with ``out_capacity = N``, and each stream's Adler-32 of its ``produced``
+    bytes (``adler32_batch``: K7 on the card) is compared with the
+    encoder's.  fn(data u8[B, N], lengths i32[B]) -> (out u8[B, N],
+    produced int32[B], ok bool[B], checksum_ok bool[B]); numpy or tensor
+    inputs are moved to ``device``.  ``lut_matmul`` (a TPU lookup
+    strategy) is accepted and ignored.
+    """
+    del lut_matmul
+    dev = device_of(device)
+    decode = indexed_decode_step(C, max_steps, N, chain, ptr_rounds)
+
+    def step(data, lengths):
+        data = torch.as_tensor(data).to(dev)
+        lengths = torch.as_tensor(lengths).to(dev, torch.int32)
+        words, total_bits, adler, chunk_starts = encode_indexed(data, lengths, C)
+        out, produced, ok = decode(words, total_bits, chunk_starts)
+        return out, produced, ok, adler32_batch(out, produced) == adler
+
+    return step

@@ -2,16 +2,33 @@
 
 The port's copy of the constants of ``fdeflate_tpu/tables.py`` that it
 uses, derived the same way: ``LEN_SYM_TO_LEN_BASE`` :49,
-``LEN_SYM_TO_LEN_EXTRA`` :56, ``CLCL_ORDER`` :78, ``LENGTH_TO_SYMBOL`` and
+``LEN_SYM_TO_LEN_EXTRA`` :56, ``DIST_SYM_TO_DIST_BASE`` :63,
+``DIST_SYM_TO_DIST_EXTRA`` :70, ``CLCL_ORDER`` :78, ``LENGTH_TO_SYMBOL`` and
 ``LENGTH_TO_LEN_EXTRA`` (``_build_length_maps`` :87), ``HUFFMAN_LENGTHS``
-(``_TRAINED_RLE`` :137), ``HUFFMAN_CODES`` (``canonical_codes`` :153) and
-``FIXED_CODE_LENGTHS`` (``fixed_code_lengths`` :220).
+(``_TRAINED_RLE`` :137), ``HUFFMAN_CODES`` (``canonical_codes`` :153),
+``FIXED_CODE_LENGTHS`` (``fixed_code_lengths`` :220), and the
+decode-table constants the reference decode tables of ``huffman.build_table``
+use: the entry flags and default table sizes (:36-42) and the entry
+templates ``LITLEN_TABLE_ENTRIES`` and ``DISTANCE_TABLE_ENTRIES``
+(``_build_litlen_entries`` :193, ``_build_distance_entries`` :207).
 tests/test_torch_hostcopies.py holds every array equal to the original.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# Decode-table entry flags (reference: src/decompress.rs:61-63) and default
+# table sizes (src/decompress.rs:65-67).  A 32-bit entry is a literal
+# (``lit2 << 24 | lit1 << 16 | LITERAL_ENTRY | count << 8 | bits``), a
+# length (``base << 16 | extra << 8 | bits``), EOF (``EXCEPTIONAL_ENTRY |
+# bits``), a secondary-table pointer (``start << 16 | EXCEPTIONAL_ENTRY |
+# SECONDARY_TABLE_ENTRY | mask``) or invalid (``EXCEPTIONAL_ENTRY``).
+LITERAL_ENTRY = 0x8000
+EXCEPTIONAL_ENTRY = 0x4000
+SECONDARY_TABLE_ENTRY = 0x2000
+DEFAULT_LITLEN_TABLE_SIZE = 4096
+DEFAULT_DIST_TABLE_SIZE = 512
 
 # Base match length and extra-bit count of each length symbol 257..285
 # (index 0 == symbol 257).
@@ -23,6 +40,18 @@ LEN_SYM_TO_LEN_BASE = np.array(
 LEN_SYM_TO_LEN_EXTRA = np.array(
     [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4,
      5, 5, 5, 5, 0],
+    dtype=np.int64,
+)
+
+# Base distance and extra-bit count of each distance symbol 0..29.
+DIST_SYM_TO_DIST_BASE = np.array(
+    [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385, 513,
+     769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385, 24577],
+    dtype=np.int64,
+)
+DIST_SYM_TO_DIST_EXTRA = np.array(
+    [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10, 10,
+     11, 11, 12, 12, 13, 13],
     dtype=np.int64,
 )
 
@@ -97,6 +126,35 @@ def _bit_reverse(values: np.ndarray, nbits: int) -> np.ndarray:
 
 
 HUFFMAN_CODES = canonical_codes(HUFFMAN_LENGTHS)
+
+
+def _build_litlen_entries() -> np.ndarray:
+    """Decode-table entry templates of the 288 literal/length symbols
+    (reference: src/tables.rs:99-140); ``build_table`` ORs the code length
+    into their low 4 bits."""
+    entries = np.full(288, EXCEPTIONAL_ENTRY, dtype=np.uint32)
+    lits = np.arange(256, dtype=np.uint32)
+    entries[:256] = (lits << 16) | LITERAL_ENTRY | (1 << 8)
+    entries[257:286] = (
+        (LEN_SYM_TO_LEN_BASE.astype(np.uint32) << 16)
+        | (LEN_SYM_TO_LEN_EXTRA.astype(np.uint32) << 8)
+    )
+    return entries
+
+
+def _build_distance_entries() -> np.ndarray:
+    """Templates of the 32 distance symbols; 30 and 31 stay 0 (invalid)."""
+    entries = np.zeros(32, dtype=np.uint32)
+    entries[:30] = (
+        (DIST_SYM_TO_DIST_BASE.astype(np.uint32) << 16)
+        | (DIST_SYM_TO_DIST_EXTRA.astype(np.uint32) << 8)
+        | LITERAL_ENTRY
+    )
+    return entries
+
+
+LITLEN_TABLE_ENTRIES = _build_litlen_entries()
+DISTANCE_TABLE_ENTRIES = _build_distance_entries()
 
 
 def fixed_code_lengths() -> np.ndarray:

@@ -459,3 +459,245 @@ def k4_edge_case(kind: str):
     col = torch.from_numpy
     return (col(words), col(start), col(wend), col(bit_end), col(out0), meta,
             tab), K
+
+
+# ---- K11 decode_symbols ----------------------------------------------------
+
+
+def _long_code_lengths(n: int, top: int) -> np.ndarray:
+    """A complete code over n symbols whose lengths spread from 1 to 15
+    (the length-limited DP on geometric frequencies): many codes longer
+    than the primary table's bits, so secondary tables are in use."""
+    from ..huffman import compute_code_lengths
+
+    freqs = np.maximum(1, 2.0 ** (top - top * np.arange(n) / n)).astype(np.uint64)
+    return compute_code_lengths(freqs, np.ones(n, np.int64),
+                                np.full(n, 15, np.int64))
+
+
+def symbol_stream(ll_lengths, d_lengths, nsym: int, seed: int,
+                  match_share: float = 0.3) -> bytes:
+    """Random symbols under the code of ``ll_lengths`` (288) and
+    ``d_lengths`` (32), drawn uniformly over the coded valid symbols (not
+    distance symbols 30/31), so long codes are as common as short ones,
+    with random extra bits, then the end of block; LSB first, no
+    header."""
+    from ..tables import (DIST_SYM_TO_DIST_EXTRA, LEN_SYM_TO_LEN_EXTRA,
+                          canonical_codes)
+
+    rng = np.random.default_rng(seed)
+    ll_codes = canonical_codes(ll_lengths)
+    d_codes = canonical_codes(d_lengths)
+    lits = [s for s in np.nonzero(ll_lengths)[0] if s < 256]
+    lens = [s for s in np.nonzero(ll_lengths)[0] if 257 <= s <= 285]
+    dists = [s for s in np.nonzero(d_lengths)[0] if s < 30]
+    acc, nbits = 0, 0
+
+    def put(v: int, n: int):
+        nonlocal acc, nbits
+        n = int(n)
+        acc |= (int(v) & ((1 << n) - 1)) << nbits
+        nbits += n
+
+    for _ in range(nsym):
+        if lens and dists and rng.random() < match_share:
+            s = int(lens[int(rng.integers(len(lens)))])
+            put(ll_codes[s], ll_lengths[s])
+            ex = int(LEN_SYM_TO_LEN_EXTRA[s - 257]) if s < 286 else 0
+            put(int(rng.integers(1 << ex)), ex)
+            ds = int(dists[int(rng.integers(len(dists)))])
+            put(d_codes[ds], d_lengths[ds])
+            ex = int(DIST_SYM_TO_DIST_EXTRA[ds]) if ds < 30 else 0
+            put(int(rng.integers(1 << ex)), ex)
+        else:
+            s = int(lits[int(rng.integers(len(lits)))])
+            put(ll_codes[s], ll_lengths[s])
+    put(ll_codes[256], ll_lengths[256])
+    return acc.to_bytes((nbits + 7) // 8 + 4, "little")
+
+
+def _stream_words(z: bytes, W: int | None = None) -> torch.Tensor:
+    padded = z + bytes((-len(z)) % 4) + bytes(8)
+    w = np.frombuffer(padded, "<u4").view(np.int32)
+    return torch.from_numpy(w[:W].copy())
+
+
+def k11_tables():
+    """Reference decode tables of K11's edge inputs: (litlen u32[4096],
+    litlen_sec, dist u32[512], dist_sec, first_len i32[4096], ll_lengths,
+    d_lengths) for a code of long literal/length codes (secondary tables
+    of both trees; distance symbols 30 and 31 coded, so invalid) and for
+    the fixed code."""
+    from ..huffman import build_table
+    from ..ops.decode_symbols import tables_from_lengths
+    from ..tables import FIXED_CODE_LENGTHS, LITLEN_TABLE_ENTRIES
+
+    ll = np.zeros(288, np.int64)
+    ll[:286] = _long_code_lengths(286, 14)
+    d = _long_code_lengths(32, 15)
+    fixed = np.asarray(FIXED_CODE_LENGTHS, np.int64)
+    out = {}
+    for name, (lls, ds) in {"long codes": (ll, d),
+                            "fixed": (fixed[:288], fixed[288:320])}.items():
+        lengths = np.zeros(320, np.int64)
+        lengths[:288] = lls
+        lengths[288:320] = ds
+        t = tables_from_lengths(lengths, 288)
+        first = build_table(lls, LITLEN_TABLE_ENTRIES, 4096,
+                            is_distance_table=False,
+                            double_literal=True).first_len.astype(np.int32)
+        out[name] = (*t, first, lls, ds)
+    return out
+
+
+K11_KINDS = ("long codes", "truncated", "fixed code, corrupted",
+             "invalid and garbage entries", "stacked tables", "steps run out",
+             "split at bit_stop")
+
+
+def k11_edge_case(kind: str) -> dict:
+    """K11's inputs of one kind, on the CPU, as ``decode_symbols``
+    keywords (tables as numpy arrays): lanes started at the symbol stream's
+    first bit and at random bits (not symbol boundaries), with ``bit_stop``
+    inside the stream for some, ``out_pos`` 0 for some (a distance too far
+    back), some inactive, and:
+      * "long codes": a stream of codes of 1-15 bits (secondary tables);
+      * "truncated": the same with ``bit_end`` inside it, and lanes reading
+        a row cut short (reads past its last word);
+      * "fixed code, corrupted": the fixed code, words corrupted (distance
+        symbols 30/31, literal/length 286/287), and lanes that end at an
+        invalid code given a ``bit_end`` inside that code (truncation
+        wins);
+      * "invalid and garbage entries": table entries replaced by the
+        invalid entry (EXCEPTIONAL_ENTRY, 0 bits) and by random 32-bit
+        words (code lengths and extra bits past 31, flags together);
+      * "stacked tables": both tables and the trained one stacked (T = 3)
+        with ``table_id`` and two rows read through ``stream_row``;
+      * "steps run out": every lane at the first bit, 24 steps (OK);
+      * "split at bit_stop": the chunk lanes of the indexed codec (trained
+        tables, ``litlen_first``, chain 1) over bytes whose literal codes
+        are mostly 3-5 bits, so a lane's last double-literal entry often
+        holds the next lane's first symbol and is split.
+    ``chain`` cycles 4, 2, 1 over the kinds."""
+    from ..ops.decode_symbols import stack_tables
+    from ..tables import EXCEPTIONAL_ENTRY, HUFFMAN_LENGTHS
+
+    i = K11_KINDS.index(kind)
+    rng = np.random.default_rng(110 + i)
+    if kind == "split at bit_stop":
+        return _k11_split_case(rng)
+    tabs = k11_tables()
+    name = "fixed" if kind == "fixed code, corrupted" else "long codes"
+    ll_t, ls_t, d_t, ds_t, first, lls, ds = tabs[name]
+    z = symbol_stream(lls, ds, 900, 120 + i)
+    words = _stream_words(z)[None, :]
+    nbits = len(z) * 8
+    L = 32
+    max_steps = 24 if kind == "steps run out" else 640
+    chain = (4, 2, 1)[i % 3]
+    bit_pos = rng.integers(0, nbits, L)
+    bit_pos[:4] = 0
+    if kind == "steps run out":
+        bit_pos[:] = 0
+    bit_end = np.full(L, nbits)
+    stop = np.where(rng.random(L) < 0.5, bit_pos + rng.integers(1, 3000, L),
+                    0x7FFFFFFF)
+    out_pos = np.where(rng.random(L) < 0.25, 0, 1 << 30)
+    active = rng.random(L) < 0.9
+    active[0] = True
+    table_id = np.zeros(L, np.int32)
+    rows = None
+    if kind == "truncated":
+        # The words stop halfway through the stream: a lane that reads past
+        # the last word reads it again (JAX's load_word clamps), and runs
+        # out of bits at bit_end, inside the stream or past the words.
+        words = words[:, : words.shape[1] // 2].clone()
+        bit_end = np.where(rng.random(L) < 0.5, nbits,
+                           bit_pos + rng.integers(0, 2000, L))
+    if kind == "fixed code, corrupted":
+        idx = rng.integers(0, words.shape[1] - 2, words.shape[1] // 12)
+        words = words.clone()
+        words[0, idx] ^= torch.from_numpy(
+            rng.integers(1, 2**31, idx.size).astype(np.int32))
+    if kind == "invalid and garbage entries":
+        ll_t, d_t = ll_t.copy(), d_t.copy()
+        ll_t[rng.integers(0, 4096, 60)] = EXCEPTIONAL_ENTRY
+        ll_t[rng.integers(0, 4096, 150)] = rng.integers(0, 2**32, 150)
+        # length entries with code lengths and extra bits past 31
+        ll_t[rng.integers(0, 4096, 150)] = rng.integers(0, 2**32, 150) & ~0xC000
+        # lane 0's first symbol: a length entry of 3 bits with 40 extra
+        # bits, whose mask is all ones (XLA's 1 << 40 is 0)
+        ll_t[int(words[0, 0]) & 4095] = (100 << 16) | (40 << 8) | 3
+        out_pos[0], stop[0] = 1 << 30, 0x7FFFFFFF
+        d_t[rng.integers(0, 512, 40)] = rng.integers(0, 2**32, 40)
+    litlen, lsec, dist, dsec = (x[None] if x.ndim == 1 else x for x in
+                                stack_tables([(ll_t, ls_t, d_t, ds_t)]))
+    first = first[None]
+    if kind == "stacked tables":
+        from ..huffman import build_table
+        from ..ops.decode_symbols import tables_from_lengths
+        from ..tables import LITLEN_TABLE_ENTRIES
+
+        fx = tabs["fixed"]
+        trained = np.zeros(320, np.int64)
+        trained[:286] = HUFFMAN_LENGTHS
+        trained[288] = 1
+        tt = tables_from_lengths(trained, 286)
+        t_first = build_table(HUFFMAN_LENGTHS, LITLEN_TABLE_ENTRIES, 4096,
+                              is_distance_table=False,
+                              double_literal=True).first_len.astype(np.int32)
+        litlen, lsec, dist, dsec = stack_tables(
+            [(ll_t, ls_t, d_t, ds_t), fx[:4], tt])
+        first = np.stack([tabs["long codes"][4], fx[4], t_first])
+        z2 = symbol_stream(fx[5], fx[6], 700, 130)
+        w2 = _stream_words(z2)
+        W = max(words.shape[1], w2.numel())
+        both = torch.zeros((2, W), dtype=torch.int32)
+        both[0, : words.shape[1]] = words[0]
+        both[1, : w2.numel()] = w2
+        words = both
+        rows = rng.integers(0, 2, L)
+        table_id = np.where(rows == 1, 1, 2 * rng.integers(0, 2, L))
+        bit_end = np.where(rows == 1, len(z2) * 8, bit_end)
+        bit_pos = np.minimum(bit_pos, bit_end - 1)
+    col = lambda a, dt=torch.int32: torch.from_numpy(np.asarray(a)).to(dt)
+    if kind == "fixed code, corrupted":
+        # Lanes that stop at an invalid distance code stop again with their
+        # bit_end 6 bits past the code's start: the code is also truncated.
+        from ..ops.decode_symbols import ERR_DIST, decode_symbols
+
+        _rec, (bp, _op, st) = decode_symbols(
+            words, col(bit_pos), col(bit_end), col(out_pos),
+            col(active, torch.bool), col(table_id), litlen, lsec, dist, dsec,
+            max_steps, bit_stop=col(stop), chain=chain, litlen_first=first)
+        cut = (st.numpy() == ERR_DIST) & (np.arange(L) % 2 == 0)
+        bit_end = np.where(cut, bp.numpy() + 6, bit_end)
+    return dict(
+        words=words, bit_pos=col(bit_pos), bit_end=col(bit_end),
+        out_pos=col(out_pos), active=col(active, torch.bool),
+        table_id=col(table_id), litlen=litlen, litlen_sec=lsec, dist=dist,
+        dist_sec=dsec, max_steps=max_steps, bit_stop=col(stop), chain=chain,
+        stream_row=None if rows is None else col(rows), litlen_first=first)
+
+
+def _k11_split_case(rng) -> dict:
+    """The chunk lanes of 3 x 4096 bytes of short-code literals, C = 16;
+    a few long-code literals (byte 128) break the pairs, so a lane's
+    symbols before the next lane's start are not always an even count."""
+    from ..parallel.device_pipeline import (chunk_lanes, encode_indexed,
+                                            trained_symbol_tables)
+
+    B, N, C = 3, 4096, 16
+    data = torch.from_numpy(rng.choice(
+        np.array([1, 2, 3, 253, 254, 255, 128], np.uint8), (B, N),
+        p=[0.16] * 6 + [0.04]))
+    words, total_bits, _adler, index = encode_indexed(
+        data, torch.full((B,), N, dtype=torch.int32), C)
+    starts, bits_l, stops, srow, active = chunk_lanes(total_bits, index)
+    t = trained_symbol_tables("cpu")
+    return dict(
+        words=words, bit_pos=starts, bit_end=bits_l,
+        out_pos=torch.full_like(starts, 1 << 30), active=active,
+        table_id=torch.zeros_like(starts), litlen=t[0], litlen_sec=t[1],
+        dist=t[2], dist_sec=t[3], max_steps=1024, bit_stop=stops, chain=1,
+        stream_row=srow, litlen_first=t[4])

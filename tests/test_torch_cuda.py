@@ -40,6 +40,7 @@ from fdeflate_tpu_torch.ops.decode2 import (
 )
 from fdeflate_tpu_torch.ops.decode_sep import (decode_sep, decode_sep_plain,
                                                decode_sep_plain_eob)
+from fdeflate_tpu_torch.ops.decode_symbols import decode_symbols
 from fdeflate_tpu_torch.ops.inflate_records import (
     NO_LIMIT,
     inflate_records,
@@ -60,13 +61,15 @@ from fdeflate_tpu_torch.ops.validate_headers import (
 )
 from fdeflate_tpu_torch.parallel import discovery as PD
 from fdeflate_tpu_torch.ops.ultrafast import _encode, lane_starts, stream_words
+from fdeflate_tpu_torch.parallel import device_pipeline as DP
 from fdeflate_tpu_torch.parallel.device_pipeline import fused_zlib_roundtrip
-from fdeflate_tpu_torch.tools.edges import (K4_KINDS, K8_UNSAFE,
+from fdeflate_tpu_torch.tools.edges import (K4_KINDS, K8_UNSAFE, K11_KINDS,
                                             corrupt_words, k1_edge_inputs,
                                             k1_long_lane, k2_edge_cases,
                                             k3_edge_cases, k4_edge_case,
                                             k5_cross_stream, k6_edge_cases,
-                                            k8_unsafe_packed, k9_noise_tokens)
+                                            k8_unsafe_packed, k9_noise_tokens,
+                                            k11_edge_case)
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 pytestmark = pytest.mark.cuda
@@ -657,9 +660,92 @@ def test_inflate_records_edges(dev, kind):
     assert int(stats[1]) >= args[1].numel()       # a span per lane at least
 
 
+def _flat(res):
+    """``decode_symbols``' (records, state) as one tuple."""
+    return tuple(res[0]) + tuple(res[1])
+
+
+def _on(case: dict, dev) -> dict:
+    """``decode_symbols`` keywords with their tensors on ``dev`` (numpy
+    tables stay numpy: the wrapper moves them)."""
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in case.items()}
+
+
+def _same_records(got, want, label):
+    for i, (g, w) in enumerate(zip(got[0] + got[1], want[0] + want[1])):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w), (label, i)
+
+
+@pytest.mark.parametrize("kind", K11_KINDS)
+def test_decode_symbols_edges(dev, kind):
+    """K11 on its edge inputs (tools/edges.py: codes of up to 15 bits,
+    truncation, reads past the last word, corrupted fixed-code streams,
+    invalid entries, stacked tables and stream_row, exhausted steps), one
+    launch, against the plain version on the CPU."""
+    case = k11_edge_case(kind)
+    want = decode_symbols(**case)
+    before = decode_symbols.launches
+    got = decode_symbols(**_on(case, dev))
+    assert decode_symbols.launches == before + 1
+    _same_records(got, want, kind)
+
+
+def _indexed_case(dev, B=4, N=65536, C=64):
+    """The chunk lanes of an IDAT-like batch, encoded on ``dev``."""
+    data = torch.from_numpy(_data(3, B, N, [N] * B)).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    words, total_bits, _adler, index = DP.encode_indexed(data, lengths, C)
+    starts, bits_l, stops, srow, active = DP.chunk_lanes(total_bits, index)
+    t = DP.trained_symbol_tables(str(dev))
+    return data, lengths, dict(
+        words=words, bit_pos=starts, bit_end=bits_l,
+        out_pos=torch.full_like(starts, 1 << 30), active=active,
+        table_id=torch.zeros_like(starts), litlen=t[0], litlen_sec=t[1],
+        dist=t[2], dist_sec=t[3], bit_stop=stops, stream_row=srow,
+        litlen_first=t[4], max_steps=2048)
+
+
+@pytest.mark.parametrize("chain", [1, 2, 4])
+def test_decode_symbols_indexed_matches_plain(dev, chain):
+    _data_, _lengths, case = _indexed_case(dev)
+    got = decode_symbols(**case, chain=chain)
+    want = decode_symbols(**_on(case, "cpu"), chain=chain)
+    _same_records(got, want, f"chain {chain}")
+
+
+def test_fused_ultrafast_roundtrip_cuda_equals_cpu(dev):
+    data, lengths, _case = _indexed_case(dev, N=32768, C=8)
+    N = data.shape[1]
+    before = decode_symbols.launches
+    got = P.fused_ultrafast_roundtrip(8, 8192, N)(data, lengths)
+    assert decode_symbols.launches == before + 1
+    want = P.fused_ultrafast_roundtrip(8, 8192, N, device="cpu")(
+        data.cpu(), lengths.cpu())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(got[2].all()) and bool(got[3].all())
+    assert torch.equal(got[0], data)
+
+
+def test_decompress_batch_indexed_cuda_equals_cpu(dev):
+    rng = np.random.default_rng(123)
+    datas = [rng.choice([0] * 7 + [40, 90], 60_000).astype(np.uint8).tobytes(),
+             bytes(200_000),
+             rng.integers(0, 256, 20_000, dtype=np.uint8).tobytes(),
+             b"small", b""]
+    streams, index = P.compress_batch_ultra_fast(datas, with_index=8)
+    before = DP.decompress_batch_indexed.fallbacks
+    got = P.decompress_batch_indexed(streams, index)
+    assert got == datas == P.decompress_batch_indexed(streams, index,
+                                                      device="cpu")
+    assert DP.decompress_batch_indexed.fallbacks == before
+
+
 def _every_wrapper(dev):
-    """(name, kernel call, plain call) of each of the ten kernels' entry
-    points (K7's through both its wrappers) on small inputs on ``dev``."""
+    """(name, kernel call, plain call) of each of the eleven kernels' entry
+    points (K7's through both its wrappers) on small inputs on ``dev``; the
+    plain call of K11 runs on the CPU."""
     data, lengths, C = _inputs(dev, "ragged_B3_N8192_C4")
     B, N = data.shape
     t = trained_tables(str(dev))
@@ -682,6 +768,7 @@ def _every_wrapper(dev):
     z = zlib.compress(_foreign(2, 60_000), 6)
     zw = PD.stage_words(z, device=dev)
     c = torch.from_numpy(PD.scan_stage1_device(z, device="cpu")).to(dev)
+    k11 = k11_edge_case("stacked tables")
     return [
         ("assign_pack", lambda: assign_pack(data, lengths, C, t),
          lambda: assign_pack_plain(data, lengths, C, t)),
@@ -705,6 +792,8 @@ def _every_wrapper(dev):
          lambda: (pack_blocked_plain(tok, wwin(512)),)),
         ("combine_grouped", lambda: combine(win, bits, pos0, B, W, group=4),
          lambda: (combine_plain(win, bits, pos0, B, W),)),
+        ("decode_symbols", lambda: _flat(decode_symbols(**_on(k11, dev))),
+         lambda: tuple(x.to(dev) for x in _flat(decode_symbols(**k11)))),
     ]
 
 

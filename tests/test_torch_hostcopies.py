@@ -34,7 +34,9 @@ from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 
 TABLES = ["HUFFMAN_CODES", "HUFFMAN_LENGTHS", "LEN_SYM_TO_LEN_BASE",
           "LEN_SYM_TO_LEN_EXTRA", "LENGTH_TO_SYMBOL", "LENGTH_TO_LEN_EXTRA",
-          "FIXED_CODE_LENGTHS", "CLCL_ORDER"]
+          "FIXED_CODE_LENGTHS", "CLCL_ORDER", "DIST_SYM_TO_DIST_BASE",
+          "DIST_SYM_TO_DIST_EXTRA", "LITLEN_TABLE_ENTRIES",
+          "DISTANCE_TABLE_ENTRIES"]
 
 
 @pytest.mark.parametrize("name", TABLES)
@@ -42,6 +44,69 @@ def test_tables_equal_the_originals(name):
     got, want = getattr(PT, name), getattr(JT, name)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+
+
+def test_table_constants_equal_the_originals():
+    for name in ("LITERAL_ENTRY", "EXCEPTIONAL_ENTRY", "SECONDARY_TABLE_ENTRY",
+                 "DEFAULT_LITLEN_TABLE_SIZE", "DEFAULT_DIST_TABLE_SIZE"):
+        assert getattr(PT, name) == getattr(JT, name), name
+
+
+def _decode_tables_equal(lengths, entries_name, size, **kw):
+    entries = None if entries_name is None else getattr(JT, entries_name)
+    got = PH.build_table(lengths, None if entries is None else
+                         getattr(PT, entries_name), size, **kw)
+    want = JH.build_table(lengths, entries, size, **kw)
+    assert got.ok == want.ok
+    for name in ("codes", "primary", "secondary", "first_len"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    return got
+
+
+LITLEN = dict(is_distance_table=False, double_literal=True)
+DIST = dict(is_distance_table=True, double_literal=False)
+
+
+def test_build_table_equals_the_original_on_fixed_and_trained_codes():
+    fixed = np.asarray(JT.FIXED_CODE_LENGTHS, np.int64)
+    _decode_tables_equal(JT.HUFFMAN_LENGTHS, "LITLEN_TABLE_ENTRIES", 4096,
+                         **LITLEN)
+    for size in (512, 4096):
+        _decode_tables_equal(fixed[:288], "LITLEN_TABLE_ENTRIES", size,
+                             **LITLEN)
+    for size in (32, 512):
+        _decode_tables_equal(fixed[288:320], "DISTANCE_TABLE_ENTRIES", size,
+                             **DIST)
+    one = np.zeros(32, np.int64)
+    one[0] = 1                        # the trained tree's one distance code
+    _decode_tables_equal(one, "DISTANCE_TABLE_ENTRIES", 512, **DIST)
+    _decode_tables_equal(np.zeros(32, np.int64), "DISTANCE_TABLE_ENTRIES",
+                         512, **DIST)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_build_table_equals_the_original_on_fuzzed_codes(seed):
+    """Codes of up to 15 bits (secondary tables, which grow as long codes
+    share a prefix), some incomplete (ok False), with and without
+    templates; the copy's secondaries are exercised where the primary
+    table is 12 bits."""
+    rng = np.random.default_rng(300 + seed)
+    lens = _fuzzed_lengths(rng, 288, 15, used=(256,))
+    got = _decode_tables_equal(lens, "LITLEN_TABLE_ENTRIES", 4096, **LITLEN)
+    if got.ok and lens.max() > 12:
+        assert got.secondary.size > 0
+    _decode_tables_equal(lens, None, 4096,
+                         is_distance_table=False, double_literal=False)
+    _decode_tables_equal(_fuzzed_lengths(rng, 32, 15),
+                         "DISTANCE_TABLE_ENTRIES", 512, **DIST)
+    # distance codes of up to 15 bits (geometric frequencies)
+    freqs = (2.0 ** rng.permutation(np.linspace(0, 15, 32))).astype(np.uint64)
+    dl = JH.compute_code_lengths(freqs, np.ones(32, np.int64),
+                                 np.full(32, 15, np.int64))
+    got = _decode_tables_equal(dl, "DISTANCE_TABLE_ENTRIES", 512, **DIST)
+    assert dl.max() > 9 and got.secondary.size > 0
 
 
 def test_stream_header_equals_the_original():

@@ -25,10 +25,12 @@ from fdeflate_tpu_torch.ops.decode2 import (
     decode_blocked,
 )
 from fdeflate_tpu_torch.ops.decode_sep import decode_sep
+from fdeflate_tpu_torch.ops.decode_symbols import decode_symbols
 from fdeflate_tpu_torch.ops.inflate_records import inflate_records
 from fdeflate_tpu_torch.ops.pack import encode_blocked_v1, pack_blocked
 from fdeflate_tpu_torch.ops.repack import combine, combine_grouped
 from fdeflate_tpu_torch.ops.validate_headers import validate_headers
+from fdeflate_tpu_torch.parallel.device_pipeline import trained_symbol_tables
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,6 +50,11 @@ assert np.array_equal(out.numpy(), data) and bool(bpos_ok.all()) and bool(ck_ok.
 streams, index = P.compress_batch_ultra_fast(
     [data[0].tobytes(), data[1, :700].tobytes()], with_index=4, device="cpu")
 assert zlib.decompress(streams[1]) == data[1, :700].tobytes()
+# the indexed chunk-parallel decode (K11's plain version)
+assert P.decompress_batch_indexed(streams, index, device="cpu") == [
+    data[0].tobytes(), data[1, :700].tobytes()]
+out, produced, ok, ck_ok = P.fused_ultrafast_roundtrip(4, 2048, 1024, device="cpu")(data, lengths)
+assert np.array_equal(out.numpy(), data) and bool(ok.all()) and bool(ck_ok.all())
 # the foreign path: block-parallel and sequential decode of zlib streams
 text = b"".join(bytes([97 + (i * 7919) % 23]) * (1 + i % 3) for i in range(9000))
 co = zlib.compressobj(6)
@@ -177,6 +184,10 @@ DEFAULT_DEVICE_CALLS = {
     "try_foreign_batch": lambda: P.try_foreign_batch([_Z, _Z]),
     "decompress_foreign": lambda: P.decompress_foreign(_Z),
     "decompress_batch": lambda: P.decompress_batch([_Z]),
+    "decompress_batch_indexed":
+        lambda: P.decompress_batch_indexed([_Z], np.zeros((1, 4), np.int32)),
+    "fused_ultrafast_roundtrip":
+        lambda: P.fused_ultrafast_roundtrip(8, 2048, 2048),
 }
 
 
@@ -231,12 +242,17 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
         pack_blocked(torch.empty(4, 64, dtype=torch.int32, device=meta), 26)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         combine(win, bits, bits, 2, 40, group=4)
+    st = [x.to(meta) for x in trained_symbol_tables("cpu")]
+    lane2 = torch.empty(2, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        decode_symbols(words, lane2, lane2, lane2, lane2, lane2, *st[:4],
+                       max_steps=8, litlen_first=st[4])
 
 
 def test_cpu_path_counts_no_launches():
     kernels = (assign_pack, combine, decode2, inflate_records,
                validate_headers, decode_sep, adler32_tiles, decode2_canon,
-               pack_blocked, combine_grouped)
+               pack_blocked, combine_grouped, decode_symbols)
     before = [k.launches for k in kernels]
     data = np.zeros((2, 512), np.uint8)
     out, bpos_ok, ck_ok = P.fused_zlib_roundtrip(4, 512, device="cpu")(
@@ -262,6 +278,9 @@ def test_cpu_path_counts_no_launches():
     decode_blocked(win, 32, light=False)
     combine(win, bits, torch.arange(8, dtype=torch.int32) * 32, 2, 64,
             group=2)
+    _o, _p, ok, ck_ok = P.fused_ultrafast_roundtrip(4, 2048, 512,
+                                                    device="cpu")(data, lengths)
+    assert bool(ok.all()) and bool(ck_ok.all())
     assert [k.launches for k in kernels] == before
 
 
