@@ -92,17 +92,23 @@ process per source, all at once) and drives the port's paths:
 13.  The indexed chunk-parallel decode at the headline width: the 16 x 1
      MiB corpus through ``compress_batch_ultra_fast(with_index=512)`` (one
      lane per stream: K1 at C = 1, K2, K7) and ``decompress_batch_indexed``
-     (K11 decode_symbols once over the 8192 chunk lanes, materialize);
-     every stream equal to its input and none decoded by the fallback
-     (``decompress_batch``); ``fused_ultrafast_roundtrip(512, max_steps,
-     N)`` with ``ok``, ``checksum_ok``, ``produced == lengths`` and ``out
-     == data``; K11 against its plain version on the card on all 8192
-     headline lanes and on its edge inputs (tools/edges.py: codes of up to
-     15 bits through the secondary tables, truncation, reads past the last
-     word, corrupted fixed-code streams, invalid entries, stacked tables,
-     exhausted steps); times of K11, the rearrangement and materialize,
-     the whole ``indexed_decode_step``, the one-lane encode and the whole
-     ``decompress_batch_indexed`` (decoded GB/s), and its peak memory.
+     (K11 decode_symbols once over the 8192 chunk lanes in its live form,
+     each lane's records up to its step count, read by
+     ``indexed_materialize``); every stream equal to its input and none
+     decoded by the fallback (``decompress_batch``);
+     ``fused_ultrafast_roundtrip(512, max_steps, N)`` with ``ok``,
+     ``checksum_ok``, ``produced == lengths`` and ``out == data``; K11's
+     full form (the public ``decode_symbols``, every row) and its live form
+     (rows below each lane's step count, the counts, the state) against
+     the plain version on the card on all 8192 headline lanes and on its
+     edge inputs (tools/edges.py: codes of up to 15 bits through the
+     secondary tables, truncation, reads past the last word, corrupted
+     fixed-code streams, invalid entries, stacked tables, exhausted
+     steps); times of both forms with both bounds (K11's row: the live
+     form, the main path's, with the full form's time and bound beside
+     it), ``indexed_materialize``, the whole ``indexed_decode_step``, the
+     one-lane encode and the whole ``decompress_batch_indexed`` (decoded
+     GB/s), and its peak memory.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
@@ -1154,11 +1160,15 @@ def indexed_phase(torch, P, dev, corpus, card):
     docstring).  Returns K11's row."""
     from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
     from fdeflate_tpu_torch.ops.assign_pack import assign_pack
-    from fdeflate_tpu_torch.ops.decode_symbols import STOPPED, decode_symbols
+    from fdeflate_tpu_torch.ops.decode_symbols import (STOPPED,
+                                                       _decode_symbols_live,
+                                                       decode_symbols)
     from fdeflate_tpu_torch.ops.repack import combine
+    from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch
     from fdeflate_tpu_torch.parallel import device_pipeline as DP
     from fdeflate_tpu_torch.tools.edges import K11_KINDS, k11_edge_case
-    from fdeflate_tpu_torch.tools.time_k11 import headline_lanes, plain_k11
+    from fdeflate_tpu_torch.tools.time_k11 import (headline_lanes, k11_bytes,
+                                                   live_view, plain_k11)
 
     B, N = corpus.shape
     streams_in = [r.tobytes() for r in corpus]
@@ -1209,37 +1219,50 @@ def indexed_phase(torch, P, dev, corpus, card):
           f"all, produced == lengths, out == data", flush=True)
 
     # K11 against its plain version on the card, on the headline lanes and
-    # on the edge inputs.
+    # on the edge inputs: the full form (every row) and the live form (each
+    # lane's rows below its step count, the count, the state).
     got = decode_symbols(**case)
+    want = plain_k11(case)
     err = check_equal(torch, "decode_symbols (headline lanes)",
-                      got[0] + got[1], (lambda w: w[0] + w[1])(plain_k11(case)))
+                      got[0] + got[1], want[0] + want[1])
+    live = _decode_symbols_live(**case)
+    err = max(err, check_equal(torch, "K11 live form (headline lanes)",
+                               live_view(*live), live_view(*want)))
     statuses = sorted(set(got[1][2].tolist()))
-    ran = int((got[0][5] >= 0).sum())
-    print(f"decode_symbols == plain on the {case['bit_pos'].numel()} headline "
-          f"lanes ({max_steps} steps, {ran} lane steps run, statuses "
-          f"{statuses}): ok", flush=True)
+    ran = int(live[2].sum())
+    print(f"decode_symbols == plain and the live form == plain on the "
+          f"{case['bit_pos'].numel()} headline lanes ({max_steps} steps, "
+          f"{ran} lane steps run, at most {int(live[2].max())} in a lane, "
+          f"statuses {statuses}): ok", flush=True)
     for kind in K11_KINDS:
         e = k11_edge_case(kind)
         on = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in e.items()}
         g = decode_symbols(**on)
+        w = plain_k11(on)
         err = max(err, check_equal(torch, f"decode_symbols ({kind})",
-                                   g[0] + g[1],
-                                   (lambda w: w[0] + w[1])(plain_k11(on))))
-        print(f"decode_symbols == plain on the {kind} edge input (chain "
-              f"{e['chain']}, statuses {sorted(set(g[1][2].tolist()))}): ok",
-              flush=True)
+                                   g[0] + g[1], w[0] + w[1]))
+        err = max(err, check_equal(torch, f"K11 live form ({kind})",
+                                   live_view(*_decode_symbols_live(**on)),
+                                   live_view(*w)))
+        print(f"decode_symbols and its live form == plain on the {kind} "
+              f"edge input (chain {e['chain']}, statuses "
+              f"{sorted(set(g[1][2].tolist()))}): ok", flush=True)
+    del got, want, g, w
 
     # Times: one call and back to back (card: see the line below).
-    records, state = got
+    records, state, steps = live
     status = torch.where(case["active"], state[2], STOPPED)
     step = DP.indexed_decode_step(CHUNKS, max_steps, cap)
     fns = {
-        "K11 decode_symbols": lambda: decode_symbols(**case),
-        "rearrange + materialize (indexed_materialize)":
-            lambda: DP.indexed_materialize(records, status, None, CHUNKS, cap),
+        "K11 live form (_decode_symbols_live)":
+            lambda: _decode_symbols_live(**case),
+        "K11 full form (decode_symbols)": lambda: decode_symbols(**case),
+        "indexed_materialize (live records)":
+            lambda: DP.indexed_materialize(records, status, None, CHUNKS, cap,
+                                           steps=steps),
         "indexed_decode_step": lambda: step(*staged),
-        "one-lane encode (encode_indexed)":
-            lambda: DP.encode_indexed(data, lengths, CHUNKS),
+        f"one-lane encode (encode_ultrafast_batch(num_chunks={CHUNKS}))":
+            lambda: encode_ultrafast_batch(data, lengths, num_chunks=CHUNKS),
     }
     one = {k: cuda_ms(torch, fn, 5) for k, fn in fns.items()}
     queued = {k: back_to_back_ms(torch, fn, 5) for k, fn in fns.items()}
@@ -1261,20 +1284,24 @@ def indexed_phase(torch, P, dev, corpus, card):
           f"({B * N / api_s / 1e9:.4f} GB/s of output), peak device memory "
           f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
 
-    L = case["bit_pos"].numel()
-    tb = staged[1].to(torch.int64)
-    words_read = int(((tb + 31) // 32).sum())
-    syms = symbol_count(torch, data, lengths, N)
-    # bytes: the words read once, six records of 21 B per lane and step,
-    # the lanes' inputs (7 int32) and state (9 B), the tables; operations:
-    # 8 per symbol, as K3, K6 and K8
-    nbytes = (4 * words_read + 21 * max_steps * L + 28 * L + 9 * L
-              + 4 * (2 * 4096 + 512 + 2))
-    return kernel_row("decode_symbols", "fdeflate_tpu_torch/csrc/decode_symbols.cu",
-                      "fdeflate_tpu/ops/inflate.py:64 (decode_symbols, an XLA "
-                      "while_loop; no TPU kernel)",
-                      launches["decode_symbols"], err, one["K11 decode_symbols"],
-                      plain_ms, (nbytes, 8 * syms))
+    # operations: 8 per symbol, as K3, K6 and K8
+    ops = 8 * symbol_count(torch, data, lengths, N)
+    live_bound, full_bound = (bound(k11_bytes(case, staged[1], r), ops)[0]
+                              for r in (ran, max_steps * case["bit_pos"].numel()))
+    print(f"K11 bounds: live form {live_bound:.6f} ms ({ran} records), full "
+          f"form {full_bound:.6f} ms", flush=True)
+    row = kernel_row("decode_symbols", "fdeflate_tpu_torch/csrc/decode_symbols.cu",
+                     "fdeflate_tpu/ops/inflate.py:64 (decode_symbols, an XLA "
+                     "while_loop; no TPU kernel)",
+                     launches["decode_symbols"], err,
+                     one["K11 live form (_decode_symbols_live)"], plain_ms,
+                     (k11_bytes(case, staged[1], ran), ops))
+    row.update({
+        "back_to_back_ms": queued["K11 live form (_decode_symbols_live)"],
+        "full_form_ms": one["K11 full form (decode_symbols)"],
+        "full_form_back_to_back_ms": queued["K11 full form (decode_symbols)"],
+        "full_form_bound_ms": full_bound})
+    return row
 
 
 def main() -> int:
@@ -1292,7 +1319,7 @@ def main() -> int:
     from fdeflate_tpu_torch.ops.assign_pack import assign_pack, assign_pack_plain
     from fdeflate_tpu_torch.ops.decode2 import decode2, decode2_plain
     from fdeflate_tpu_torch.ops.repack import combine, combine_plain
-    from fdeflate_tpu_torch.ops.ultrafast import _encode, encode_ultrafast_batch
+    from fdeflate_tpu_torch.ops.ultrafast import _encode, encode_fixed
     from fdeflate_tpu_torch.parallel.device_pipeline import (_decode_verify,
                                                              decode_verify)
     from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
@@ -1327,7 +1354,7 @@ def main() -> int:
     N = small.shape[1]
     sd = torch.from_numpy(small).to(dev)
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(sd, sl, 4)
+    words, _tb, _ad, starts, _eof = encode_fixed(sd, sl, 4)
     words[0, 100] ^= 0x5A5A5A5A
     errs = max_abs_err(torch, zip(decode2(words, starts, t.dtab, N, 4),
                                   decode2_plain(words, starts, t.dtab, N, 4)))

@@ -34,7 +34,8 @@ bit-identical outputs.  Five slices are ported:
   decode in C lanes each from the index's bits:
 
       decode  K11 decode_symbols (a thread per lane, the table-gather
-              symbol engine) -> records rearranged per stream
+              symbol engine; each lane's records up to its step count)
+              -> one flat list of the records, stream by stream
               -> materialize (torch) -> Adler-32 (host, or K7 in
               ``fused_ultrafast_roundtrip``)
 
@@ -46,7 +47,10 @@ modules it needs are its own copies (``errors``, ``tables``, ``huffman``,
 tests/test_torch_hostcopies.py.
 
 Public API (``device`` is "cuda" unless the caller asks for "cpu"; without
-CUDA a call that leaves it raises RuntimeError):
+CUDA a call that leaves it raises RuntimeError).  Every function takes the
+JAX package's call forms, its positional order and keyword names; knobs
+that pick a TPU strategy (``lut_matmul``, ``kernel_pack``, ``engine``,
+``interpret``, ...) are accepted and ignored:
 
     compress_batch_ultra_fast(streams, with_index=C, device=...)
     zlib_encode_step(C, tree=None)(data, lengths)
@@ -59,8 +63,10 @@ CUDA a call that leaves it raises RuntimeError):
     fused_ultrafast_roundtrip(C, max_steps, N, device=...)(data, lengths)
         -> out, produced, ok, checksum_ok
     decompress_batch_indexed(streams, index, device=...) -> bytes per stream
-    adler32_pallas(data, length=None) -> int64 0-d checksum tensor
-    decompress_batch(streams, device=...) -> bytes or error per stream
+    adler32_pallas(data, length=None, interpret=None) -> int64 0-d tensor
+    decompress_batch(streams, max_steps=8192, out_capacity=None,
+                     try_parallel=True, engine="auto", device=...)
+        -> bytes or error per stream
     decompress_foreign(data, device=...) -> bytes (raises the decode error)
     try_foreign(data, device=...) / try_foreign_batch(streams, device=...)
         -> bytes, or None where the block-parallel path cannot decode

@@ -61,10 +61,10 @@ _SIGNATURES = {
     "fdt_combine_grouped": [_P] * 4 + [_I] * 4 + [_P],
     # words, rows, W, stream_row, bit_pos, bit_end, out_pos, active,
     # table_id, bit_stop, litlen, litlen_sec, S, dist, dist_sec, S2,
-    # litlen_first (or null), T, chain, L, max_steps, rl, rlh, rc, rn, rd,
-    # rp, bpos, opos, status, stream
+    # litlen_first (or null), T, chain, L, max_steps, fill, rl, rlh, rc, rn,
+    # rd, rp, steps, bpos, opos, status, stream
     "fdt_decode_symbols": [_P, _I, _I] + [_P] * 9 + [_I, _P, _P, _I, _P]
-                          + [_I] * 4 + [_P] * 10,
+                          + [_I] * 5 + [_P] * 11,
 }
 
 build_seconds: float | None = None  # wall time of this process's nvcc run

@@ -7,11 +7,15 @@
 // and refill.  Values are u32 or i32 as in JAX; every shift whose count can
 // reach 32 goes through sym_shr / sym_shl, which give 0 there as XLA's
 // logical shifts do (a C++ shift by 32 is undefined), and i32 sums wrap as
-// XLA's do (add32).  decode_symbols_lane runs a lane for max_steps steps,
-// writing one record a step; a lane that is not running writes its records'
-// initial values (0, 0, 0, 0, 0, -1), so every row is written and the
-// caller allocates the records uninitialised.  Plain C++, so the same source
-// compiles for the host (tests/test_torch_symbols_host.py).
+// XLA's do (add32).  decode_symbols_lane runs a lane while it runs (at most
+// max_steps steps), writing one record a step, and counts its steps; with
+// ``fill`` it goes on to max_steps and the rows where it no longer runs get
+// the records' initial values (0, 0, 0, 0, 0, -1): JAX's full
+// [max_steps, L] form.  Without it the lane stops with its group's vote and
+// those rows are left unwritten (the live form).  Plain C++, so the same
+// source compiles for the host (tests/test_torch_symbols_host.py); the
+// kernel passes a warp vote as ``any``, so a warp steps while any of its
+// lanes runs.
 #pragma once
 
 #include "lanes.cuh"
@@ -281,7 +285,8 @@ FDT_HD void sym_step(SymState& st, const uint32_t* row, int32_t wlast,
   }
 }
 
-// The records' initial values, written for a step the lane does not run.
+// The records' initial values, written (with ``fill``) for a step the lane
+// does not run.
 FDT_HD void sym_idle(const SymOut& out, int64_t i) {
   const int64_t r = i * out.stride;
   out.lo[r] = 0;
@@ -292,24 +297,38 @@ FDT_HD void sym_idle(const SymOut& out, int64_t i) {
   out.pos[r] = -1;
 }
 
-// A lane's whole run: max_steps records and its final state.  The lane
-// steps while its status is OK; every step's record is written, so a
-// group of lanes stepping together writes each row together.
+// A lane steps while it runs: the host's ``any``.
+struct LaneVote {
+  FDT_HD bool operator()(bool running) const { return running; }
+};
+
+// A lane's whole run: its records and final state, and in *steps the
+// number of steps it ran (its records are rows [0, *steps)).  Without
+// ``fill`` the lane steps while ``any(running)`` holds for its group (all
+// lanes of a group see one i); with it, to max_steps, writing the initial
+// values at the rows where it no longer runs, so a group of lanes writes
+// each row together and the writes overlap the steps of its other lanes.
+template <class Vote>
 FDT_HD void decode_symbols_lane(const uint32_t* row, int32_t W,
                                 int32_t bit_pos, int32_t bit_end,
                                 int32_t out_pos, bool active,
                                 int32_t bit_stop, const SymTables& tb,
-                                int chain, int max_steps, const SymOut& out,
+                                int chain, int max_steps, bool fill,
+                                const SymOut& out, int32_t* steps,
                                 int32_t* bpos, int32_t* opos,
-                                int8_t* status) {
+                                int8_t* status, Vote any) {
   const int32_t wlast = W - 1;
   SymState st = sym_init(row, wlast, bit_pos, out_pos, active);
-  for (int i = 0; i < max_steps; ++i) {
-    if (st.status == kSymOk)
+  int32_t n = 0;
+  for (int i = 0; i < max_steps && (fill || any(st.status == kSymOk)); ++i) {
+    if (st.status == kSymOk) {
       sym_step(st, row, wlast, bit_end, bit_stop, tb, chain, out, i);
-    else
+      n = i + 1;
+    } else if (fill) {
       sym_idle(out, i);
+    }
   }
+  *steps = n;
   *bpos = st.bpos;
   *opos = st.opos;
   *status = st.status;

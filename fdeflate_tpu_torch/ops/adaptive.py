@@ -37,10 +37,12 @@ from .assign_pack import assign_pack, token_symbols
 INF = 1 << 30
 
 
-def symbol_freqs(data: torch.Tensor, lengths: torch.Tensor,
-                 S: int) -> torch.Tensor:
+def symbol_freqs(data: torch.Tensor, lengths: torch.Tensor, S: int,
+                 lut_matmul: bool | None = None) -> torch.Tensor:
     """int32[286] batch-wide DEFLATE symbol histogram of the token grammar
-    with runs cut at every S-byte lane boundary, plus one EOB per stream."""
+    with runs cut at every S-byte lane boundary, plus one EOB per stream.
+    ``lut_matmul`` (a TPU lookup strategy, same result) is ignored."""
+    del lut_matmul
     sym = token_symbols(data, lengths, S).reshape(-1)
     freqs = torch.zeros(NSYM + 1, dtype=torch.int32, device=data.device)
     freqs.scatter_add_(0, torch.where(sym >= 0, sym, NSYM),
@@ -111,7 +113,8 @@ def decode_meta(lens: torch.Tensor):
 
 
 def encode_adaptive_blocked(data: torch.Tensor, lengths: torch.Tensor,
-                            num_chunks: int):
+                            num_chunks: int, lut_matmul: bool | None = None,
+                            kernel_assign: bool | None = None):
     """Adaptive-tree, fixed-geometry encode into per-lane windows.
 
     Builds the length-limited optimal tree of THIS batch on the device,
@@ -120,8 +123,11 @@ def encode_adaptive_blocked(data: torch.Tensor, lengths: torch.Tensor,
     ``tables`` (a ``TreeTables``: tokens and decode table) takes the place
     of JAX's (meta, tabp); ``decode_meta(lens)`` gives those.  Lane
     ``b * C + k``'s window holds its payload bits from bit 0 (JAX's
-    blocked windows, lane-major).
+    blocked windows, lane-major).  ``lut_matmul`` and ``kernel_assign``
+    pick among the JAX package's XLA and Pallas paths (same windows); the
+    port has one, K1, and ignores them.
     """
+    del lut_matmul, kernel_assign
     B, N = data.shape
     C = num_chunks
     if N % C or (N // C) % 8:

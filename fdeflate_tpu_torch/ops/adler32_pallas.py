@@ -149,13 +149,17 @@ def adler32_tiles(data: torch.Tensor, length: torch.Tensor):
 adler32_tiles.launches = 0
 
 
-def adler32_pallas(data: torch.Tensor, length=None) -> torch.Tensor:
+def adler32_pallas(data: torch.Tensor, length=None,
+                   interpret: bool | None = None) -> torch.Tensor:
     """Adler-32 of a 1-D uint8 tensor, on its device: one K7 launch.
 
     ``length`` (an int, or a tensor on ``data``'s device, in [0, n]) masks a
     zero-padded buffer; None checksums all n bytes.  Returns the int64
-    0-d tensor holding the u32 checksum.
+    0-d tensor holding the u32 checksum.  ``interpret`` runs the JAX
+    package's Pallas kernel in its interpreter; the port ignores it (CPU
+    tensors take the plain version).
     """
+    del interpret
     n = data.shape[0]
     if length is None:
         length = n

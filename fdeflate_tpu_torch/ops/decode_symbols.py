@@ -6,7 +6,9 @@ JAX counterpart: ``fdeflate_tpu/ops/inflate.py:64 decode_symbols``, an XLA
 decode step per iteration and records each step's output.  The CUDA kernel
 is ``csrc/decode_symbols.cu`` (its lane code in ``csrc/symbols_lanes.cuh``);
 ``decode_symbols_plain`` is its plain version, the JAX loop step for step
-over all lanes at once.
+over all lanes at once.  ``_decode_symbols_live`` is the same engine in
+the live form the indexed decode reads: each lane's records up to its
+step count, nothing written past it.
 
 A step reads up to 32 bits at the lane's bit position and looks them up in
 the reference's 4096-entry literal/length table (``huffman.build_table``
@@ -183,10 +185,39 @@ def decode_symbols(words, bit_pos, bit_end, out_pos, active, table_id,
     [T, 512], ``dist_sec`` [T, S2] and optional ``litlen_first``
     [T, 4096].  Numpy tables are moved to the words' device.  Returns
     (records, (bit_pos, out_pos, status)) as the module docstring
-    describes.  CPU tensors take ``decode_symbols_plain``; CUDA tensors
-    launch K11, one launch per call.
+    describes: JAX's full [max_steps, L] records.  CPU tensors take
+    ``decode_symbols_plain``; CUDA tensors launch K11, one launch per call.
     """
     del lut_matmul  # a TPU lookup strategy with the same entries
+    return _run(True, words, bit_pos, bit_end, out_pos, active, table_id,
+                litlen, litlen_sec, dist, dist_sec, max_steps, bit_stop,
+                chain, stream_row, litlen_first)[:2]
+
+
+decode_symbols.launches = 0
+
+
+def _decode_symbols_live(words, bit_pos, bit_end, out_pos, active, table_id,
+                         litlen, litlen_sec, dist, dist_sec, max_steps: int,
+                         bit_stop=None, chain: int = 4, stream_row=None,
+                         litlen_first=None):
+    """``decode_symbols``' live form: (records, state, steps int32[L]).
+
+    Lane i's records are rows [0, steps[i]) (the steps it ran, ``(pos >=
+    0).sum(0)`` of the full form); K11 leaves the rows past them unwritten,
+    so a reader takes each lane's count.  CPU tensors take
+    ``decode_symbols_plain`` (every row written) and count its steps; CUDA
+    tensors launch K11 once (``decode_symbols.launches``)."""
+    return _run(False, words, bit_pos, bit_end, out_pos, active, table_id,
+                litlen, litlen_sec, dist, dist_sec, max_steps, bit_stop,
+                chain, stream_row, litlen_first)
+
+
+def _run(fill: bool, words, bit_pos, bit_end, out_pos, active, table_id,
+         litlen, litlen_sec, dist, dist_sec, max_steps, bit_stop, chain,
+         stream_row, litlen_first):
+    """K11 or its plain version: (records, state, steps); ``fill`` writes
+    the initial values at every row a lane does not run (the full form)."""
     words, lanes, rows, tabs, first, T = engine_inputs(
         words, bit_pos, bit_end, out_pos, active, table_id, litlen,
         litlen_sec, dist, dist_sec, bit_stop, chain, stream_row,
@@ -194,18 +225,20 @@ def decode_symbols(words, bit_pos, bit_end, out_pos, active, table_id,
     dev = words.device
     L = rows.numel()
     if dev.type == "cpu":
-        return decode_symbols_plain(words, *lanes, rows, *tabs, first,
-                                    max_steps, chain)
+        records, state = decode_symbols_plain(words, *lanes, rows, *tabs,
+                                              first, max_steps, chain)
+        return records, state, (records[5] >= 0).sum(0, dtype=torch.int32)
     _build.require_cuda(words, *lanes, rows, *tabs)
     i32 = torch.int32
     rl = torch.empty((max_steps, L), dtype=i32, device=dev)
     rlh, rn, rd, rp = (torch.empty_like(rl) for _ in range(4))
     rc = torch.empty((max_steps, L), dtype=torch.int8, device=dev)
-    bpos = torch.empty(L, dtype=i32, device=dev)
-    opos = torch.empty(L, dtype=i32, device=dev)
+    steps, bpos, opos = (torch.empty(L, dtype=i32, device=dev)
+                         for _ in range(3))
     status = torch.empty(L, dtype=torch.int8, device=dev)
+    records, state = (rl, rlh, rc, rn, rd, rp), (bpos, opos, status)
     if L == 0:
-        return (rl, rlh, rc, rn, rd, rp), (bpos, opos, status)
+        return records, state, steps
     bp, be, op, act, tid, stop = lanes
     _build.launch(
         "decode_symbols", dev, words.data_ptr(), words.shape[0],
@@ -214,14 +247,10 @@ def decode_symbols(words, bit_pos, bit_end, out_pos, active, table_id,
         tabs[0].data_ptr(), tabs[1].data_ptr(), tabs[1].shape[1],
         tabs[2].data_ptr(), tabs[3].data_ptr(), tabs[3].shape[1],
         None if first is None else first.data_ptr(), T, chain, L,
-        max_steps, rl.data_ptr(), rlh.data_ptr(), rc.data_ptr(),
-        rn.data_ptr(), rd.data_ptr(), rp.data_ptr(), bpos.data_ptr(),
-        opos.data_ptr(), status.data_ptr())
+        max_steps, int(fill), *(x.data_ptr() for x in records),
+        steps.data_ptr(), bpos.data_ptr(), opos.data_ptr(), status.data_ptr())
     decode_symbols.launches += 1
-    return (rl, rlh, rc, rn, rd, rp), (bpos, opos, status)
-
-
-decode_symbols.launches = 0
+    return records, state, steps
 
 
 def _shr(x, s):

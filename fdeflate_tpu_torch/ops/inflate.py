@@ -57,21 +57,20 @@ _STATUS = {
 }
 
 
-def _literals(lo, hi, s_abs, sel, row, B: int, ext: int) -> torch.Tensor:
+def _literals(lo, hi, start, row, B: int, ext: int) -> torch.Tensor:
     """Literal bytes of records of up to eight literals, int64[B * ext]:
-    each record of ``sel`` (those with literals) adds its two words,
-    shifted to its byte offset, into three output words (JAX's
+    each record (``row``, ``start``: its stream and first byte) adds its
+    two words, shifted to its byte offset, into three output words (JAX's
     word-granular scatter; sums wrap at 32 bits)."""
     if ext % 4:
         raise ValueError("materialize: out_capacity must be a multiple of 4")
     extw = ext // 4
-    lo = lo.reshape(-1)[sel].to(torch.int64) & _M32
-    hi = hi.reshape(-1)[sel].to(torch.int64) & _M32
-    p0 = s_abs.reshape(-1)[sel]
-    s = (p0 & 3) * 8
+    lo = lo.to(torch.int64) & _M32
+    hi = hi.to(torch.int64) & _M32
+    s = (start & 3) * 8
     rsh = lambda x: torch.where(s == 0, 0, x >> (32 - s))  # noqa: E731
     parts = ((lo << s) & _M32, rsh(lo) | ((hi << s) & _M32), rsh(hi))
-    wi = p0 >> 2
+    wi = start >> 2
     words = torch.zeros(B * extw, dtype=torch.int64, device=lo.device)
     for off, wc in enumerate(parts):
         m = wi + off < extw
@@ -104,47 +103,69 @@ def materialize(records, window, produced, out_capacity: int,
     masking); ``out_capacity`` a bound on ``produced``.  Returns
     (u8[B, out_capacity], new window).
 
-    Only records that make bytes are scattered (empty ones, most of the
-    slots of a chunk-parallel decode, are left out first).  Literals land
-    word by word, as JAX scatters them, each record's literal words added
-    at its byte offset (K4's records with a zero second word); each
-    position finds
-    the record that contains it by a flat count of record starts, and so
-    its (start, dist); a back-reference position points to start - dist +
-    (i - start) mod dist; dist-1 spans point to the byte before the span;
-    pointer doubling runs to a fixed point, which is JAX's result with
-    ``ptr_rounds=None`` (its default; the port accepts and ignores the
-    option); one gather reads the bytes.  Records that start past
-    ``out_capacity`` are dropped.
+    The front: each row's record starts (a flat scan of the records'
+    lengths), then the records that make bytes (most slots of a
+    chunk-parallel decode are empty) as flat lists in (row, step) order;
+    ``materialize_flat`` places them.  ``ptr_rounds`` is accepted and
+    ignored: pointer doubling runs to its fixed point, which is JAX's
+    result with ``ptr_rounds=None`` (its default).
     """
-    del ptr_rounds  # doubling runs to its fixed point
+    del ptr_rounds
     if len(records) == 5:
         rl, rlh, rc, rn, rd = records
     else:
         (rl, rc, rn, rd), rlh = records, None
     K, B = rl.shape
-    dev = rl.device
     i64 = torch.int64
+    adv = (rc.to(i64) + rn.to(i64)).T.contiguous()       # [B, K]
+    start = WINDOW + row_cumsum(adv) - adv                # record starts
+    sel = ((rc.T > 0) | (adv > 0)).reshape(-1).nonzero().squeeze(1)
+    row = sel // K
+    at = (sel % K) * B + row                              # into [K, B]
+    hi = (torch.zeros_like(at) if rlh is None else rlh.reshape(-1)[at])
+    return materialize_flat(row, start.reshape(-1)[sel], rl.reshape(-1)[at],
+                            hi, rc.reshape(-1)[at], rn.reshape(-1)[at],
+                            rd.reshape(-1)[at], window, produced,
+                            out_capacity, want_window)
+
+
+def materialize_flat(row, start, lo, hi, cnt, length, dist, window, produced,
+                     out_capacity: int, want_window: bool = True):
+    """The position side of ``materialize``, from flat lists of records in
+    (row, start) order: each record's row, first byte ``start`` (absolute,
+    the 32 KiB window first), literal words ``lo``/``hi``, literal count,
+    match length and distance.  Returns (u8[B, out_capacity], new window).
+
+    Literals land word by word, as JAX scatters them, each record's literal
+    words added at its byte offset (K4's records with a zero second word);
+    each position finds the record that contains it by a flat count of
+    record starts, and so its (start, dist); a back-reference position
+    points to start - dist + (i - start) mod dist; dist-1 spans point to
+    the byte before the span; pointer doubling runs to a fixed point; one
+    gather reads the bytes.  Records that start past ``out_capacity`` are
+    dropped.
+    """
+    B = window.shape[0]
+    dev = window.device
+    i64 = torch.int64
+    row, start = row.to(i64), start.to(i64)
     produced = torch.as_tensor(produced, device=dev).to(i64).reshape(B)
     ext = WINDOW + out_capacity
 
-    adv = (rc.to(i64) + rn.to(i64)).T.contiguous()       # [B, K]
-    s_abs = WINDOW + row_cumsum(adv) - adv                # record starts
-    lits = (rc.T > 0).reshape(-1).nonzero().squeeze(1)
-    lo = rl.T.contiguous()
-    hi = torch.zeros_like(lo) if rlh is None else rlh.T.contiguous()
-    vals = _literals(lo, hi, s_abs, lits, lits // K, B, ext).reshape(B, ext)
+    lits = (cnt > 0).nonzero().squeeze(1)
+    vals = _literals(lo[lits], hi[lits], start[lits], row[lits], B,
+                     ext).reshape(B, ext)
 
     # The record containing each position: starts of the records that
     # make bytes, in (row, start) order, counted along the flat positions.
-    recs = ((adv > 0) & (s_abs < ext)).reshape(-1).nonzero().squeeze(1)
-    r_start = s_abs.reshape(-1)[recs]
-    r_len = rn.T.reshape(-1)[recs].to(i64)
-    r_dist = torch.where(r_len > 0,
-                         (rd.T.reshape(-1)[recs].to(i64) - 1).clamp(min=0) + 1,
+    adv = cnt.to(i64) + length.to(i64)
+    recs = ((adv > 0) & (start < ext)).nonzero().squeeze(1)
+    r_start = start[recs]
+    r_len = length[recs].to(i64)
+    r_dist = torch.where(r_len > 0, (dist[recs].to(i64) - 1).clamp(min=0) + 1,
                          0)
     marks = torch.zeros(B * ext, dtype=torch.bool, device=dev)
-    marks[(recs // K) * ext + r_start] = True
+    marks[row[recs] * ext + r_start] = True
     k = marks.to(i64).cumsum(0) - 1
     found = k >= 0
     k = k.clamp(min=0)

@@ -1,9 +1,9 @@
-"""Fixed-geometry ultra-fast encoder: bytes -> standard zlib words + index.
+"""Ultra-fast encoder: bytes -> standard zlib words + index.
 
 JAX counterpart: ``fdeflate_tpu/ops/ultrafast_kernel.py``
-``encode_ultrafast_batch(num_chunks=C, fixed_geometry=True,
-return_eof=True, tree=)`` with ``_frame_words``, ``finalize_streams`` and
-``compress_batch_ultra_fast``.  The chain is
+``encode_ultrafast_batch`` (same signature and modes), ``_frame_words``,
+``finalize_streams`` and ``compress_batch_ultra_fast``.  Its fixed-geometry
+mode is ``encode_fixed``; the chain is
 
     K1 assign_pack  (ops/assign_pack.py)  bytes -> lane windows, chunk bits
     pos0 = header bits + exclusive cumsum of chunk bits         (torch)
@@ -15,8 +15,8 @@ Every stream is cut into C lanes of S = N / C bytes and zero runs are cut
 at every lane boundary, so lane k decodes exactly S bytes from bit
 ``chunk_starts[b, k]``.  The output words equal the JAX encoder's up to
 ``ceil(total_bits / 32)`` and are zero past it; W is the JAX XLA path's.
-``compress_batch_ultra_fast`` encodes each stream in one lane (C = 1), as
-the JAX one does, and its index is the JAX symbol-boundary index
+Without fixed geometry each stream is encoded in one lane (C = 1), as
+JAX does, and its index is the JAX symbol-boundary index
 (``symbol_index``).  ``encode_ultrafast_blocked`` (JAX
 ``encode_ultrafast_blocked`` :578) stops after K1: lane windows, chunk bits
 and Adler-32, no linear words.
@@ -82,9 +82,11 @@ def frame_words(words: torch.Tensor, eof_pos: torch.Tensor,
     return words
 
 
-def encode_ultrafast_batch(data: torch.Tensor, lengths: torch.Tensor,
-                           num_chunks: int, tree=None):
-    """Encode B streams of padded length N in fixed geometry.
+def encode_fixed(data: torch.Tensor, lengths: torch.Tensor, num_chunks: int,
+                 tree=None):
+    """Encode B streams of padded length N in fixed geometry (JAX
+    ``encode_ultrafast_batch(num_chunks=C, fixed_geometry=True,
+    return_eof=True, tree=)``).
 
     Args:
       data: u8[B, N], zero past ``lengths``; N % num_chunks == 0 and
@@ -99,13 +101,53 @@ def encode_ultrafast_batch(data: torch.Tensor, lengths: torch.Tensor,
     patterns and, with total_bits and adler, assemble into zlib streams
     (``finalize_streams``).
     """
+    return _encode(data, lengths, num_chunks, _tree_tables(data, tree),
+                   assign_pack, combine)
+
+
+def _tree_tables(data: torch.Tensor, tree) -> TreeTables:
+    """The trained tree's tables, or ``tree``'s, on ``data``'s device."""
     dev = str(data.device)
-    t = trained_tables(dev) if tree is None else profile_tables(tree, dev)
-    return _encode(data, lengths, num_chunks, t, assign_pack, combine)
+    return trained_tables(dev) if tree is None else profile_tables(tree, dev)
+
+
+def encode_ultrafast_batch(data: torch.Tensor, lengths: torch.Tensor,
+                           lut_matmul=None, num_chunks: int = 0,
+                           fixed_geometry: bool = False,
+                           return_eof: bool = False, kernel_pack=None,
+                           kernel_assign=None, tree=None):
+    """JAX ``encode_ultrafast_batch``, its signature and returns.
+
+    ``data`` u8[B, N] (N % 8 == 0), zero past ``lengths`` i32[B].  Returns
+    (words int32[B, W], total_bits int32[B], adler int64[B]) and, when
+    ``num_chunks`` C > 0, chunk_starts int32[B, C], then, with
+    ``return_eof``, eof_pos int32[B]:
+      * ``num_chunks=0``: each stream encoded in one lane (runs not cut);
+      * ``num_chunks=C``: the same one-lane streams and their exact
+        symbol-boundary index at N // C byte spacing (``symbol_index``);
+      * ``num_chunks=C, fixed_geometry=True``: runs cut at every N / C
+        byte boundary, lane k starting at chunk_starts[:, k]
+        (``encode_fixed``).
+    Words are the u32 patterns as int32 and adler the u32 checksum in
+    int64 (JAX: uint32).  ``lut_matmul``, ``kernel_pack`` and
+    ``kernel_assign`` pick among the JAX package's XLA and Pallas paths,
+    which give the same words; the port has one path and ignores them.
+    """
+    del lut_matmul, kernel_pack, kernel_assign
+    t = _tree_tables(data, tree)
+    fixed = bool(num_chunks and fixed_geometry)
+    words, total_bits, adler, starts, eof_pos = _encode(
+        data, lengths, num_chunks if fixed else 1, t, assign_pack, combine)
+    if not num_chunks:
+        return words, total_bits, adler
+    if not fixed:
+        starts = symbol_index(data, lengths, num_chunks, eof_pos, t)
+    out = (words, total_bits, adler, starts, eof_pos)
+    return out if return_eof else out[:4]
 
 
 def _encode(data, lengths, C: int, t: TreeTables, k1, k2):
-    """``encode_ultrafast_batch`` with K1 and K2 given: the kernel wrappers,
+    """``encode_fixed`` with K1 and K2 given: the kernel wrappers,
     or their plain versions to time them on the card."""
     B, N = data.shape
     win, chunk_bits = k1(data, lengths, C, t)
@@ -205,11 +247,8 @@ def compress_batch_ultra_fast(streams: list[bytes], with_index: int = 0, *,
         buf[i, : len(s)] = np.frombuffer(s, dtype=np.uint8)
     data = torch.from_numpy(buf).to(dev)
     lens = torch.from_numpy(lengths).to(dev)
-    words, total_bits, adler, _starts, eof_pos = encode_ultrafast_batch(
-        data, lens, 1)
-    out = finalize_streams(words, total_bits, adler)
+    enc = encode_ultrafast_batch(data, lens, num_chunks=int(with_index))
+    out = finalize_streams(*enc[:3])
     if with_index:
-        index = symbol_index(data, lens, int(with_index), eof_pos,
-                             trained_tables(str(dev)))
-        return out, index.cpu().numpy()
+        return out, enc[3].cpu().numpy()
     return out

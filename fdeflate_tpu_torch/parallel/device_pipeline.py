@@ -13,9 +13,11 @@ the indexed decode (``_trained_tables``, ``stitch_and_materialize``,
 ``decompress_batch_indexed``, ``fused_ultrafast_roundtrip``) with the same
 signatures and returns, ``device=`` added to the entry points.  Its lanes
 start at the encoder's exact chunk index (symbol-boundary bits) and run
-K11 decode_symbols (``ops/decode_symbols.py``) from the stream words; the
-records rearrange stream by stream and ``ops/inflate.materialize`` (plain
-torch, as the JAX package's XLA) expands them.
+K11 decode_symbols (``ops/decode_symbols.py``) from the stream words in
+its live form (each lane's rows up to its step count); ``_place`` reads
+those rows straight from the [K, B * C] records as one flat list in
+JAX's stream order and ``ops/inflate.materialize_flat`` (plain torch, as
+the JAX package's XLA) expands them.
 
 The decode leg runs K3 (ops/decode2.py) straight from the linear words —
 or, for a ``tree=`` profile, K6 (ops/decode_sep.py) with that tree's own
@@ -52,13 +54,12 @@ from ..ops.adaptive import encode_adaptive_blocked
 from ..ops.adler32 import adler32_batch, adler_lanes
 from ..ops.decode2 import decode2, decode_blocked
 from ..ops.decode_sep import decode_sep
-from ..ops.inflate import WINDOW, materialize
+from ..ops.inflate import WINDOW, materialize_flat
 from ..ops.ultrafast import (
     device_of,
+    encode_fixed,
     encode_ultrafast_batch,
     encode_ultrafast_blocked,
-    row_cumsum,
-    symbol_index,
 )
 from ..tables import (
     DEFAULT_DIST_TABLE_SIZE,
@@ -76,7 +77,7 @@ def zlib_encode_step(C: int, tree=None):
     int32[B], adler int64[B], chunk_starts int32[B, C], eof_pos int32[B])."""
 
     def step(data, lengths):
-        return encode_ultrafast_batch(data, lengths, C, tree=tree)
+        return encode_fixed(data, lengths, C, tree=tree)
 
     return step
 
@@ -255,17 +256,6 @@ def trained_symbol_tables(device: str) -> tuple[torch.Tensor, ...]:
                  for x in _trained_tables())
 
 
-def encode_indexed(data: torch.Tensor, lengths: torch.Tensor, C: int):
-    """JAX ``encode_ultrafast_batch(data, lengths, num_chunks=C)`` (no
-    fixed geometry): each stream encoded in one lane (K1, K2, framing, K7)
-    and its exact chunk index (``symbol_index``).  Returns (words
-    int32[B, W], total_bits int32[B], adler int64[B], chunk_starts
-    int32[B, C]); N must be a multiple of 8."""
-    words, total_bits, adler, _s, eof = encode_ultrafast_batch(data, lengths, 1)
-    index = symbol_index(data, lengths, C, eof, trained_tables(str(data.device)))
-    return words, total_bits, adler, index
-
-
 def chunk_lanes(total_bits: torch.Tensor, chunk_starts: torch.Tensor):
     """Per-lane inputs of the chunk-parallel decode, lanes stream-major
     (JAX :212-221): (starts, bit_end = the stream's bits, stops = the next
@@ -283,29 +273,51 @@ def chunk_lanes(total_bits: torch.Tensor, chunk_starts: torch.Tensor):
     return starts, bits_l, stops, srow, starts < stops
 
 
-def _rearrange(a: torch.Tensor, C: int) -> torch.Tensor:
-    """[K, B * C] step-major records -> [B, C * K]: each stream's lanes one
-    after another in its row (the transpose of JAX's [C * K, B]; per-stream
-    scans then run along rows)."""
-    K, L = a.shape
-    B = L // C
-    return a.reshape(K, B, C).permute(1, 2, 0).reshape(B, C * K)
-
-
-def _place(records5, ok, C: int, out_capacity: int):
-    """Rearrange masked records stream by stream, check every distance
-    against its absolute output position and materialize.  Returns (out
+def _place(records, first, steps, ok, C: int, out_capacity: int):
+    """Materialize each lane's rows [first, steps) of ``decode_symbols``'
+    records ([K, B * C], lanes stream-major; full or live form), stream by
+    stream, with no rearrangement: the rows become one flat list in
+    (stream, lane, step) order, which is JAX's [C * K, B] order within a
+    stream (exclusive offsets of the lanes' row counts, each record's lane
+    by a binary search of them, one gather per record array).  Every
+    distance is checked against its record's position in its stream, and
+    ``produced`` summed, by flat scans over the records.  Returns (out
     u8[B, out_capacity], produced int32[B], ok bool[B])."""
-    rl2, rlh2, rc2, rn2, rd2 = (_rearrange(a, C) for a in records5)
-    adv = rc2.to(torch.int64) + rn2
-    pos = row_cumsum(adv) - adv
-    ok = ok & ~((rd2 > 0) & (rd2 > pos)).any(dim=1)
-    produced = adv.sum(dim=1).to(torch.int32)
-    B = rl2.shape[0]
-    window = torch.zeros((B, WINDOW), dtype=torch.uint8, device=rl2.device)
-    out, _ = materialize(tuple(x.T for x in (rl2, rlh2, rc2, rn2, rd2)),
-                         window, produced, out_capacity, want_window=False)
-    return out, produced, ok
+    rl, rlh, rc, rn, rd = records[:5]
+    K, L = rl.shape
+    B = L // C
+    dev = rl.device
+    i64 = torch.int64
+    first = first.to(i64)
+    n = (steps.to(i64) - first).clamp(min=0)
+    ends = n.cumsum(0)
+    total = int(ends[-1]) if L else 0
+    idx = torch.arange(total, dtype=i64, device=dev)
+    lane = torch.searchsorted(ends, idx, right=True)
+    at = (idx - (ends - n)[lane] + first[lane]) * L + lane    # into [K, L]
+    cnt, length, dist = (a.reshape(-1)[at] for a in (rc, rn, rd))
+    adv = cnt.to(i64) + length.to(i64)
+    csum = torch.cat([adv.new_zeros(1), adv.cumsum(0)])
+    bounds = torch.cat([ends.new_zeros(1), ends[C - 1::C]])  # [B + 1]
+    produced = csum[bounds[1:]] - csum[bounds[:-1]]
+    stream = lane // C
+    pos = csum[:-1] - csum[bounds[:-1]][stream]
+    ok = ok.clone()
+    ok[stream[(dist > 0) & (dist > pos)]] = False
+    make = ((cnt > 0) | (adv > 0)).nonzero().squeeze(1)
+    at_m = at[make]
+    window = torch.zeros((B, WINDOW), dtype=torch.uint8, device=dev)
+    out, _ = materialize_flat(stream[make], WINDOW + pos[make],
+                              rl.reshape(-1)[at_m], rlh.reshape(-1)[at_m],
+                              cnt[make], length[make], dist[make], window,
+                              produced, out_capacity, want_window=False)
+    return out, produced.to(torch.int32), ok
+
+
+def _steps(records) -> torch.Tensor:
+    """Each lane's step count from full-form records: its rows with a
+    position."""
+    return (records[5] >= 0).sum(0, dtype=torch.int32)
 
 
 def stitch_and_materialize(records, bpos, status, starts, payload_start,
@@ -327,10 +339,10 @@ def stitch_and_materialize(records, bpos, status, starts, payload_start,
     (``materialize``).
     """
     del starts, ptr_rounds
-    rl, rlh, rc, rn, rd, rp = records
-    K, L = rl.shape
+    rp = records[5]
+    K, L = rp.shape
     B = L // C
-    dev = rl.device
+    dev = rp.device
     k = torch.arange(C, device=dev).repeat(B)
     prev_exit = torch.cat([bpos[:1] * 0, bpos[:-1]])
     entries = torch.where(k == 0, payload_start.to(bpos.dtype)
@@ -343,46 +355,55 @@ def stitch_and_materialize(records, bpos, status, starts, payload_start,
     eob_k = torch.where(is_eob, torch.arange(C, device=dev)[None, :],
                         C).amin(dim=1)
     lane_used = k <= eob_k.repeat_interleave(C)
-    keep = lane_used[None, :] & (step >= first[None, :])
     lane_err = (status != DS.EOB) & (status != DS.STOPPED)
     ok = ((eob_k < C)
           & (synced | ~lane_used).reshape(B, C).all(dim=1)
           & (~lane_err | ~lane_used).reshape(B, C).all(dim=1))
-    masked = [torch.where(keep, a, 0) for a in (rl, rlh, rc, rn, rd)]
-    return _place(masked, ok, C, out_capacity)
+    start = torch.where(lane_used, first, K)
+    return _place(records, start, _steps(records), ok, C, out_capacity)
 
 
 def indexed_materialize(records, status, starts_mat, C: int,
-                        out_capacity: int, ptr_rounds: int | None = None):
+                        out_capacity: int, ptr_rounds: int | None = None,
+                        steps=None):
     """Output of exactly indexed chunk lanes, no stitching (JAX
     ``indexed_materialize`` :150): every lane started at a symbol boundary,
     so all its records count.  A stream is ok when no lane has an error
     status (EOB and STOPPED are not errors), one reached EOB and no
     distance reaches before the stream.  Returns (out u8[B, out_capacity],
     produced int32[B], ok bool[B]); ``starts_mat`` and ``ptr_rounds`` are
-    accepted and ignored, as ``starts_mat`` is in JAX."""
+    accepted and ignored, as ``starts_mat`` is in JAX.
+
+    ``steps`` int32[L]: each lane's step count, for K11's live form
+    (``_decode_symbols_live``: rows past it unwritten); None reads it from
+    JAX's full records."""
     del starts_mat, ptr_rounds
-    rl = records[0]
-    B = rl.shape[1] // C
+    L = records[0].shape[1]
+    B = L // C
     st2 = status.reshape(B, C)
     lane_err = (st2 != DS.EOB) & (st2 != DS.STOPPED)
     ok = ~lane_err.any(dim=1) & (st2 == DS.EOB).any(dim=1)
-    return _place(records[:5], ok, C, out_capacity)
+    if steps is None:
+        steps = _steps(records)
+    return _place(records, torch.zeros(L, dtype=torch.int64,
+                                       device=status.device),
+                  steps, ok, C, out_capacity)
 
 
 def _indexed_symbols(words, total_bits, chunk_starts, max_steps: int,
                      chain: int):
-    """K11 over the chunk lanes with the trained tables: (records, status
-    with inactive lanes STOPPED, starts).  Distances are checked later,
-    against the stitched positions, so ``out_pos`` is 1 << 30."""
+    """K11's live form over the chunk lanes with the trained tables:
+    (records, status with inactive lanes STOPPED, starts, steps).
+    Distances are checked later, against the stitched positions, so
+    ``out_pos`` is 1 << 30."""
     t = trained_symbol_tables(str(words.device))
     starts, bits_l, stops, srow, active = chunk_lanes(total_bits, chunk_starts)
-    records, (_bpos, _opos, status) = DS.decode_symbols(
+    records, (_bpos, _opos, status), steps = DS._decode_symbols_live(
         words, starts, bits_l, torch.full_like(starts, 1 << 30), active,
         torch.zeros_like(starts), t[0], t[1], t[2], t[3],
         max_steps=max_steps, bit_stop=stops, chain=chain, stream_row=srow,
         litlen_first=t[4])
-    return records, torch.where(active, status, DS.STOPPED), starts
+    return records, torch.where(active, status, DS.STOPPED), starts, steps
 
 
 def indexed_decode_step(C: int, max_steps: int, out_capacity: int,
@@ -392,14 +413,15 @@ def indexed_decode_step(C: int, max_steps: int, out_capacity: int,
 
     fn(words int32[B, W], total_bits int32[B], chunk_starts int32[B, C]) ->
     (out u8[B, out_capacity], produced int32[B], ok bool[B]) on the words'
-    device: K11 (one launch), then ``indexed_materialize``.
+    device: K11 (one launch, the live form), then ``indexed_materialize``
+    on its live records.
     """
 
     def step(words, total_bits, chunk_starts):
-        records, status, starts = _indexed_symbols(
+        records, status, starts, steps = _indexed_symbols(
             words, total_bits, chunk_starts, max_steps, chain)
         return indexed_materialize(records, status, starts, C, out_capacity,
-                                   ptr_rounds)
+                                   ptr_rounds, steps=steps)
 
     return step
 
@@ -446,11 +468,11 @@ def decompress_batch_indexed(streams: list[bytes], index: np.ndarray,
     words, total_bits, chunk_starts, cap = stage_indexed(streams, index, dev)
     if max_steps is None:
         max_steps = max(2048, cap // C)
-    records, status, starts = _indexed_symbols(words, total_bits,
-                                               chunk_starts, max_steps, 4)
+    records, status, starts, steps = _indexed_symbols(
+        words, total_bits, chunk_starts, max_steps, 4)
     for _ in range(8):
         out, produced, ok = indexed_materialize(records, status, starts, C,
-                                                cap)
+                                                cap, steps=steps)
         produced = produced.cpu().numpy()
         if int(produced.max(initial=0)) <= cap:
             break
@@ -484,7 +506,7 @@ def fused_ultrafast_roundtrip(C: int, max_steps: int, N: int, chain: int = 4,
     ``fused_ultrafast_roundtrip`` :489).
 
     The encoder's exact chunk index starts every lane at a true symbol
-    boundary (``encode_indexed``); the decode is ``indexed_decode_step``
+    boundary (``encode_ultrafast_batch(num_chunks=C)``); the decode is ``indexed_decode_step``
     with ``out_capacity = N``, and each stream's Adler-32 of its ``produced``
     bytes (``adler32_batch``: K7 on the card) is compared with the
     encoder's.  fn(data u8[B, N], lengths i32[B]) -> (out u8[B, N],
@@ -499,7 +521,8 @@ def fused_ultrafast_roundtrip(C: int, max_steps: int, N: int, chain: int = 4,
     def step(data, lengths):
         data = torch.as_tensor(data).to(dev)
         lengths = torch.as_tensor(lengths).to(dev, torch.int32)
-        words, total_bits, adler, chunk_starts = encode_indexed(data, lengths, C)
+        words, total_bits, adler, chunk_starts = encode_ultrafast_batch(
+            data, lengths, num_chunks=C)
         out, produced, ok = decode(words, total_bits, chunk_starts)
         return out, produced, ok, adler32_batch(out, produced) == adler
 

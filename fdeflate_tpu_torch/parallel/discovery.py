@@ -312,9 +312,9 @@ def _stitch(recs, mask, ranges, produced):
     return out, adler32_batch(out, prod), bad
 
 
-def try_foreign(data: bytes, max_steps: int = 6144, *, device="cuda",
+def try_foreign(data: bytes, max_steps: int = 6144, engine: str = "auto",
                 words_dev=None, return_device: bool = False,
-                materialize: str | None = None):
+                materialize: str | None = None, *, device="cuda"):
     """``decompress_foreign`` without the fallback: the bytes of a confirmed,
     checksum-verified chain decode, or None when the stream needs the
     sequential path.
@@ -322,8 +322,11 @@ def try_foreign(data: bytes, max_steps: int = 6144, *, device="cuda",
     ``words_dev``: the stream's words already on the device
     (``stage_words``).  ``return_device=True`` keeps the output on the
     device and returns (out u8[1, cap], produced) with the Adler-32
-    verified there (one scalar read back).
+    verified there (one scalar read back).  ``engine`` picks the JAX
+    package's symbol phase (its record kernel or its XLA loop); the port
+    has one, K4, and ignores it.
     """
+    del engine
     if materialize == "host":
         raise NotImplementedError("materialize='host' is not ported yet")
     dev = device_of(device)
@@ -362,10 +365,10 @@ def _cap_bucket(produced: int) -> int:
     return 3 * p2 // 4 if 3 * p2 // 4 >= produced else p2
 
 
-def try_foreign_batch(streams: list[bytes], max_steps: int = 6144, *,
-                      device="cuda"):
+def try_foreign_batch(streams: list[bytes], max_steps: int = 6144,
+                      engine: str = "auto", *, device="cuda"):
     """Block-parallel decode of many foreign streams in one K5 and one K4
-    launch.
+    launch (``engine``, as in ``try_foreign``, is ignored).
 
     Stage 1 runs per stream; the survivors of all streams validate in one
     K5 launch over the concatenated stream words
@@ -448,17 +451,24 @@ def decompress_foreign(data: bytes, max_steps: int = 6144, *,
     return r
 
 
-def decompress_batch(streams: list[bytes], max_steps: int = 8192, *,
+def decompress_batch(streams: list[bytes], max_steps: int = 8192,
+                     out_capacity: int | None = None,
+                     try_parallel: bool = True, engine: str = "auto", *,
                      device="cuda"):
     """Decode many zlib streams; per stream the bytes or the error.
 
-    Routing of JAX ``ops/inflate.decompress_batch``: streams of 49152 bytes
-    or more go to block discovery first (``try_foreign_batch`` when there
-    are several, ``try_foreign`` for one); those it leaves, and all others,
-    take the sequential path (``ops/inflate.decompress_sequential``).
-    ``device`` names where the kernels run.
+    Routing of JAX ``ops/inflate.decompress_batch``: with ``try_parallel``
+    (the default), streams of 49152 bytes or more go to block discovery
+    first (``try_foreign_batch`` when there are several, ``try_foreign``
+    for one); those it leaves, and all others, take the sequential path
+    (``ops/inflate.decompress_sequential``).  ``device`` names where the
+    kernels run.  ``out_capacity`` sizes the JAX sequential path's output
+    per launch, which the port sizes from each launch's output itself, and
+    ``engine`` picks the JAX package's symbol phase; both are ignored.
     """
-    big = [i for i, s in enumerate(streams) if len(s) >= _PARALLEL_MIN]
+    del out_capacity, engine
+    big = [i for i, s in enumerate(streams)
+           if try_parallel and len(s) >= _PARALLEL_MIN]
     if len(big) > 1:
         res = try_foreign_batch([streams[i] for i in big],
                                 max_steps=max_steps, device=device)

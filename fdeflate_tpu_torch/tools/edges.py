@@ -684,15 +684,15 @@ def _k11_split_case(rng) -> dict:
     """The chunk lanes of 3 x 4096 bytes of short-code literals, C = 16;
     a few long-code literals (byte 128) break the pairs, so a lane's
     symbols before the next lane's start are not always an even count."""
-    from ..parallel.device_pipeline import (chunk_lanes, encode_indexed,
-                                            trained_symbol_tables)
+    from ..ops.ultrafast import encode_ultrafast_batch
+    from ..parallel.device_pipeline import chunk_lanes, trained_symbol_tables
 
     B, N, C = 3, 4096, 16
     data = torch.from_numpy(rng.choice(
         np.array([1, 2, 3, 253, 254, 255, 128], np.uint8), (B, N),
         p=[0.16] * 6 + [0.04]))
-    words, total_bits, _adler, index = encode_indexed(
-        data, torch.full((B,), N, dtype=torch.int32), C)
+    words, total_bits, _adler, index = encode_ultrafast_batch(
+        data, torch.full((B,), N, dtype=torch.int32), num_chunks=C)
     starts, bits_l, stops, srow, active = chunk_lanes(total_bits, index)
     t = trained_symbol_tables("cpu")
     return dict(

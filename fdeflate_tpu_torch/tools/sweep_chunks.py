@@ -23,8 +23,8 @@ import torch
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack
 from fdeflate_tpu_torch.ops.decode2 import decode2
 from fdeflate_tpu_torch.ops.repack import combine
-from fdeflate_tpu_torch.ops.ultrafast import (encode_ultrafast_batch,
-                                              lane_starts, stream_words)
+from fdeflate_tpu_torch.ops.ultrafast import (encode_fixed, lane_starts,
+                                              stream_words)
 from fdeflate_tpu_torch.parallel.device_pipeline import decode_verify
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 from fdeflate_tpu_torch.trees import trained_tables
@@ -51,7 +51,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 def sweep_row(data, lengths, C: int, t, reps: int) -> dict:
     B, N = data.shape
-    words, total_bits, adler, starts, eof = encode_ultrafast_batch(
+    words, total_bits, adler, starts, eof = encode_fixed(
         data, lengths, C)
     out, bpos_ok, ck_ok = decode_verify(words, starts, eof, adler, lengths,
                                         N, C, t)
@@ -67,7 +67,7 @@ def sweep_row(data, lengths, C: int, t, reps: int) -> dict:
         "K2": cuda_ms(lambda: combine(win, bits, pos0, B, W), reps),
         "K3": cuda_ms(lambda: decode2(words, starts, t.dtab, N, C), reps),
         "encode_leg": cuda_ms(
-            lambda: encode_ultrafast_batch(data, lengths, C), reps),
+            lambda: encode_fixed(data, lengths, C), reps),
         "decode_leg": cuda_ms(
             lambda: decode_verify(words, starts, eof, adler, lengths, N, C, t),
             reps),

@@ -11,7 +11,7 @@ to compare two trees, run it from each in one machine session, in turns
 ``--reps`` CUDA-event timings of single calls (ms):
 
 * K2 on K1's windows of 16 x 1 MiB IDAT (``make_idat_corpus``), C = 512,
-  and the encode leg (``encode_ultrafast_batch``) around it;
+  and the encode leg (``encode_fixed``) around it;
 * K4 on every lane block discovery finds in 8 MiB of word-salad text at
   zlib 6 and 8 MiB of IDAT at zlib 1 (``try_foreign``'s lanes) and in 16 x
   1 MiB IDAT streams at zlib 1 (``try_foreign_batch``'s lanes over the
@@ -36,8 +36,8 @@ from fdeflate_tpu_torch.ops.assign_pack import assign_pack
 from fdeflate_tpu_torch.ops.inflate import pad_words
 from fdeflate_tpu_torch.ops.inflate_records import DONE_EOB, inflate_records
 from fdeflate_tpu_torch.ops.repack import combine
-from fdeflate_tpu_torch.ops.ultrafast import (encode_ultrafast_batch,
-                                              lane_starts, stream_words)
+from fdeflate_tpu_torch.ops.ultrafast import (encode_fixed, lane_starts,
+                                              stream_words)
 from fdeflate_tpu_torch.parallel import discovery as PD
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 from fdeflate_tpu_torch.trees import trained_tables
@@ -122,7 +122,7 @@ def main() -> None:
     pos0 = lane_starts(bits, B, C, t.header_bits)[0].reshape(-1).to(torch.int32)
     W = stream_words(N, t)
     k2 = cuda_ms(lambda: combine(win, bits, pos0, B, W), args.reps)
-    enc = cuda_ms(lambda: encode_ultrafast_batch(data, lengths, C), args.reps)
+    enc = cuda_ms(lambda: encode_fixed(data, lengths, C), args.reps)
     print(f"K2 16 x 1 MiB, C={C}: kernel {k2:.4f} ms, encode leg {enc:.4f} ms",
           flush=True)
 

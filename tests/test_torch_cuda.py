@@ -40,7 +40,8 @@ from fdeflate_tpu_torch.ops.decode2 import (
 )
 from fdeflate_tpu_torch.ops.decode_sep import (decode_sep, decode_sep_plain,
                                                decode_sep_plain_eob)
-from fdeflate_tpu_torch.ops.decode_symbols import decode_symbols
+from fdeflate_tpu_torch.ops.decode_symbols import (_decode_symbols_live,
+                                                   decode_symbols)
 from fdeflate_tpu_torch.ops.inflate_records import (
     NO_LIMIT,
     inflate_records,
@@ -60,7 +61,8 @@ from fdeflate_tpu_torch.ops.validate_headers import (
     validate_headers_plain,
 )
 from fdeflate_tpu_torch.parallel import discovery as PD
-from fdeflate_tpu_torch.ops.ultrafast import _encode, lane_starts, stream_words
+from fdeflate_tpu_torch.ops.ultrafast import (_encode, encode_ultrafast_batch,
+                                              lane_starts, stream_words)
 from fdeflate_tpu_torch.parallel import device_pipeline as DP
 from fdeflate_tpu_torch.parallel.device_pipeline import fused_zlib_roundtrip
 from fdeflate_tpu_torch.tools.edges import (K4_KINDS, K8_UNSAFE, K11_KINDS,
@@ -695,7 +697,8 @@ def _indexed_case(dev, B=4, N=65536, C=64):
     """The chunk lanes of an IDAT-like batch, encoded on ``dev``."""
     data = torch.from_numpy(_data(3, B, N, [N] * B)).to(dev)
     lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
-    words, total_bits, _adler, index = DP.encode_indexed(data, lengths, C)
+    words, total_bits, _adler, index = encode_ultrafast_batch(
+        data, lengths, num_chunks=C)
     starts, bits_l, stops, srow, active = DP.chunk_lanes(total_bits, index)
     t = DP.trained_symbol_tables(str(dev))
     return data, lengths, dict(
@@ -712,6 +715,41 @@ def test_decode_symbols_indexed_matches_plain(dev, chain):
     got = decode_symbols(**case, chain=chain)
     want = decode_symbols(**_on(case, "cpu"), chain=chain)
     _same_records(got, want, f"chain {chain}")
+
+
+def _same_live(got, want, label):
+    """K11's live form against the plain (full) records: each lane's rows
+    below its step count, the count (the rows with a position) and the
+    state."""
+    records, state, steps = got
+    ran = want[0][5] >= 0
+    assert torch.equal(steps.cpu(), ran.sum(0, dtype=torch.int32)), label
+    live = (torch.arange(ran.shape[0])[:, None]
+            < steps.cpu()[None, :].to(torch.int64))
+    for i, (g, w) in enumerate(zip(records, want[0])):
+        assert g.dtype == w.dtype and torch.equal(g.cpu()[live], w[live]), (
+            label, i)
+    for i, (g, w) in enumerate(zip(state, want[1])):
+        assert torch.equal(g.cpu(), w), (label, "state", i)
+
+
+@pytest.mark.parametrize("kind", K11_KINDS)
+def test_decode_symbols_live_edges(dev, kind):
+    """K11's live form on its edge inputs, one launch, against plain."""
+    case = k11_edge_case(kind)
+    want = decode_symbols(**case)
+    before = decode_symbols.launches
+    got = _decode_symbols_live(**_on(case, dev))
+    assert decode_symbols.launches == before + 1
+    _same_live(got, want, kind)
+
+
+@pytest.mark.parametrize("chain", [1, 2, 4])
+def test_decode_symbols_live_indexed_matches_plain(dev, chain):
+    _data_, _lengths, case = _indexed_case(dev)
+    got = _decode_symbols_live(**case, chain=chain)
+    want = decode_symbols(**_on(case, "cpu"), chain=chain)
+    _same_live(got, want, f"live, chain {chain}")
 
 
 def test_fused_ultrafast_roundtrip_cuda_equals_cpu(dev):

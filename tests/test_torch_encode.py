@@ -23,7 +23,7 @@ import fdeflate_tpu as F
 from fdeflate_tpu.ops import ultrafast_kernel as UK
 from fdeflate_tpu_torch import compress_batch_ultra_fast, finalize_streams
 from fdeflate_tpu_torch.ops.assign_pack import assign_pack, wwin
-from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch
+from fdeflate_tpu_torch.ops.ultrafast import encode_fixed
 from fdeflate_tpu_torch.trees import trained_tables
 
 
@@ -132,8 +132,7 @@ def test_encode_matches_jax(case):
     data, lengths, C = CASES[case]()
     ref = [np.asarray(x) for x in
            _jax_encoder(C)(jnp.asarray(data), jnp.asarray(lengths))]
-    got = encode_ultrafast_batch(torch.from_numpy(data),
-                                 torch.from_numpy(lengths), C)
+    got = encode_fixed(torch.from_numpy(data), torch.from_numpy(lengths), C)
     words, total_bits, adler, starts, eof = (x.numpy() for x in got)
 
     words = words.view(np.uint32)
@@ -159,7 +158,7 @@ def test_windows_hold_each_lane_alone(case):
     t = trained_tables()
     win, bits = assign_pack(torch.from_numpy(data), torch.from_numpy(lengths),
                             C, t)
-    words, _tb, _ad, starts, eof = encode_ultrafast_batch(
+    words, _tb, _ad, starts, eof = encode_fixed(
         torch.from_numpy(data), torch.from_numpy(lengths), C)
     assert win.shape == (B * C, wwin(N // C))
     ends = torch.cat([starts[:, 1:], eof[:, None]], dim=1)

@@ -12,8 +12,14 @@ tests/test_device_codec.py's fused roundtrip data, a dynamic block with
 far back, inactive lanes, stacked tables, ``stream_row``, exhausted
 steps), speculative lanes started off symbol boundaries, and
 tests/test_device_codec.py's indexed batch (capacity growth, empty and
-tiny streams).  Every output is an integer or a byte: all comparisons are
-exact.  The JAX calls sit in module fixtures.
+tiny streams).  ``materialize`` is held to JAX through its front and
+``materialize_flat`` on flat record lists built here; the consumers of
+K11's live form (``indexed_materialize`` with ``steps``,
+``decompress_batch_indexed``) read records whose rows past each lane's
+step count hold garbage, as the card leaves them, and still give JAX's
+(out, produced, ok), bytes and error classes.  Every output is an integer
+or a byte: all comparisons are exact.  The JAX calls sit in module
+fixtures.
 """
 
 from __future__ import annotations
@@ -34,10 +40,13 @@ from fdeflate_tpu.ops.ultrafast_kernel import (
 from fdeflate_tpu.parallel import device_pipeline as JD
 from fdeflate_tpu_torch import errors as PE
 from fdeflate_tpu_torch.ops.decode_symbols import decode_symbols
-from fdeflate_tpu_torch.ops.inflate import materialize
+from fdeflate_tpu_torch.ops import decode_symbols as DS
+from fdeflate_tpu_torch.ops.inflate import materialize, materialize_flat
+from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch as P_encode
 from fdeflate_tpu_torch.parallel import device_pipeline as PD
 from fdeflate_tpu_torch.tools.edges import K11_KINDS, k11_edge_case
 from test_crafted_streams import emit_dynamic_block, lopsided_lengths
+from test_torch_inflate import _records
 
 B, N, C = 4, 32768, 8
 STEPS = 8192
@@ -96,8 +105,8 @@ def indexed():
     jw, jtb, jad, jidx = jax.jit(
         lambda d, ln: encode_ultrafast_batch(d, ln, num_chunks=C))(
             jnp.asarray(data), jnp.asarray(lengths))
-    pw, ptb, pad, pidx = PD.encode_indexed(torch.from_numpy(data),
-                                           torch.from_numpy(lengths), C)
+    pw, ptb, pad, pidx = P_encode(torch.from_numpy(data),
+                                  torch.from_numpy(lengths), num_chunks=C)
     starts, bits_l, stops, srow, active = PD.chunk_lanes(ptb, pidx)
     t = PD._trained_tables()
     kw = dict(words=pw, bit_pos=starts, bit_end=bits_l,
@@ -334,3 +343,128 @@ def test_decompress_batch_indexed_errors(small_batch):
         assert PD.decompress_batch_indexed.fallbacks == before + fallbacks, label
     assert _jax_error(lambda: JD.decompress_batch_indexed(
         streams[:2] + [cases["flipped checksum"][0]], index)) == "WrongChecksum"
+
+
+def _flat_lists(recs):
+    """Records [K, B] in numpy as ``materialize_flat``'s flat lists, built
+    independently of the port's front: every record with literals or a
+    length, in (row, step) order, its start after the window."""
+    rl, rlh, rc, rn, rd = (np.asarray(_np(x)).astype(np.int64) for x in recs)
+    adv = rc + rn
+    start = JI.WINDOW + np.cumsum(adv, axis=0) - adv
+    step, row = np.nonzero((rc > 0) | (adv > 0))
+    order = np.lexsort((step, row))
+    step, row = step[order], row[order]
+    return [torch.from_numpy(a) for a in (
+        row, start[step, row], rl[step, row], rlh[step, row], rc[step, row],
+        rn[step, row], rd[step, row])]
+
+
+@pytest.mark.parametrize("kind", ["two literals", "eight literals"])
+def test_materialize_flat_and_front_equal_jax(chains, kind):
+    """K4-style records of two literals (random, with dist-1 spans, copies
+    that overlap and reach into the window) and K11's records of eight
+    (the indexed lanes: every match a dist-1 span) after a random window;
+    the last row holds two rows' records one after the other (the others
+    padded with empty records), and ``out_capacity`` is the next multiple
+    of 4 above the other rows' bytes, so the last row's second half starts
+    past it."""
+    if kind == "two literals":
+        recs = _records(21, 4, 300, True)
+    else:
+        recs = tuple(np.asarray(_np(x))[:, 8:14] for x in
+                     _jax_records(chains)[:5])
+    recs = tuple(np.concatenate([x, np.zeros_like(x)]) for x in recs)
+    K = recs[0].shape[0] // 2
+    for x in recs:
+        x[K:, -1] = x[:K, -2]
+    adv = recs[2].astype(np.int64) + recs[3]
+    produced = adv.sum(axis=0).astype(np.int32)
+    cap = 4 * (int(produced[:-1].max()) // 4 + 1)
+    starts = np.cumsum(adv[:, -1]) - adv[:, -1]
+    assert (starts[adv[:, -1] > 0] >= cap).sum() > 2, produced
+    B = recs[0].shape[1]
+    window = np.random.default_rng(6).integers(0, 256, (B, JI.WINDOW),
+                                               dtype=np.uint8)
+    want = JI.materialize(tuple(jnp.asarray(x) for x in recs),
+                          jnp.asarray(window), jnp.asarray(produced),
+                          out_capacity=cap)
+    win_t, prod_t = torch.from_numpy(window), torch.from_numpy(produced)
+    got = materialize(tuple(torch.from_numpy(x.astype(np.int64))
+                            for x in recs), win_t, prod_t, cap)
+    _equal(got, want, f"materialize, {kind}")
+    flat = materialize_flat(*_flat_lists(recs), win_t, prod_t, cap)
+    _equal(flat, want, f"materialize_flat, {kind}")
+
+
+def _poison(records, steps):
+    """K11's live form as the card leaves it: every slot at or past a
+    lane's step count holds garbage (positive counts, lengths, distances
+    and positions: any of them read would change the output)."""
+    past = (torch.arange(records[0].shape[0])[:, None]
+            >= steps[None, :].to(torch.int64))
+    return tuple(torch.where(past, torch.full_like(r, 0x5A if r.dtype ==
+                                                   torch.int8 else 0x5A5A5A5A),
+                             r) for r in records)
+
+
+def test_indexed_materialize_live_form(indexed, chains):
+    """The indexed lanes' live records (rows past ``steps`` garbage) give
+    JAX's ``indexed_materialize`` of the full records."""
+    recs = _jax_records(chains)
+    status = np.asarray(chains[4][1][2])
+    starts = np.asarray(indexed["kw"]["bit_pos"])
+    want = JD.indexed_materialize(tuple(recs), jnp.asarray(status),
+                                  jnp.asarray(starts), C, out_capacity=N)
+    got_recs, (_b, _o, got_status), steps = DS._decode_symbols_live(
+        **indexed["kw"], chain=4)
+    assert torch.equal(steps, (torch.from_numpy(_np(recs[5])) >= 0).sum(
+        0, dtype=torch.int32))
+    live = _poison(got_recs, steps)
+    got = PD.indexed_materialize(live, got_status, None, C, N, steps=steps)
+    _equal(got, want, "indexed_materialize, live form")
+
+
+def _poisoned_live(*args, **kwargs):
+    records, state, steps = _LIVE(*args, **kwargs)
+    return _poison(records, steps), state, steps
+
+
+_LIVE = DS._decode_symbols_live
+
+
+@pytest.mark.parametrize("case", ["clean", "flipped checksum", "truncated",
+                                  "end zeroed"])
+def test_indexed_live_form_on_error_streams(small_batch, monkeypatch, case):
+    """``indexed_decode_step`` and ``decompress_batch_indexed`` on the live
+    form with garbage past each lane's steps: JAX's (out, produced, ok) on
+    the staged streams, its bytes or error class, and the fallback counted
+    where the stream is rejected."""
+    datas, streams, index = small_batch
+    s = streams[2]
+    bad, fallbacks = {
+        "clean": (s, 0),
+        "flipped checksum": (s[:-4] + bytes(b ^ 0xFF for b in s[-4:]), 0),
+        "truncated": (s[: len(s) // 2] + s[-4:], 1),
+        "end zeroed": (s[:-8] + bytes(4) + s[-4:], 1),
+    }[case]
+    batch = streams[:2] + [bad]
+    monkeypatch.setattr(DS, "_decode_symbols_live", _poisoned_live)
+    words, total_bits, chunk_starts, cap = PD.stage_indexed(batch, index,
+                                                            "cpu")
+    steps = max(2048, cap // index.shape[1])
+    want = jax.jit(JD.indexed_decode_step(index.shape[1], steps, cap))(
+        jnp.asarray(words.numpy().view(np.uint32)),
+        jnp.asarray(total_bits.numpy()), jnp.asarray(chunk_starts.numpy()))
+    got = PD.indexed_decode_step(index.shape[1], steps, cap)(
+        words, total_bits, chunk_starts)
+    _equal(got, want, case)
+    assert bool(np.asarray(want[2])[2]) == (fallbacks == 0), case
+    before = PD.decompress_batch_indexed.fallbacks
+    got_err = _port_error(
+        lambda: PD.decompress_batch_indexed(batch, index, device="cpu"))
+    want_err = _jax_error(lambda: JD.decompress_batch_indexed(batch, index))
+    assert got_err == want_err, (case, got_err, want_err)
+    assert (got_err is None) == (case == "clean"), case
+    assert PD.decompress_batch_indexed.fallbacks == before + fallbacks, case
+

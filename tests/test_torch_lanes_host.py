@@ -68,7 +68,7 @@ from fdeflate_tpu_torch.ops.adler32_pallas import (adler32_checksums,
                                                    adler32_tiles_plain)
 from fdeflate_tpu_torch.ops.repack import combine_plain, slab_lanes
 from fdeflate_tpu_torch.ops.ultrafast import (
-    encode_ultrafast_batch,
+    encode_fixed,
     lane_starts,
     stream_words,
 )
@@ -453,7 +453,7 @@ def test_decode_lane_matches_plain(lib, seed0, corrupt):
     for seed in range(seed0, seed0 + 6):
         data, lengths, C = _case(seed)
         B, N = data.shape
-        words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
+        words, total_bits, _ad, starts, _eof = encode_fixed(
             data, lengths, C)
         if corrupt:
             words = _corrupt(words, total_bits, seed, B)
@@ -487,7 +487,7 @@ def test_decode_warp_threads(lib, m, seed0, corrupt):
     for seed in range(seed0, seed0 + 6):
         data, lengths, C = _case(seed)
         B, N = data.shape
-        words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
+        words, total_bits, _ad, starts, _eof = encode_fixed(
             data, lengths, C)
         if corrupt:
             words = _corrupt(words, total_bits, seed, B)
@@ -524,7 +524,7 @@ def _edge_streams(label):
     (_l, d, lens, C), = [e for e in k1_edge_inputs() if e[0] == label]
     data = torch.from_numpy(d)
     lengths = torch.tensor(lens, dtype=torch.int32)
-    words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
+    words, total_bits, _ad, starts, _eof = encode_fixed(
         data, lengths, C)
     return data, lengths, C, words, total_bits, starts
 
@@ -594,7 +594,7 @@ def _decode_edge_cases(kind):
         data = torch.from_numpy(make_idat_corpus(2, 16384, seed=48))
         lengths = torch.tensor([16384, 9999], dtype=torch.int32)
         data[1, 9999:] = 0
-        words, tb, _ad, starts, _eof = encode_ultrafast_batch(data, lengths, 2)
+        words, tb, _ad, starts, _eof = encode_fixed(data, lengths, 2)
         cases.append(("S = 8192, clean", words, starts, t.dtab, 16384, 2,
                       (1, 1), data))
         cases.append(("S = 8192, corrupted", corrupt_words(words, tb, 64, 49),
@@ -632,7 +632,7 @@ def test_decode_warp_resynchronises(lib):
     t = trained_tables()
     data = torch.from_numpy(make_idat_corpus(4, 1 << 16, seed=50))
     lengths = torch.full((4,), 1 << 16, dtype=torch.int32)
-    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(data, lengths, 32)
+    words, _tb, _ad, starts, _eof = encode_fixed(data, lengths, 32)
     out, bpos, stats = _decode_warp(lib, words, starts, t.dtab, 1 << 16, 32,
                                     32)
     assert torch.equal(out, data)
@@ -654,7 +654,7 @@ def test_decode_warp_resynchronises_short_lanes(lib, C):
     t = trained_tables()
     data = torch.from_numpy(make_idat_corpus(2, 1 << 18, seed=51))
     lengths = torch.full((2,), 1 << 18, dtype=torch.int32)
-    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(data, lengths, C)
+    words, _tb, _ad, starts, _eof = encode_fixed(data, lengths, C)
     out, bpos, stats = _decode_warp(lib, words, starts, t.dtab, 1 << 18, C,
                                     lib.dec_threads((1 << 18) // C), tcap=0)
     assert torch.equal(out, data)
@@ -674,7 +674,7 @@ def test_decode_sep_lane_matches_plain(lib, seed0, corrupt):
         B, N = data.shape
         if (N // C) % 4:
             continue
-        words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
+        words, total_bits, _ad, starts, _eof = encode_fixed(
             data, lengths, C, tree=tree)
         if corrupt:
             rng = np.random.default_rng(seed)
@@ -772,7 +772,7 @@ def test_decode_sep_warp_threads(lib, m, seed0, corrupt):
         B, N = data.shape
         if (N // C) % 4:
             continue
-        words, total_bits, _ad, starts, _eof = encode_ultrafast_batch(
+        words, total_bits, _ad, starts, _eof = encode_fixed(
             data, lengths, C, tree=tree)
         if corrupt:
             words = _corrupt(words, total_bits, seed, B)
@@ -833,8 +833,7 @@ def test_decode_sep_warp_clean_lanes_stay_parallel(lib):
     meta, vals = sep_tables(tree.lens)
     data = torch.from_numpy(make_idat_corpus(4, 1 << 16, seed=52))
     lengths = torch.full((4,), 1 << 16, dtype=torch.int32)
-    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(data, lengths, 32,
-                                                           tree=tree)
+    words, _tb, _ad, starts, _eof = encode_fixed(data, lengths, 32, tree=tree)
     out, bpos, stats, _m = _sep_warp(lib, words, starts, meta, vals, 1 << 16,
                                      32, 32)
     assert torch.equal(out, data)

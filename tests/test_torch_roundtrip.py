@@ -25,7 +25,7 @@ from fdeflate_tpu.ops.repack import stage_blocked_np, stage_wwin
 from fdeflate_tpu.parallel import device_pipeline as JDP
 from fdeflate_tpu_torch import fused_zlib_roundtrip, zlib_decode_step
 from fdeflate_tpu_torch.ops.decode2 import decode2
-from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch
+from fdeflate_tpu_torch.ops.ultrafast import encode_fixed
 from fdeflate_tpu_torch.trees import trained_tables
 
 B, N, C = 3, 2048, 8
@@ -146,7 +146,7 @@ def test_decode_matches_numpy_oracle(case):
     Bn, Nn = data.shape
     S_ = Nn // C_
     lengths = np.full(Bn, Nn, np.int32)
-    words, _tb, _ad, starts, _eof = encode_ultrafast_batch(
+    words, _tb, _ad, starts, _eof = encode_fixed(
         torch.from_numpy(data), torch.from_numpy(lengths), C_)
     out, bp = decode2(words, starts, trained_tables().dtab, Nn, C_)
     np.testing.assert_array_equal(out.numpy(), data)
@@ -160,7 +160,7 @@ def test_ragged_and_empty_lanes_stall_with_zeros():
     lengths = np.array([4096, 1500, 0], np.int32)
     for b in range(3):
         data[b, lengths[b]:] = 0
-    words, _tb, adler, starts, eof = encode_ultrafast_batch(
+    words, _tb, adler, starts, eof = encode_fixed(
         torch.from_numpy(data), torch.from_numpy(lengths), 4)
     out, bp = decode2(words, starts, trained_tables().dtab, 4096, 4)
     np.testing.assert_array_equal(out.numpy(), data)
@@ -173,7 +173,7 @@ def test_ragged_and_empty_lanes_stall_with_zeros():
 def test_flipped_word_is_caught(lane):
     data = _idat(2, 4096)
     lengths = np.full(2, 4096, np.int32)
-    words, _tb, adler, starts, eof = encode_ultrafast_batch(
+    words, _tb, adler, starts, eof = encode_fixed(
         torch.from_numpy(data), torch.from_numpy(lengths), 4)
     words = words.clone()
     words[0, (int(starts[0, lane]) >> 5) + 2] ^= 0x0F0F0F0F

@@ -10,9 +10,12 @@ through both secondary tables, truncation, reads past the last word,
 corrupted fixed-code streams with invalid distance codes, invalid
 literal/length entries, distances too far back, inactive lanes, stacked
 tables with ``table_id`` and ``stream_row``, exhausted steps) and on the
-chunk lanes of the indexed codec at chain 1, 2 and 4.  The launch, the
-shared-memory tables and the coalesced stores are covered only on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+chunk lanes of the indexed codec at chain 1, 2 and 4, in both output
+forms: the full form (``fill``: every row written, JAX's records) and the
+live form (each lane's rows below its step count written, the rest left as
+the harness set them).  The host runs each lane alone (``LaneVote``); the
+warp vote, the launch, the shared-memory tables and the coalesced stores
+are covered only on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ import torch
 
 from fdeflate_tpu_torch.ops.decode_symbols import (decode_symbols,
                                                    engine_inputs)
+from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch
 from fdeflate_tpu_torch.parallel.device_pipeline import (
     chunk_lanes,
-    encode_indexed,
     trained_symbol_tables,
 )
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
@@ -40,15 +43,24 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "fdeflate_tpu_torch" / "
 
 _HARNESS = r"""
 #include "symbols_lanes.cuh"
-// K11's lanes one after another, with the kernel's per-lane arguments.
-extern "C" void symbols_lanes(const uint32_t* words, int nrows, int W,
+// The vote of a group of lanes stepping together, on the host: the group
+// runs while any of its lanes runs, that is for its longest lane's steps.
+struct GroupVote {
+  int steps, i = 0;
+  bool operator()(bool) { return i++ < steps; }
+};
+// K11's lanes one after another, with the kernel's per-lane arguments;
+// with group_steps, each lane steps as in a group whose longest lane runs
+// group_steps[lane] steps (a warp on the card), else alone.
+extern "C" void symbols_lanes(const int32_t* group_steps,const uint32_t* words, int nrows, int W,
     const int32_t* rows, const int32_t* bit_pos, const int32_t* bit_end,
     const int32_t* out_pos, const int32_t* active, const int32_t* table_id,
     const int32_t* bit_stop, const uint32_t* litlen, const uint32_t* lsec,
     int nsec, const uint32_t* dist, const uint32_t* dsec, int ndsec,
-    const int32_t* first, int T, int chain, int L, int max_steps,
+    const int32_t* first, int T, int chain, int L, int max_steps, int fill,
     uint32_t* rl, uint32_t* rlh, int8_t* rc, int32_t* rn, int32_t* rd,
-    int32_t* rp, int32_t* bpos, int32_t* opos, int8_t* status) {
+    int32_t* rp, int32_t* steps, int32_t* bpos, int32_t* opos,
+    int8_t* status) {
   for (int64_t lane = 0; lane < L; ++lane) {
     const int64_t t = fdt::iclamp(table_id[lane], 0, T - 1);
     const fdt::SymTables tb{litlen + t * fdt::kSymLitlen,
@@ -58,9 +70,14 @@ extern "C" void symbols_lanes(const uint32_t* words, int nrows, int W,
     const int64_t row = fdt::iclamp(rows[lane], 0, nrows - 1);
     const fdt::SymOut o{rl + lane, rlh + lane, rc + lane, rn + lane,
                         rd + lane, rp + lane, L};
-    fdt::decode_symbols_lane(words + row * W, W, bit_pos[lane],
-        bit_end[lane], out_pos[lane], active[lane] != 0, bit_stop[lane], tb,
-        chain, max_steps, o, bpos + lane, opos + lane, status + lane);
+    auto run = [&](auto vote) {
+      return fdt::decode_symbols_lane(words + row * W, W, bit_pos[lane],
+          bit_end[lane], out_pos[lane], active[lane] != 0, bit_stop[lane],
+          tb, chain, max_steps, fill != 0, o, steps + lane, bpos + lane,
+          opos + lane, status + lane, vote);
+    };
+    if (group_steps) run(GroupVote{group_steps[lane]});
+    else run(fdt::LaneVote{});
   }
 }
 """
@@ -79,13 +96,16 @@ def lib(tmp_path_factory):
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.symbols_lanes.argtypes = ([P, I, I] + [P] * 9 + [I, P, P, I, P]
-                                  + [I] * 4 + [P] * 9)
+    lib.symbols_lanes.argtypes = ([P, P, I, I] + [P] * 9 + [I, P, P, I, P]
+                                  + [I] * 5 + [P] * 10)
     return lib
 
 
-def _lanes(lib, max_steps: int, **kw):
-    """The lane code's (records, state) on ``decode_symbols`` keywords."""
+def _lanes(lib, max_steps: int, fill: bool = True, group=None, **kw):
+    """The lane code's (records, state, steps) on ``decode_symbols``
+    keywords; every record slot starts as the sentinel 7.  ``group``
+    int32[L]: the steps of each lane's group (``_warp_steps``), else each
+    lane steps alone."""
     words, lanes, rows, tabs, first, T = engine_inputs(**kw)
     L = rows.numel()
     i32 = torch.int32
@@ -93,13 +113,15 @@ def _lanes(lib, max_steps: int, **kw):
     rec[2] = torch.full((max_steps, L), 7, dtype=torch.int8)
     state = [torch.zeros(L, dtype=i32), torch.zeros(L, dtype=i32),
              torch.zeros(L, dtype=torch.int8)]
+    steps = torch.full((L,), -1, dtype=i32)
     p = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    lib.symbols_lanes(p(words), words.shape[0], words.shape[1], p(rows),
+    lib.symbols_lanes(p(group), p(words), words.shape[0], words.shape[1], p(rows),
                       *(p(x) for x in lanes), p(tabs[0]), p(tabs[1]),
                       tabs[1].shape[1], p(tabs[2]), p(tabs[3]),
                       tabs[3].shape[1], p(first), T, kw.get("chain", 4), L,
-                      max_steps, *(p(x) for x in rec), *(p(x) for x in state))
-    return tuple(rec), tuple(state)
+                      max_steps, int(fill), *(p(x) for x in rec), p(steps),
+                      *(p(x) for x in state))
+    return tuple(rec), tuple(state), steps
 
 
 def _check(got, want, label):
@@ -144,7 +166,9 @@ def test_symbols_lane_edges_match_plain(lib, kind):
     case = k11_edge_case(kind)
     steps = case.pop("max_steps")
     want = decode_symbols(**case, max_steps=steps)
-    _check(_lanes(lib, steps, **case), want, kind)
+    got = _lanes(lib, steps, **case)
+    _check(got, want, kind)
+    assert torch.equal(got[2], (want[0][5] >= 0).sum(0, dtype=torch.int32))
     assert EXITS[kind] <= set(want[1][2].tolist()), kind
     if kind in ("long codes", "stacked tables"):
         assert _secondary_steps(case, want[0]) > 0
@@ -155,8 +179,9 @@ def test_symbols_lane_edges_match_plain(lib, kind):
         assert not torch.equal(unsplit[0][2], want[0][2])
 
 
-@pytest.mark.parametrize("chain", [1, 2, 4])
-def test_symbols_lane_indexed_matches_plain(lib, chain):
+def _indexed_kw(chain: int) -> dict:
+    """``decode_symbols`` keywords of the indexed codec's chunk lanes: random
+    bytes, a byte every fifth and IDAT, C = 8."""
     rng = np.random.default_rng(123)
     B, N, C = 3, 8192, 8
     data = np.zeros((B, N), np.uint8)
@@ -165,15 +190,21 @@ def test_symbols_lane_indexed_matches_plain(lib, chain):
     # IDAT bytes: short codes, so literal pairs straddle lane stops and
     # the first-symbol split is taken
     data[2] = make_idat_corpus(1, N, seed=5)[0]
-    words, total_bits, _adler, index = encode_indexed(
-        torch.from_numpy(data), torch.full((B,), N, dtype=torch.int32), C)
+    words, total_bits, _adler, index = encode_ultrafast_batch(
+        torch.from_numpy(data), torch.full((B,), N, dtype=torch.int32),
+        num_chunks=C)
     starts, bits_l, stops, srow, active = chunk_lanes(total_bits, index)
     t = trained_symbol_tables("cpu")
-    kw = dict(words=words, bit_pos=starts, bit_end=bits_l,
-              out_pos=torch.full_like(starts, 1 << 30), active=active,
-              table_id=torch.zeros_like(starts), litlen=t[0],
-              litlen_sec=t[1], dist=t[2], dist_sec=t[3], bit_stop=stops,
-              chain=chain, stream_row=srow, litlen_first=t[4])
+    return dict(words=words, bit_pos=starts, bit_end=bits_l,
+                out_pos=torch.full_like(starts, 1 << 30), active=active,
+                table_id=torch.zeros_like(starts), litlen=t[0],
+                litlen_sec=t[1], dist=t[2], dist_sec=t[3], bit_stop=stops,
+                chain=chain, stream_row=srow, litlen_first=t[4])
+
+
+@pytest.mark.parametrize("chain", [1, 2, 4])
+def test_symbols_lane_indexed_matches_plain(lib, chain):
+    kw = _indexed_kw(chain)
     want = decode_symbols(**kw, max_steps=2048)
     _check(_lanes(lib, 2048, **kw), want, f"indexed, chain {chain}")
     assert set(want[1][2].tolist()) <= {1, 2}
@@ -191,3 +222,72 @@ def test_symbols_lane_writes_every_row(lib):
     assert idle.any()
     for r in got[0][:5]:
         assert (r[idle] == 0).all()
+
+
+def _check_live(got, want, label):
+    """The live form against the plain (full) records: rows below each
+    lane's step count equal, the count equal to the rows with a position,
+    the state equal, and every slot at or past the count still 7."""
+    records, state, steps = got
+    ran = want[0][5] >= 0
+    assert torch.equal(steps, ran.sum(0, dtype=torch.int32)), label
+    live = torch.arange(ran.shape[0])[:, None] < steps[None, :].to(torch.int64)
+    for name, g, w in zip(("lit_lo", "lit_hi", "cnt", "len", "dist", "pos"),
+                          records, want[0]):
+        assert torch.equal(g[live], w[live]), (label, name)
+        assert (g[~live] == 7).all(), f"{label}: {name} written past steps"
+    assert (~live).any(), label
+    for name, g, w in zip(("bit_pos", "out_pos", "status"), state, want[1]):
+        assert torch.equal(g, w), (label, name)
+
+
+@pytest.mark.parametrize("kind", K11_KINDS)
+def test_symbols_lane_live_form_edges(lib, kind):
+    case = k11_edge_case(kind)
+    steps = case.pop("max_steps")
+    want = decode_symbols(**case, max_steps=steps)
+    got = _lanes(lib, steps, fill=False, **case)
+    _check_live(got, want, kind)
+
+
+@pytest.mark.parametrize("chain", [1, 2, 4])
+def test_symbols_lane_live_form_indexed(lib, chain):
+    kw = _indexed_kw(chain)
+    want = decode_symbols(**kw, max_steps=2048)
+    got = _lanes(lib, 2048, fill=False, **kw)
+    _check_live(got, want, f"indexed, chain {chain}")
+
+
+def _warp_steps(steps: torch.Tensor) -> torch.Tensor:
+    """For each lane, the steps of the longest lane among its 32 (the warp
+    the kernel gives it): how long its warp's vote runs."""
+    L = steps.numel()
+    pad = torch.zeros(-(-L // 32) * 32, dtype=torch.int32)
+    pad[:L] = steps
+    return pad.reshape(-1, 32).amax(1).repeat_interleave(32)[:L].contiguous()
+
+
+def _check_warp(lib, steps: int, kw, label):
+    """Lanes stepping in warps of 32, as on the card: the full form equals
+    the plain records (a lane that stopped while its warp runs writes the
+    initial values), the live form leaves every slot past a lane's steps
+    as it was."""
+    want = decode_symbols(**kw, max_steps=steps)
+    group = _warp_steps(_lanes(lib, steps, fill=False, **kw)[2])
+    assert (group > (want[0][5] >= 0).sum(0)).any(), label
+    got = _lanes(lib, steps, group=group, **kw)
+    _check(got, want, label)
+    _check_live(_lanes(lib, steps, fill=False, group=group, **kw), want,
+                label)
+
+
+@pytest.mark.parametrize("kind", K11_KINDS)
+def test_symbols_lane_warp_edges(lib, kind):
+    case = k11_edge_case(kind)
+    _check_warp(lib, case.pop("max_steps"), case, kind)
+
+
+@pytest.mark.parametrize("chain", [1, 2, 4])
+def test_symbols_lane_warp_indexed(lib, chain):
+    _check_warp(lib, 2048, _indexed_kw(chain), f"indexed, chain {chain}")
+
