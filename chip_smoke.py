@@ -109,6 +109,19 @@ process per source, all at once) and drives the port's paths:
      it), ``indexed_materialize``, the whole ``indexed_decode_step``, the
      one-lane encode and the whole ``decompress_batch_indexed`` (decoded
      GB/s), and its peak memory.
+14.  The matched encoder (general levels 1-3) at the width its users run:
+     16 x 1 MiB IDAT through ``compress_batch_device`` at levels 1, 2 and
+     3, K7 (its Adler-32) counted once per call; every stream equal under
+     zlib.decompress and its Adler-32 from K7 equal to zlib.adler32;
+     ``adler32_batch`` (K7) against its plain body on that corpus; the five
+     1 MiB size corpora (uniform, low, mixture, distribution, IDAT) through
+     levels 1-3 on the card and with ``device="cpu"``, the bytes equal,
+     each size beside zlib level 1's; per level the whole call by the host
+     clock (input GB/s), each stage by CUDA events (stage 1, the host's
+     first-pass trees, stage 1.5 and the host's code lengths per pass, the
+     host headers, stage 2, K7 and the read-back), torch ops per stage and
+     the peak device memory.  K7's row carries its launches and time here
+     (``matched_launches``, ``matched_ms``, per level).
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
@@ -141,6 +154,7 @@ GROUP = 8                                   # K10's lanes per staging
 KERNEL_REPS, PLAIN_REPS = 10, 3
 FOREIGN_MB = 8                              # bench.py's foreign leg size
 CHECKSUM_BYTES = 64 << 20                   # adler32_pallas phase's buffer
+MATCHED_BATCH, MATCHED_LENGTH = 16, 1 << 20  # find_matches' widest rows
 
 # The least time the card could take for a kernel's work (``bound_ms``):
 # the larger of its bytes over the H100 SXM's 3.35 TB/s of HBM3 and its
@@ -1304,6 +1318,100 @@ def indexed_phase(torch, P, dev, corpus, card):
     return row
 
 
+def matched_phase(torch, P, dev, card):
+    """Phase 14, the matched encoder (general levels 1-3) at the width its
+    users run (see the module docstring).  Returns K7's launches and time
+    on this path, for K7's row."""
+    from fdeflate_tpu_torch.ops.adler32 import (adler32_batch,
+                                                adler32_batch_plain)
+    from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
+    from fdeflate_tpu_torch.tools.corpus import corpora, make_idat_corpus
+    from fdeflate_tpu_torch.tools.time_matched import (STAGES, fmt, host_ms,
+                                                       patched, peak_bytes,
+                                                       stage_ms)
+
+    corpus = make_idat_corpus(MATCHED_BATCH, MATCHED_LENGTH)
+    streams = [r.tobytes() for r in corpus]
+    nbytes = corpus.size
+    launches, k7_ms = {}, {}
+    for level in (1, 2, 3):
+        torch.cuda.synchronize()
+        adler32_tiles.launches = 0
+        t0 = time.perf_counter()
+        out = P.compress_batch_device(streams, level)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[level] = adler32_tiles.launches
+        if launches[level] != 1:
+            raise AssertionError(f"level {level}: K7 launched "
+                                 f"{launches[level]} times, not once")
+        n_ok = sum(zlib.decompress(o) == x for o, x in zip(out, streams))
+        ck_ok = sum(int.from_bytes(o[-4:], "big") == zlib.adler32(x)
+                    for o, x in zip(out, streams))
+        if n_ok != len(streams) or ck_ok != len(streams):
+            raise AssertionError(f"level {level}: {n_ok} streams equal under "
+                                 f"zlib.decompress, {ck_ok} Adler-32 equal")
+        print(f"matched level {level} ({len(streams)} x {MATCHED_LENGTH} B "
+              f"IDAT): {wall:.3f} s wall (first call); K7 launches "
+              f"{launches[level]}; {n_ok}/{len(streams)} == zlib.decompress, "
+              f"K7's Adler-32 == zlib.adler32 on all; {sum(map(len, out))} B "
+              f"out", flush=True)
+    data = torch.from_numpy(corpus).to(dev)
+    lengths = torch.full((len(streams),), MATCHED_LENGTH, dtype=torch.int32,
+                         device=dev)
+    got = adler32_batch(data, lengths).tolist()
+    if (got != adler32_batch_plain(data, lengths).tolist()
+            or got != [zlib.adler32(x) for x in streams]):
+        raise AssertionError("adler32_batch (K7) on the matched corpus differs")
+    del data
+
+    # The card against its plain twin (device="cpu") on the size corpora.
+    names, raws = zip(*corpora())
+    raws = list(raws)
+    for level in (1, 2, 3):
+        on_card = P.compress_batch_device(raws, level)
+        on_cpu = P.compress_batch_device(raws, level, device="cpu")
+        if on_card != on_cpu:
+            bad = [n for n, a, b in zip(names, on_card, on_cpu) if a != b]
+            raise AssertionError(f"level {level}: card != cpu on {bad}")
+        if [zlib.decompress(o) for o in on_card] != raws:
+            raise AssertionError(f"level {level}: zlib roundtrip failed")
+        print(f"matched level {level}, card == cpu on the five 1 MiB "
+              f"corpora; bytes (zlib level 1): " + ", ".join(
+                  f"{n} {len(o)} ({len(zlib.compress(r, 1))})"
+                  for n, o, r in zip(names, on_card, raws)), flush=True)
+
+    # Times (card: see the line below), op counts and peak memory.
+    for level in (1, 2, 3):
+        def call():
+            return P.compress_batch_device(streams, level)
+
+        ms = host_ms(call, 2)
+        _out, stages = stage_ms(call)
+        ops = {}
+
+        def count(name, fn):
+            def counted(*args, **kwargs):
+                out, names_ = torch_ops(lambda: fn(*args, **kwargs))
+                ops.setdefault(name, []).append(len(names_))
+                return out
+            return counted
+
+        with patched(STAGES, count):
+            call()
+        peak = peak_bytes(call, dev)
+        k7_ms[level] = stages["adler32_batch"][0]
+        print(f"matched level {level}: {ms:.4f} ms host clock, "
+              f"{nbytes / ms / 1e6:.4f} GB/s of input; peak device memory "
+              f"{peak / 2**30:.3f} GiB above the held [{card}]", flush=True)
+        print(f"matched level {level} stages (CUDA events), ms: "
+              f"{fmt(stages)} [{card}]", flush=True)
+        print(f"matched level {level} torch ops per stage: " + "; ".join(
+            f"{k} {' + '.join(map(str, v))}" for k, v in ops.items()),
+              flush=True)
+    return launches, k7_ms
+
+
 def main() -> int:
     import torch
 
@@ -1711,6 +1819,13 @@ def main() -> int:
 
     # ---- 13. the indexed chunk-parallel decode: K11 ----------------------
     rows.append(indexed_phase(torch, P, dev, corpus, card))
+
+    # ---- 14. the matched encoder, levels 1-3: K7 -------------------------
+    matched_launches, matched_k7_ms = matched_phase(torch, P, dev, card)
+    for row in rows:
+        if row["name"] == "adler32_tiles":
+            row["matched_launches"] = matched_launches
+            row["matched_ms"] = matched_k7_ms
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,7 +1,7 @@
 """fdeflate_tpu_torch — the PyTorch/CUDA port of fdeflate_tpu for Hopper GPUs.
 
 The JAX package ``fdeflate_tpu`` is the reference; this package gives
-bit-identical outputs.  Five slices are ported:
+bit-identical outputs.  Six slices are ported:
 
 * the standard-zlib, fixed-geometry roundtrip of PNG IDAT streams (the
   benchmark's headline path):
@@ -39,11 +39,20 @@ bit-identical outputs.  Five slices are ported:
               -> materialize (torch) -> Adler-32 (host, or K7 in
               ``fused_ultrafast_roundtrip``)
 
+* the device match finder (slice 6): the general levels 1-3, LZ77 matches
+  found on the device and one dynamic block per stream:
+
+      stage 1    hash sort -> k-predecessor probe -> greedy tiling ->
+                 merged chains -> roles and frequencies (torch)
+      host       first-pass trees; stage 1.5 segment demotion (torch);
+                 code lengths, the dynamic headers
+      stage 2    bit packing (torch) -> K7 Adler-32 -> used words read back
+
 K1-K11 are hand-written CUDA kernels (``csrc/``) launched for CUDA
 tensors; CPU tensors take their plain PyTorch versions.  The package
 imports ``torch`` and nothing of ``jax`` or of the JAX package: the host
 modules it needs are its own copies (``errors``, ``tables``, ``huffman``,
-``ops/septree``, ``ops/inflate_host``), held equal to the originals by
+``ops/septree``, ``ops/inflate_host``, ``ops/bitio``), held equal to the originals by
 tests/test_torch_hostcopies.py.
 
 Public API (``device`` is "cuda" unless the caller asks for "cpu"; without
@@ -70,9 +79,19 @@ that pick a TPU strategy (``lut_matmul``, ``kernel_pack``, ``engine``,
     decompress_foreign(data, device=...) -> bytes (raises the decode error)
     try_foreign(data, device=...) / try_foreign_batch(streams, device=...)
         -> bytes, or None where the block-parallel path cannot decode
+    decompress_speculative(data, device=...) -> bytes (raises the error)
+    decompress_batch_speculative(streams, chunks_per_stream=8,
+                                 max_steps=8192, device=...)
+        -> bytes or error per stream (shims over decompress_batch)
+    compress_batch_matched(streams, depth=2, min_match=4, backext=True,
+                           passes=2, device=...) -> zlib bytes per stream
+    compress_batch_device(streams, level=2, device=...)
+        -> zlib bytes per stream (levels 1-3: probe depth 4, 8, 16;
+           level 0 encodes as 1 and levels above 3 as 3, as in JAX)
 """
 
 from .ops.adler32_pallas import adler32_pallas
+from .ops.matchscan import compress_batch_device, compress_batch_matched
 from .ops.septree import sep_profile
 from .ops.ultrafast import compress_batch_ultra_fast, finalize_streams
 from .parallel.device_pipeline import (
@@ -84,19 +103,25 @@ from .parallel.device_pipeline import (
     zlib_decode_step,
     zlib_encode_step,
 )
+from .parallel.batch_speculative import decompress_batch_speculative
 from .parallel.discovery import (
     decompress_batch,
     decompress_foreign,
     try_foreign,
     try_foreign_batch,
 )
+from .parallel.speculative import decompress_speculative
 
 __all__ = [
     "adler32_pallas",
+    "compress_batch_device",
+    "compress_batch_matched",
     "compress_batch_ultra_fast",
     "decompress_batch",
     "decompress_batch_indexed",
+    "decompress_batch_speculative",
     "decompress_foreign",
+    "decompress_speculative",
     "finalize_streams",
     "fused_adaptive_roundtrip",
     "fused_ultrafast_roundtrip",

@@ -4,7 +4,9 @@ The port's copy of the constants of ``fdeflate_tpu/tables.py`` that it
 uses, derived the same way: ``LEN_SYM_TO_LEN_BASE`` :49,
 ``LEN_SYM_TO_LEN_EXTRA`` :56, ``DIST_SYM_TO_DIST_BASE`` :63,
 ``DIST_SYM_TO_DIST_EXTRA`` :70, ``CLCL_ORDER`` :78, ``LENGTH_TO_SYMBOL`` and
-``LENGTH_TO_LEN_EXTRA`` (``_build_length_maps`` :87), ``HUFFMAN_LENGTHS``
+``LENGTH_TO_LEN_EXTRA`` (``_build_length_maps`` :87),
+``distance_to_dist_sym``, ``_build_distance_map`` and ``DISTANCE_TO_SYM``
+(:110-128), ``HUFFMAN_LENGTHS``
 (``_TRAINED_RLE`` :137), ``HUFFMAN_CODES`` (``canonical_codes`` :153),
 ``FIXED_CODE_LENGTHS`` (``fixed_code_lengths`` :220), and the
 decode-table constants the reference decode tables of ``huffman.build_table``
@@ -80,6 +82,24 @@ def _build_length_maps() -> tuple[np.ndarray, np.ndarray]:
 
 
 LENGTH_TO_SYMBOL, LENGTH_TO_LEN_EXTRA = _build_length_maps()
+
+
+def distance_to_dist_sym(distance: int) -> int:
+    """Distance (1..32768) -> distance symbol (0..29)."""
+    return int(_DISTANCE_TO_SYM[distance - 1])
+
+
+def _build_distance_map() -> np.ndarray:
+    out = np.zeros(32768, dtype=np.int64)
+    for sym in range(30):
+        base = int(DIST_SYM_TO_DIST_BASE[sym])
+        span = 1 << int(DIST_SYM_TO_DIST_EXTRA[sym])
+        out[base - 1 : base - 1 + span] = sym
+    return out
+
+
+_DISTANCE_TO_SYM = _build_distance_map()
+DISTANCE_TO_SYM = _DISTANCE_TO_SYM  # vectorized variant: DISTANCE_TO_SYM[dist-1]
 
 # Corpus-trained literal/length code lengths (data): 286 lengths, all <= 12
 # bits, as (code length, repeat count) runs.

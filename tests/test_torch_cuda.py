@@ -780,6 +780,22 @@ def test_decompress_batch_indexed_cuda_equals_cpu(dev):
     assert DP.decompress_batch_indexed.fallbacks == before
 
 
+
+@pytest.mark.parametrize("level", [1, 3])
+def test_compress_batch_device_cuda_equals_cpu(dev, level):
+    """The matched encoder on the card: the CPU twin's bytes, every stream
+    through zlib, K7 launched once for the batch's Adler-32."""
+    rng = np.random.default_rng(124)
+    datas = [rng.choice([0] * 7 + [40, 90], 60_000).astype(np.uint8).tobytes(),
+             bytes(70_000), rng.integers(0, 256, 20_000,
+                                         dtype=np.uint8).tobytes(),
+             b"the quick brown fox " * 900, b"x", b""]
+    before = adler32_tiles.launches
+    got = P.compress_batch_device(datas, level)
+    assert adler32_tiles.launches == before + 1
+    assert got == P.compress_batch_device(datas, level, device="cpu")
+    assert [zlib.decompress(o) for o in got] == datas
+
 def _every_wrapper(dev):
     """(name, kernel call, plain call) of each of the eleven kernels' entry
     points (K7's through both its wrappers) on small inputs on ``dev``; the

@@ -3,13 +3,16 @@
 The port imports nothing of ``fdeflate_tpu`` or ``bench``; it keeps its own
 copies of the host code it needs (``fdeflate_tpu_torch/errors.py``,
 ``tables.py``, ``huffman.py``, ``ops/septree.py``, ``ops/inflate_host.py``,
-the stream header in ``trees.py``, ``tools/corpus.py``).  Each copy is held
+the stream header in ``trees.py``, ``ops/bitio.py``, ``tools/corpus.py``).  Each copy is held
 here to its original on the same inputs, fuzzed where the input space is
 large.
 """
 
 from __future__ import annotations
 
+import importlib.util
+import pathlib
+import sys
 import zlib
 
 import numpy as np
@@ -21,6 +24,7 @@ from fdeflate_tpu import huffman as JH
 from fdeflate_tpu import tables as JT
 from fdeflate_tpu.models import bitstream as JB
 from fdeflate_tpu.models import ultrafast as JU
+from fdeflate_tpu.ops import bitio as JBIT
 from fdeflate_tpu.ops import inflate as JI
 from fdeflate_tpu.ops import pallas_inflate as JPI
 from fdeflate_tpu.ops import septree as JS
@@ -28,15 +32,17 @@ from fdeflate_tpu_torch import errors as PE
 from fdeflate_tpu_torch import huffman as PH
 from fdeflate_tpu_torch import tables as PT
 from fdeflate_tpu_torch import trees as PTR
+from fdeflate_tpu_torch.ops import bitio as PBIT
 from fdeflate_tpu_torch.ops import inflate_host as PI
 from fdeflate_tpu_torch.ops import septree as PS
+from fdeflate_tpu_torch.tools import corpus as PC
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 
 TABLES = ["HUFFMAN_CODES", "HUFFMAN_LENGTHS", "LEN_SYM_TO_LEN_BASE",
           "LEN_SYM_TO_LEN_EXTRA", "LENGTH_TO_SYMBOL", "LENGTH_TO_LEN_EXTRA",
           "FIXED_CODE_LENGTHS", "CLCL_ORDER", "DIST_SYM_TO_DIST_BASE",
           "DIST_SYM_TO_DIST_EXTRA", "LITLEN_TABLE_ENTRIES",
-          "DISTANCE_TABLE_ENTRIES"]
+          "DISTANCE_TABLE_ENTRIES", "DISTANCE_TO_SYM"]
 
 
 @pytest.mark.parametrize("name", TABLES)
@@ -317,3 +323,76 @@ def test_make_idat_corpus_equals_bench(seed):
     want = bench.make_idat_corpus(3, 5000, seed)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert got.tobytes() == want.tobytes()
+
+
+def test_distance_map_equals_the_original():
+    np.testing.assert_array_equal(PT._build_distance_map(),
+                                  JT._build_distance_map())
+    assert [PT.distance_to_dist_sym(d) for d in range(1, 32769)] == [
+        JT.distance_to_dist_sym(d) for d in range(1, 32769)]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_pack_bits_equals_the_original(seed):
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(0, 400))
+    lengths = rng.integers(0, 58, n)
+    values = rng.integers(0, 1 << 57, n, dtype=np.uint64) & (
+        (np.uint64(1) << lengths.astype(np.uint64)) - np.uint64(1))
+    carry_bits = int(rng.integers(0, 8))
+    carry = int(rng.integers(0, 1 << carry_bits)) if carry_bits else 0
+    assert PBIT.pack_bits(values, lengths, carry, carry_bits) == \
+        JBIT.pack_bits(values, lengths, carry, carry_bits)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bit_writer_equals_the_original(seed):
+    """The same writes, single and packed, give the same sink and bit
+    position at every step."""
+    rng = np.random.default_rng(seed)
+    got, want = PBIT.BitWriter(), JBIT.BitWriter(bytearray(b"\x78"))
+    got.sink += b"\x78"
+    for _ in range(60):
+        if rng.random() < 0.8:
+            nbits = int(rng.integers(0, 33))
+            bits = int(rng.integers(0, 1 << 40))
+            got.write_bits(bits, nbits)
+            want.write_bits(bits, nbits)
+        else:
+            lengths = rng.integers(0, 30, int(rng.integers(0, 50)))
+            values = rng.integers(0, 1 << 30, len(lengths))
+            got.write_packed(values, lengths)
+            want.write_packed(values, lengths)
+        assert got.bit_position == want.bit_position
+        assert bytes(got.sink) == bytes(want.sink)
+    assert bytes(got.flush()) == bytes(want.flush())
+
+
+def _bench_module(name: str):
+    """A script of bench/ loaded by path (it puts its folders on sys.path
+    while it loads; they are taken off again)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "bench" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_bench_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    saved = list(sys.path)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = saved
+    return mod
+
+
+@pytest.mark.parametrize("gen", ["gen_uniform", "gen_low", "gen_mixture",
+                                 "gen_distribution"])
+def test_distribution_generators_equal_bench(gen):
+    want = getattr(_bench_module("distributions"), gen)(
+        np.random.default_rng(3))
+    got = getattr(PC, gen)(np.random.default_rng(3))
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+def test_size_corpora_equal_bench():
+    want = _bench_module("sizes").corpora()
+    got = PC.corpora()
+    assert [n for n, _ in got] == [n for n, _ in want]
+    assert all(g == w for (_, g), (_, w) in zip(got, want))

@@ -188,6 +188,11 @@ DEFAULT_DEVICE_CALLS = {
         lambda: P.decompress_batch_indexed([_Z], np.zeros((1, 4), np.int32)),
     "fused_ultrafast_roundtrip":
         lambda: P.fused_ultrafast_roundtrip(8, 2048, 2048),
+    "compress_batch_matched": lambda: P.compress_batch_matched([b"abc"]),
+    "compress_batch_device": lambda: P.compress_batch_device([b"abc"], 1),
+    "decompress_speculative": lambda: P.decompress_speculative(_Z),
+    "decompress_batch_speculative":
+        lambda: P.decompress_batch_speculative([_Z]),
 }
 
 

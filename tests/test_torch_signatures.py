@@ -5,6 +5,8 @@ names (the port adds only its keyword-only ``device=``), and a call written
 for JAX runs in the port on the CPU: knobs that pick a TPU strategy are
 accepted and ignored, ``try_parallel`` and the modes of
 ``encode_ultrafast_batch`` select what they select in JAX.
+The decode shims ``decompress_speculative`` and
+``decompress_batch_speculative`` are held to JAX's bytes and error classes.
 ``encode_ultrafast_batch``'s returns are held to JAX's XLA path on the CPU
 in its three modes: one lane per stream (``num_chunks=0``), one lane with a
 symbol-boundary index (``num_chunks=C``) and fixed geometry
@@ -24,12 +26,19 @@ import torch
 from fdeflate_tpu.ops import adaptive as JA
 from fdeflate_tpu.ops import adler32_pallas as JP
 from fdeflate_tpu.ops import inflate as JI
+from fdeflate_tpu.ops import matchscan as JM
 from fdeflate_tpu.ops import ultrafast_kernel as UK
+from fdeflate_tpu.parallel import batch_speculative as JBS
 from fdeflate_tpu.parallel import discovery as JDisc
+from fdeflate_tpu.parallel import speculative as JS
+from fdeflate_tpu_torch import errors as PErr
 from fdeflate_tpu_torch.ops import adaptive as PA
 from fdeflate_tpu_torch.ops import adler32_pallas as PP
+from fdeflate_tpu_torch.ops import matchscan as PM
 from fdeflate_tpu_torch.ops import ultrafast as PU
+from fdeflate_tpu_torch.parallel import batch_speculative as PBS
 from fdeflate_tpu_torch.parallel import discovery as PDisc
+from fdeflate_tpu_torch.parallel import speculative as PS
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 
 PAIRS = {
@@ -42,6 +51,14 @@ PAIRS = {
     "symbol_freqs": (JA.symbol_freqs, PA.symbol_freqs),
     "encode_adaptive_blocked": (JA.encode_adaptive_blocked,
                                 PA.encode_adaptive_blocked),
+    "compress_batch_matched": (JM.compress_batch_matched,
+                               PM.compress_batch_matched),
+    "compress_batch_device": (JM.compress_batch_device,
+                              PM.compress_batch_device),
+    "decompress_speculative": (JS.decompress_speculative,
+                               PS.decompress_speculative),
+    "decompress_batch_speculative": (JBS.decompress_batch_speculative,
+                                     PBS.decompress_batch_speculative),
 }
 
 
@@ -177,3 +194,48 @@ def test_adaptive_jax_call_forms(batch):
                                            kernel_assign=True)):
         for a, b in zip(got[:4], default[:4]):
             assert torch.equal(a, b)
+
+
+def _shim_streams():
+    small = zlib.compress(b"hello world " * 40, 6)
+    return [small, zlib.compress(b"", 6), small[: len(small) // 2],
+            small[:-1] + bytes([small[-1] ^ 1]),
+            zlib.compress(bytes(range(256)) * 8, 9)]
+
+
+@pytest.fixture(scope="module")
+def shim_results():
+    streams = _shim_streams()
+    return streams, JBS.decompress_batch_speculative(streams, 8, 2048)
+
+
+def _same(got, want):
+    if isinstance(want, bytes):
+        return got == want
+    return type(got).__name__ == type(want).__name__
+
+
+def test_decompress_batch_speculative_equals_jax(shim_results):
+    """Bytes or error class per stream, in JAX's positional form (a third
+    argument binds ``max_steps``) and by keyword."""
+    streams, want = shim_results
+    assert [type(w).__name__ for w in want] == [
+        "bytes", "bytes", "InsufficientInput", "WrongChecksum", "bytes"]
+    for got in (PBS.decompress_batch_speculative(streams, 8, 2048,
+                                                 device="cpu"),
+                PBS.decompress_batch_speculative(
+                    streams, chunks_per_stream=3, max_steps=2048,
+                    device="cpu")):
+        assert all(_same(g, w) for g, w in zip(got, want, strict=True))
+
+
+def test_decompress_speculative_equals_jax(shim_results):
+    """The bytes, or JAX's error raised."""
+    streams, want = shim_results
+    for s, w in zip(streams, want):
+        if isinstance(w, bytes):
+            assert PS.decompress_speculative(s, 4, 2.0, device="cpu") == w
+        else:
+            with pytest.raises(PErr.DecompressionError) as err:
+                PS.decompress_speculative(s, device="cpu")
+            assert type(err.value).__name__ == type(w).__name__
