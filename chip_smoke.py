@@ -123,6 +123,30 @@ process per source, all at once) and drives the port's paths:
      the peak device memory.  K7's row carries its launches and time here
      (``matched_launches``, ``matched_ms``, per level).
 
+15.  Scale-out at world size 1: ``make_mesh((1, 1))`` starts a one-process
+     NCCL group; on the 16 x 1 MiB corpus ``roundtrip_step`` (C = 512,
+     phase 13's ``max_steps``), ``roundtrip_step_v2``, ``_zlib`` and
+     ``_adaptive`` (C = 512), ``checksum_tree_reduce`` (== zlib.adler32),
+     ``sharded_encode_ultrafast`` (its streams through zlib.decompress) and
+     ``sharded_decode_symbols`` on those one-lane streams (every lane at
+     EOB, its records materialized to the input), each gathered with
+     ``full_tensor()`` and equal to the unsharded function on the same
+     input; ``foreign_records_step`` on phase 5's 8 MiB text6 blocks staged
+     in JAX's lane-blocked layout (every block at EOB, bpos and done equal
+     to K4's direct call on the stream); ``dryrun_multichip(1)``,
+     ``entry()`` and ``entry_v1()``.  K1, K2, K3, K4, K7 and K11 are
+     counted per step (each must launch where the step runs it; their
+     rows carry ``mesh_launches``).  Every kernel call a step makes is
+     recorded (``recorded``: its arguments and result copied) and held
+     bit for bit to the kernel's plain version on the same arguments
+     (``hold_calls``; a K11 call of more than ``HELD_STEPS`` steps is run
+     again, kernel and plain, at ``HELD_STEPS``); the rows carry
+     ``mesh_max_abs_err``.  ``foreign_records_step``'s bpos and done on
+     every lane, padding lanes included, equal the plain K4's.  Each
+     step's time is printed beside the unsharded function's, in turns
+     over ``PAIRS`` pairs with the spread of their differences: the cost
+     of the mesh layer and of NCCL at world size 1.
+
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
 run.  Every kernel's row carries its bound (``bound_ms``, ``bound_by``:
@@ -1171,7 +1195,7 @@ def grouped_phase(torch, P, dev, data, lengths, streams_in, card):
 
 def indexed_phase(torch, P, dev, corpus, card):
     """Phase 13, the indexed decode at the headline width (see the module
-    docstring).  Returns K11's row."""
+    docstring).  Returns K11's row and the phase's ``max_steps``."""
     from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
     from fdeflate_tpu_torch.ops.assign_pack import assign_pack
     from fdeflate_tpu_torch.ops.decode_symbols import (STOPPED,
@@ -1315,7 +1339,7 @@ def indexed_phase(torch, P, dev, corpus, card):
         "full_form_ms": one["K11 full form (decode_symbols)"],
         "full_form_back_to_back_ms": queued["K11 full form (decode_symbols)"],
         "full_form_bound_ms": full_bound})
-    return row
+    return row, max_steps
 
 
 def matched_phase(torch, P, dev, card):
@@ -1410,6 +1434,466 @@ def matched_phase(torch, P, dev, card):
             f"{k} {' + '.join(map(str, v))}" for k, v in ops.items()),
               flush=True)
     return launches, k7_ms
+
+
+def paired_ms(torch, a, b, pairs: int) -> tuple[float, float, list]:
+    """Medians of ``a`` and ``b`` timed one call at a time in turns (a
+    first in even pairs, b first in odd ones) and the pairs' ``b - a``,
+    sorted; ms by CUDA events, after one warm-up call of each."""
+    def one(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    a(), b()
+    ta, tb = [], []
+    for i in range(pairs):
+        for fn, out in ((a, ta), (b, tb)) if i % 2 == 0 else ((b, tb), (a, ta)):
+            out.append(one(fn))
+    return (statistics.median(ta), statistics.median(tb),
+            sorted(y - x for x, y in zip(ta, tb)))
+
+
+def mesh_kernels():
+    """The launch-counted wrappers of the scale-out path: {K name: fn}."""
+    from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
+    from fdeflate_tpu_torch.ops.assign_pack import assign_pack
+    from fdeflate_tpu_torch.ops.decode2 import decode2
+    from fdeflate_tpu_torch.ops.decode_symbols import decode_symbols
+    from fdeflate_tpu_torch.ops.inflate_records import inflate_records
+    from fdeflate_tpu_torch.ops.repack import combine
+
+    return {"K1": assign_pack, "K2": combine, "K3": decode2,
+            "K4": inflate_records, "K7": adler32_tiles, "K11": decode_symbols}
+
+
+def counted(torch, fn):
+    """(fn(), {K name: launches in that call}): every count set to 0 just
+    before the call and read just after it."""
+    kernels = mesh_kernels()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+HELD_STEPS = 4096   # a K11 call of more steps is held to plain at this many
+PAIRS = 11          # phase 15's timing pairs (sharded, unsharded) per step
+
+
+def snapshot(torch, x):
+    """``x`` with every tensor in it (through tuples and lists) cloned."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if type(x) in (tuple, list):
+        return type(x)(snapshot(torch, v) for v in x)
+    if isinstance(x, dict):
+        return {k: snapshot(torch, v) for k, v in x.items()}
+    return x
+
+
+class Recorder:
+    """A kernel wrapper that keeps each call's arguments (cloned before the
+    call) and result (cloned after it) in ``calls``; reading and setting
+    an attribute (the wrapper's launch count) goes to the wrapper."""
+
+    def __init__(self, torch, fn, calls):
+        object.__setattr__(self, "_torch", torch)
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_calls", calls)
+
+    def __call__(self, *args, **kwargs):
+        saved = snapshot(self._torch, (args, kwargs))
+        out = self._fn(*args, **kwargs)
+        self._calls.append((self._fn, *saved, snapshot(self._torch, out)))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+def recorded(torch, calls, fn):
+    """fn() with every kernel wrapper of the scale-out path recording into
+    ``calls``: K1 ``assign_pack``, K2 ``combine``, K3 ``decode2``, K4
+    ``inflate_records``, K7 ``adler32_checksums`` and K11's ``_run`` (both
+    forms), replaced under every name a module of the port holds them by."""
+    from fdeflate_tpu_torch.ops import decode_symbols as DS
+    from fdeflate_tpu_torch.ops.adler32_pallas import adler32_checksums
+    from fdeflate_tpu_torch.ops.assign_pack import assign_pack
+    from fdeflate_tpu_torch.ops.decode2 import decode2
+    from fdeflate_tpu_torch.ops.inflate_records import inflate_records
+    from fdeflate_tpu_torch.ops.repack import combine
+
+    wrappers = (assign_pack, combine, decode2, inflate_records,
+                adler32_checksums, DS._run)
+    patched = []
+    for name, mod in list(sys.modules.items()):
+        if mod is None or not name.startswith("fdeflate_tpu_torch"):
+            continue
+        for attr, value in list(vars(mod).items()):
+            if any(value is w for w in wrappers):
+                setattr(mod, attr, Recorder(torch, value, calls))
+                patched.append((mod, attr, value))
+    try:
+        return fn()
+    finally:
+        for mod, attr, value in patched:
+            setattr(mod, attr, value)
+
+
+def hold_calls(torch, calls, launches) -> tuple[dict, list]:
+    """Each recorded call's result against its kernel's plain version on
+    the same arguments, bit for bit.  A K11 call of more than
+    ``HELD_STEPS`` steps is run again, kernel and plain, at ``HELD_STEPS``
+    (the full form's first rows of the recorded call held too).  Raises
+    on a difference, or where a kernel launched more often than its
+    wrapper was recorded.  Returns ({K name: max_abs_err}, [(K name,
+    plain output)] in call order)."""
+    from fdeflate_tpu_torch.ops import decode_symbols as DS
+    from fdeflate_tpu_torch.ops.adler32_pallas import (adler32_checksums,
+                                                       adler32_tiles_plain,
+                                                       fold_tiles)
+    from fdeflate_tpu_torch.ops.assign_pack import (assign_pack,
+                                                    assign_pack_plain)
+    from fdeflate_tpu_torch.ops.decode2 import decode2, decode2_plain
+    from fdeflate_tpu_torch.ops.inflate_records import (inflate_records,
+                                                        inflate_records_plain)
+    from fdeflate_tpu_torch.ops.repack import combine, combine_plain
+    from fdeflate_tpu_torch.tools.time_k11 import live_view
+
+    def k11_plain(fill, *a):
+        words, lanes, rows, tabs, first, _t = DS.engine_inputs(
+            *a[:10], *a[11:])
+        records, state = DS.decode_symbols_plain(
+            words, *lanes, rows, *tabs, first, a[10], a[12])
+        return records, state, (records[5] >= 0).sum(0, dtype=torch.int32)
+
+    def k11_view(fill, out):
+        return out[0] + out[1] if fill else live_view(*out)
+
+    errs, plains, seen = {}, [], {}
+    for fn, args, kwargs, out in calls:
+        if fn is assign_pack:
+            name, want = "K1", assign_pack_plain(*args, **kwargs)
+        elif fn is combine:
+            group = kwargs.get("group", args[5] if len(args) > 5 else 1)
+            name = "K2" if group == 1 else "K10"
+            want = combine_plain(*args[:5])
+        elif fn is decode2:
+            name, want = "K3", decode2_plain(*args, **kwargs)
+        elif fn is inflate_records:
+            name = "K4"
+            want = inflate_records_plain(*args[:8], **{
+                k: v for k, v in kwargs.items() if k != "stats"})
+        elif fn is adler32_checksums:
+            name = "K7"
+            data, lengths = args[:2]
+            want = fold_tiles(*adler32_tiles_plain(data, lengths), lengths)
+        elif fn is DS._run:
+            name, (fill, *a) = "K11", args
+            if a[10] > HELD_STEPS:
+                a[10] = HELD_STEPS
+                head = [r[:HELD_STEPS] for r in out[0]]
+                out = fn(fill, *a)
+                want = k11_plain(fill, *a)
+                if fill:
+                    check_equal(torch, "K11 (first rows of the recorded "
+                                "call)", head, want[0])
+            else:
+                want = k11_plain(fill, *a)
+            out, want = k11_view(fill, out), k11_view(fill, want)
+        else:
+            raise AssertionError(f"no plain version recorded for {fn}")
+        got = out if isinstance(out, tuple) else (out,)
+        ref = want if isinstance(want, tuple) else (want,)
+        errs[name] = max(errs.get(name, 0.0),
+                         check_equal(torch, f"{name} on the path", got, ref))
+        plains.append((name, want))
+        seen[name] = seen.get(name, 0) + 1
+    torch.cuda.synchronize()
+    short = {k: n for k, n in launches.items() if n > seen.get(k, 0)}
+    if short:
+        raise AssertionError(f"launches not recorded: {short} of {launches}, "
+                             f"recorded {seen}")
+    return errs, plains
+
+
+def blocked_text_blocks(torch, PD, z: bytes, leg, dev):
+    """Phase 5's text6 stream staged in JAX's lane-blocked layout, one real
+    block per lane (the chain of ``discovery``'s candidates, K4 decoding
+    each from its symbol bits to its EOB), the rest zero: (win, pos0,
+    meta, tab) on ``dev``, the chain's lanes (absolute starts, tables) for
+    the direct K4 call, and the real lanes' count."""
+    from fdeflate_tpu_torch.ops.inflate_records import (META_ROWS, TAB_PAIRS,
+                                                        block_tables)
+
+    lanes, wd, bounds, _c1 = leg
+    _recs, bpos, eob, _nout = PD._lane_decode(lanes, 6144, wd, *bounds)
+    chain, _final = PD._chain(lanes, 0, len(lanes), bpos, eob)
+    words = np.frombuffer(z + bytes((-len(z)) % 4) + bytes(8), "<u4")
+    starts = [lanes[i][2] for i in chain]
+    wwin = max((int(bpos[i]) >> 5) - (s >> 5) for i, s in zip(chain, starts)) + 3
+    words = np.concatenate([words, np.zeros(wwin, np.uint32)]).view(np.int32)
+    L = len(chain)
+    LB = -(-L // 1024)
+    win = np.zeros((LB * 1024, wwin), np.int32)
+    pos0 = np.zeros((LB * 1024, 1), np.int32)
+    meta = np.zeros((LB * 1024, META_ROWS), np.int32)
+    tab = np.zeros((LB * 1024, TAB_PAIRS), np.int32)
+    for j, (i, s) in enumerate(zip(chain, starts)):
+        win[j] = words[s >> 5:(s >> 5) + wwin]
+        pos0[j] = s & 31
+        meta[j], tab[j] = block_tables(lanes[i][3], lanes[i][4])
+
+    def blocked(a):   # [LB * 1024, rows] -> [LB, rows, 8, 128]
+        return torch.from_numpy(np.ascontiguousarray(
+            a.reshape(LB, 8, 128, -1).transpose(0, 3, 1, 2))).to(dev)
+
+    staged = (blocked(win), blocked(pos0)[:, 0], blocked(meta), blocked(tab))
+    direct = (wd, torch.tensor(starts, dtype=torch.int64, device=dev),
+              torch.from_numpy(meta[:L]).to(dev), torch.from_numpy(tab[:L]).to(dev))
+    return staged, direct, L
+
+
+def mesh_phase(torch, P, dev, corpus, card, max_steps, text6):
+    """Phase 15, scale-out at world size 1 (see the module docstring).
+    Returns {K name: launches over the phase}."""
+    from fdeflate_tpu_torch.ops.adler32 import adler32_batch
+    from fdeflate_tpu_torch.ops.assign_pack import token_symbols
+    from fdeflate_tpu_torch.ops.decode_symbols import EOB, decode_symbols
+    from fdeflate_tpu_torch.ops.inflate import WINDOW, materialize
+    from fdeflate_tpu_torch.ops.inflate_records import (NO_LIMIT,
+                                                        inflate_records,
+                                                        lanes_from_blocked)
+    from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch
+    from fdeflate_tpu_torch.parallel import discovery as PD
+    from fdeflate_tpu_torch.parallel import shard as S
+    from fdeflate_tpu_torch.parallel.device_pipeline import trained_symbol_tables
+    from fdeflate_tpu_torch.trees import STREAM_HEADER_BITS
+
+    import torch.distributed as dist
+
+    B, N = corpus.shape
+    streams_in = [r.tobytes() for r in corpus]
+    data = torch.from_numpy(corpus).to(dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    mesh = S.make_mesh((1, 1))
+    print(f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+          f"{mesh.device_type}: backend {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}", flush=True)
+    totals = dict.fromkeys(mesh_kernels(), 0)
+    # step name -> (sharded call, unsharded call, kernels it must launch)
+    steps = {}
+
+    held_errs = dict.fromkeys(totals, 0.0)
+    plains = {}     # step name -> [(K name, plain output)] of its launches
+
+    def run(name, sharded, plain, needs):
+        calls = []
+        out, launches = counted(torch, lambda: recorded(torch, calls, sharded))
+        for k, n in launches.items():
+            totals[k] += n
+        missing = sorted(needs - {k for k, n in launches.items() if n})
+        if missing:
+            raise AssertionError(f"{name}: {missing} not launched ({launches})")
+        t0 = time.perf_counter()
+        errs, plains[name] = hold_calls(torch, calls, launches)
+        held_s = time.perf_counter() - t0
+        del calls
+        for k, e in errs.items():
+            held_errs[k] = max(held_errs.get(k, 0.0), e)
+        print(f"{name}: kernel calls {len(plains[name])} "
+              f"({sorted(set(k for k, _w in plains[name]))}), each == its "
+              f"plain version on the same arguments (held in {held_s:.1f} s "
+              f"by the host clock)", flush=True)
+        steps[name] = (sharded, plain, launches)
+        return out
+
+    def full(x):
+        return x.full_tensor()
+
+    # the roundtrip steps against their unsharded functions
+    fused = P.fused_ultrafast_roundtrip(CHUNKS, max_steps, N)
+    rt = S.roundtrip_step(mesh, max_steps=max_steps, chunks=CHUNKS)
+    produced, adler, total = run(
+        "roundtrip_step", lambda: rt(data), lambda: fused(data, lengths),
+        {"K1", "K2", "K7", "K11"})
+    want = fused(data, lengths)
+    if not (torch.equal(full(produced), want[1])
+            and torch.equal(full(adler), adler32_batch(data, lengths))
+            and float(full(total)) == B * N and bool(want[2].all())):
+        raise AssertionError("roundtrip_step differs from "
+                             "fused_ultrafast_roundtrip")
+    verified = {
+        "roundtrip_step_v2": (S.roundtrip_step_v2, P.fused_ultrafast_roundtrip_v2(
+            CHUNKS, N), {"K1", "K3"}),
+        "roundtrip_step_zlib": (S.roundtrip_step_zlib, P.fused_zlib_roundtrip(
+            CHUNKS, N), {"K1", "K2", "K3", "K7"}),
+        "roundtrip_step_adaptive": (S.roundtrip_step_adaptive,
+                                    P.fused_adaptive_roundtrip(CHUNKS, N),
+                                    {"K1", "K3"}),
+    }
+    for name, (make, plain, needs) in verified.items():
+        step = make(mesh, chunks=CHUNKS)
+        bpos_ok, ck_ok, total = run(
+            name, lambda step=step: step(data),
+            lambda plain=plain: plain(data, lengths), needs)
+        want = plain(data, lengths)
+        if not (torch.equal(full(bpos_ok), want[1])
+                and torch.equal(full(ck_ok), want[2])
+                and float(full(total)) == B * N):
+            raise AssertionError(f"{name} differs from its unsharded step "
+                                 f"or verified {float(full(total))} bytes")
+
+    # the sequence-parallel checksum, the sharded encode and decode
+    reduce = S.checksum_tree_reduce(mesh)
+    ck = run("checksum_tree_reduce", lambda: reduce(data),
+             lambda: adler32_batch(data, lengths), {"K7"})
+    if full(ck).tolist() != [zlib.adler32(x) for x in streams_in]:
+        raise AssertionError("checksum_tree_reduce != zlib.adler32")
+    encode = S.sharded_encode_ultrafast(mesh)
+    words, bits, adler = (full(x) for x in run(
+        "sharded_encode_ultrafast", lambda: encode(data, lengths),
+        lambda: encode_ultrafast_batch(data, lengths), {"K1", "K2", "K7"}))
+    if not all(torch.equal(g, w) for g, w in zip(
+            (words, bits, adler), encode_ultrafast_batch(data, lengths))):
+        raise AssertionError("sharded_encode_ultrafast != encode_ultrafast_batch")
+    out = P.finalize_streams(words, bits, adler)
+    if [zlib.decompress(s) for s in out] != streams_in:
+        raise AssertionError("sharded_encode_ultrafast's streams != input")
+    tables = trained_symbol_tables(str(dev))[:4]
+    i32 = dict(dtype=torch.int32, device=dev)
+    lanes = (words, torch.full((B,), STREAM_HEADER_BITS, **i32), bits,
+             torch.zeros(B, **i32), torch.ones(B, dtype=torch.bool, device=dev),
+             torch.zeros(B, **i32), *tables)
+    # every symbol takes one step at most, and the EOB one more
+    k = int((token_symbols(data, lengths, N) >= 0).sum(dim=1).max()) + 1
+    decode = S.sharded_decode_symbols(mesh, k)
+    records, state = run(
+        "sharded_decode_symbols", lambda: decode(*lanes),
+        lambda: decode_symbols(*lanes, max_steps=k), {"K11"})
+    records, state = [full(r) for r in records], [full(s) for s in state]
+    want_r, want_s = decode_symbols(*lanes, max_steps=k)
+    if not (all(torch.equal(g, w) for g, w in zip(records, want_r))
+            and all(torch.equal(g, w) for g, w in zip(state, want_s))):
+        raise AssertionError("sharded_decode_symbols != decode_symbols")
+    got, _window = materialize(records[:5], torch.zeros(
+        (B, WINDOW), dtype=torch.uint8, device=dev), state[1], N)
+    if not (bool((state[2] == EOB).all()) and torch.equal(state[1], lengths)
+            and torch.equal(got, data)):
+        raise AssertionError("sharded_decode_symbols' records != the input")
+    print(f"sharded_decode_symbols: {B} lanes at EOB within {k} steps, their "
+          f"records materialize to the input", flush=True)
+
+    # the foreign record step on phase 5's text6 blocks, JAX's blocked layout
+    z_text8, leg, K = text6
+    staged, direct, L = blocked_text_blocks(torch, PD, z_text8, leg, dev)
+    win, pos0, meta, tab = staged
+    LB, wwin = win.shape[:2]
+    base = torch.arange(LB * 1024, dtype=torch.int64, device=dev) * wwin
+    unlimited = torch.full_like(base, NO_LIMIT)
+
+    def flat_k4():   # the step's body on the same lanes, unsharded
+        return inflate_records(
+            lanes_from_blocked(win).reshape(-1),
+            base * 32 + lanes_from_blocked(pos0[:, None])[:, 0], base + wwin,
+            unlimited, unlimited, lanes_from_blocked(meta),
+            lanes_from_blocked(tab), K)
+
+    foreign = S.foreign_records_step(mesh, K=K)
+    bpos, done, eob_total = (full(x) for x in run(
+        "foreign_records_step", lambda: foreign(win, pos0, meta, tab),
+        flat_k4, {"K4"}))
+    wd, starts, dmeta, dtab = direct
+    nolim = torch.full_like(starts, NO_LIMIT)
+    _r, dbpos, _n, ddone = inflate_records(
+        wd, starts, torch.full_like(starts, wd.numel()), nolim, nolim, dmeta,
+        dtab, K)
+    real_bpos, real_done = bpos.reshape(-1)[:L], done.reshape(-1)[:L]
+    if not (bool((real_done == 1).all()) and torch.equal(real_done, ddone)
+            and torch.equal(real_bpos.to(torch.int64),
+                            dbpos - (starts >> 5) * 32)
+            and float(eob_total) == int((done == 1).sum())):
+        raise AssertionError("foreign_records_step != K4's direct call")
+    # every lane, padding included, against the plain K4 of the step's call
+    (k4, (_r, pbpos, _n, pdone)), = plains["foreign_records_step"]
+    if not (k4 == "K4"
+            and torch.equal(bpos.reshape(-1), (pbpos - base * 32).to(torch.int32))
+            and torch.equal(done.reshape(-1), pdone.clamp(max=2).to(done.dtype))):
+        raise AssertionError("foreign_records_step != the plain K4")
+    print(f"foreign_records_step on text6 ({L} blocks in {LB} lane-blocks, "
+          f"window {wwin} words, K {K}): every block at EOB, bpos and done "
+          f"== K4's direct call on the stream; all {LB * 1024} lanes' bpos "
+          f"and done (codes {sorted(set(done.reshape(-1).tolist()))}) == "
+          f"the plain K4 on the step's own arguments", flush=True)
+
+    # the entry points of entry.py (__graft_entry__.py's counterparts)
+    run("dryrun_multichip(1)", lambda: P.dryrun_multichip(1), None,
+        {"K1", "K2", "K3", "K4", "K7", "K11"})
+    fwd, (d4, l4) = P.entry()
+    sums = run("entry", lambda: fwd(d4, l4), None, {"K1", "K3"})
+    words4 = d4.contiguous().view(torch.int32).sum(dtype=torch.int64)
+    if [int(x) for x in sums] != [int((words4 + 2**31) % 2**32 - 2**31), 4, 4]:
+        raise AssertionError(f"entry: {[int(x) for x in sums]}")
+    step1, (d1, l1) = P.entry_v1()
+    opos, status, adler1 = run("entry_v1", lambda: step1(d1, l1), None,
+                               {"K1", "K2", "K7", "K11"})
+    if not ((opos == 256).all() and (status == EOB).all()
+            and adler1.tolist() == [zlib.adler32(r.tobytes())
+                                    for r in d1.cpu().numpy()]):
+        raise AssertionError("entry_v1 did not decode its streams")
+    print(f"dryrun_multichip(1), entry() {[int(x) for x in sums]} and "
+          f"entry_v1() (out_pos 256, EOB, Adler-32 == zlib): ok", flush=True)
+    for name, (_s, _p, launches) in steps.items():
+        print(f"{name} launches: {launches}", flush=True)
+
+    # times: each step beside its unsharded function, one call each in
+    # turns (CUDA events); the dry run, which builds meshes, is not timed
+    backend = dist.get_backend()
+    for name, (sharded, plain, _l) in steps.items():
+        if plain is None:
+            if name.startswith("entry"):
+                print(f"{name}: {cuda_ms(torch, sharded, 5):.4f} ms [{card}]",
+                      flush=True)
+            continue
+        plain_ms, ms, diffs = paired_ms(torch, plain, sharded, PAIRS)
+        print(f"{name}: {ms:.4f} ms on the (1, 1) {backend} mesh, unsharded "
+              f"{plain_ms:.4f} ms, mesh layer {statistics.median(diffs):.4f} "
+              f"ms (median of {PAIRS} pairs' differences; they range "
+              f"{diffs[0]:.4f} to {diffs[-1]:.4f}) [{card}]", flush=True)
+
+    # the mesh layer's pieces on the v2 step's input (one call each)
+    local = S._local(mesh, data, S.ROWS, "data")
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    pieces = {
+        "_local (distribute_tensor + to_local), u8[16, 1 MiB]":
+            lambda: S._local(mesh, data, S.ROWS, "data"),
+        "_mesh_total (2 all_reduce of one int32 + pmean)":
+            lambda: S._mesh_total(mesh, count),
+        "_global (DTensor.from_local) x 3":
+            lambda: [S._global(mesh, x, p) for x, p in (
+                (local[:, 0], S.ROWS), (local[:, 1], S.ROWS),
+                (count, S.REPLICATED))],
+        "full_tensor() of a [16] bool": lambda: S._global(
+            mesh, local[:, 0] > 0, S.ROWS).full_tensor(),
+    }
+    print("mesh layer pieces: " + "; ".join(
+        f"{k} {cuda_ms(torch, fn, 20):.4f} ms" for k, fn in pieces.items())
+        + f" [{card}]", flush=True)
+    if not all(totals.values()):
+        raise AssertionError(f"a kernel of the scale-out path was not "
+                             f"launched: {totals}")
+    return totals, held_errs
 
 
 def main() -> int:
@@ -1818,7 +2302,8 @@ def main() -> int:
     rows.append(grouped_phase(torch, P, dev, data, lengths, streams_in, card))
 
     # ---- 13. the indexed chunk-parallel decode: K11 ----------------------
-    rows.append(indexed_phase(torch, P, dev, corpus, card))
+    row, k11_steps = indexed_phase(torch, P, dev, corpus, card)
+    rows.append(row)
 
     # ---- 14. the matched encoder, levels 1-3: K7 -------------------------
     matched_launches, matched_k7_ms = matched_phase(torch, P, dev, card)
@@ -1826,6 +2311,18 @@ def main() -> int:
         if row["name"] == "adler32_tiles":
             row["matched_launches"] = matched_launches
             row["matched_ms"] = matched_k7_ms
+
+    # ---- 15. scale-out: the ("streams", "seq") mesh at world size 1 -------
+    t0 = time.perf_counter()
+    mesh_launches, mesh_errs = mesh_phase(torch, P, dev, corpus, card,
+                                          k11_steps, (z_text8, legs["text6"], K))
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s by the host clock",
+          flush=True)
+    names = {fn.__name__: k for k, fn in mesh_kernels().items()}
+    for row in rows:
+        if row["name"] in names:
+            row["mesh_launches"] = mesh_launches[names[row["name"]]]
+            row["mesh_max_abs_err"] = mesh_errs[names[row["name"]]]
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,7 +1,7 @@
 """fdeflate_tpu_torch — the PyTorch/CUDA port of fdeflate_tpu for Hopper GPUs.
 
 The JAX package ``fdeflate_tpu`` is the reference; this package gives
-bit-identical outputs.  Six slices are ported:
+bit-identical outputs.  Seven slices are ported:
 
 * the standard-zlib, fixed-geometry roundtrip of PNG IDAT streams (the
   benchmark's headline path):
@@ -48,6 +48,15 @@ bit-identical outputs.  Six slices are ported:
                  code lengths, the dynamic headers
       stage 2    bit packing (torch) -> K7 Adler-32 -> used words read back
 
+* scale-out (slice 7): the ("streams", "seq") mesh on ``torch.distributed``
+  (NCCL on the card, gloo for CPU processes) in ``parallel/shard.py``
+  (``make_mesh`` and JAX's eight sharded steps, each the port's
+  single-device function on every rank's shard, with JAX's collectives:
+  the streams' checksums folded from ``(A, B, len)`` partials over
+  ``seq``, verified-byte totals summed over ``streams``),
+  ``parallel/multihost.py`` (torchrun's environment, ``spawn_world``) and
+  the entry points of ``entry_points.py`` (``__graft_entry__.py``'s)
+
 K1-K11 are hand-written CUDA kernels (``csrc/``) launched for CUDA
 tensors; CPU tensors take their plain PyTorch versions.  The package
 imports ``torch`` and nothing of ``jax`` or of the JAX package: the host
@@ -88,8 +97,18 @@ that pick a TPU strategy (``lut_matmul``, ``kernel_pack``, ``engine``,
     compress_batch_device(streams, level=2, device=...)
         -> zlib bytes per stream (levels 1-3: probe depth 4, 8, 16;
            level 0 encodes as 1 and levels above 3 as 3, as in JAX)
+    entry(device=...) -> fwd, (data, lengths): the v2 roundtrip's sums
+    entry_v1(device=...) -> step, (data, lengths): one-lane encode and
+        decode_symbols -> (out_pos, status, adler)
+    dryrun_multichip(n_devices, device=...): every sharded step on an
+        n-rank mesh, asserted (gloo processes for "cpu")
+
+The mesh and its steps are in ``fdeflate_tpu_torch.parallel.shard``, as in
+the JAX package; the three entry points live in
+``fdeflate_tpu_torch.entry_points``.
 """
 
+from .entry_points import dryrun_multichip, entry, entry_v1
 from .ops.adler32_pallas import adler32_pallas
 from .ops.matchscan import compress_batch_device, compress_batch_matched
 from .ops.septree import sep_profile
@@ -122,6 +141,9 @@ __all__ = [
     "decompress_batch_speculative",
     "decompress_foreign",
     "decompress_speculative",
+    "dryrun_multichip",
+    "entry",
+    "entry_v1",
     "finalize_streams",
     "fused_adaptive_roundtrip",
     "fused_ultrafast_roundtrip",

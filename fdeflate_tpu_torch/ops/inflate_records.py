@@ -61,9 +61,14 @@ def pack_tables(meta_tabs, device) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(meta).to(device), torch.from_numpy(tab).to(device)
 
 
-def lanes_from_blocked(a) -> np.ndarray:
+def lanes_from_blocked(a):
     """JAX's lane-blocked ``[LB, rows, 8, 128]`` layout -> the port's
-    ``[L, rows]`` (L = LB * 1024), so both packages get the same tables."""
+    ``[L, rows]`` (L = LB * 1024, lane ``(lb * 8 + s) * 128 + l``), so both
+    packages get the same tables: a tensor for a tensor (on its device),
+    else a numpy array."""
+    if isinstance(a, torch.Tensor):
+        LB, rows = a.shape[:2]
+        return a.permute(0, 2, 3, 1).reshape(LB * 1024, rows).contiguous()
     a = np.asarray(a)
     LB, rows = a.shape[:2]
     return np.ascontiguousarray(a.transpose(0, 2, 3, 1).reshape(LB * 1024, rows))
@@ -107,7 +112,12 @@ def inflate_records_plain(words, start, wend, bit_end, out0, meta, tab,
     w = torch.cat([words.reshape(-1).to(torch.int64) & _MASK32,
                    torch.zeros(1, dtype=torch.int64, device=dev)])
     wend = torch.clamp(wend.to(torch.int64), max=W)[None, :]
-    lit_t, dist_t = canon_table(meta, tab, 0), canon_table(meta, tab, 32)
+    # one table per distinct tree (lanes of a batch often share one)
+    trees, tree_of = torch.unique(
+        torch.cat([meta.to(torch.int64), tab.to(torch.int64)], dim=1),
+        dim=0, return_inverse=True)
+    tm, tt = trees[:, :META_ROWS], trees[:, META_ROWS:]
+    lit_t, dist_t = canon_table(tm, tt, 0), canon_table(tm, tt, 32)
     two_words = torch.arange(2, device=dev)[:, None]
 
     def peek32(p):
@@ -116,7 +126,7 @@ def inflate_records_plain(words, start, wend, bit_end, out0, meta, tab,
         return ((v[0] | (v[1] << 32)) >> (p & 31)) & _MASK32
 
     def canon(t, bits):
-        x = t.gather(1, (bits & 0x7FFF)[:, None])[:, 0]
+        x = t[tree_of, bits & 0x7FFF]
         return x >> 16, x & 0xFFFF
 
     pos = start.to(torch.int64).clone()

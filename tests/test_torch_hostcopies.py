@@ -24,6 +24,7 @@ from fdeflate_tpu import huffman as JH
 from fdeflate_tpu import tables as JT
 from fdeflate_tpu.models import bitstream as JB
 from fdeflate_tpu.models import ultrafast as JU
+from fdeflate_tpu.ops import adler32 as JAD
 from fdeflate_tpu.ops import bitio as JBIT
 from fdeflate_tpu.ops import inflate as JI
 from fdeflate_tpu.ops import pallas_inflate as JPI
@@ -32,6 +33,7 @@ from fdeflate_tpu_torch import errors as PE
 from fdeflate_tpu_torch import huffman as PH
 from fdeflate_tpu_torch import tables as PT
 from fdeflate_tpu_torch import trees as PTR
+from fdeflate_tpu_torch.ops import adler32 as PAD
 from fdeflate_tpu_torch.ops import bitio as PBIT
 from fdeflate_tpu_torch.ops import inflate_host as PI
 from fdeflate_tpu_torch.ops import septree as PS
@@ -396,3 +398,24 @@ def test_size_corpora_equal_bench():
     got = PC.corpora()
     assert [n for n, _ in got] == [n for n, _ in want]
     assert all(g == w for (_, g), (_, w) in zip(got, want))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_adler32_combine_equals_the_original(seed):
+    """``ops/adler32.combine`` on random checksums (not only valid ones:
+    halves up to 0xFFFF) and lengths, 0 and the ones around 65521
+    included, and on real checksums, where it is ``zlib.adler32`` of the
+    concatenation."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        a1, a2 = (int(x) for x in rng.integers(0, 1 << 32, 2, dtype=np.uint64))
+        n = int(rng.choice([0, 1, 65520, 65521, 65522,
+                            int(rng.integers(0, 1 << 31))]))
+        assert PAD.combine(a1, a2, n) == JAD.combine(a1, a2, n)
+    x = rng.integers(0, 256, 70000, dtype=np.uint8).tobytes()
+    for cut in (0, 1, 65521, 69999, 70000):
+        got = PAD.combine(zlib.adler32(x[:cut]), zlib.adler32(x[cut:]),
+                          len(x) - cut)
+        assert got == JAD.combine(zlib.adler32(x[:cut]),
+                                  zlib.adler32(x[cut:]), len(x) - cut)
+        assert got == zlib.adler32(x)

@@ -23,23 +23,32 @@ import numpy as np
 import pytest
 import torch
 
+import __graft_entry__ as JG
 from fdeflate_tpu.ops import adaptive as JA
+from fdeflate_tpu.ops import adler32 as JAd
 from fdeflate_tpu.ops import adler32_pallas as JP
 from fdeflate_tpu.ops import inflate as JI
 from fdeflate_tpu.ops import matchscan as JM
 from fdeflate_tpu.ops import ultrafast_kernel as UK
 from fdeflate_tpu.parallel import batch_speculative as JBS
 from fdeflate_tpu.parallel import discovery as JDisc
+from fdeflate_tpu.parallel import multihost as JMH
+from fdeflate_tpu.parallel import shard as JSh
 from fdeflate_tpu.parallel import speculative as JS
+from fdeflate_tpu_torch import entry_points as PG
 from fdeflate_tpu_torch import errors as PErr
 from fdeflate_tpu_torch.ops import adaptive as PA
+from fdeflate_tpu_torch.ops import adler32 as PAd
 from fdeflate_tpu_torch.ops import adler32_pallas as PP
 from fdeflate_tpu_torch.ops import matchscan as PM
 from fdeflate_tpu_torch.ops import ultrafast as PU
 from fdeflate_tpu_torch.parallel import batch_speculative as PBS
 from fdeflate_tpu_torch.parallel import discovery as PDisc
+from fdeflate_tpu_torch.parallel import multihost as PMH
+from fdeflate_tpu_torch.parallel import shard as PSh
 from fdeflate_tpu_torch.parallel import speculative as PS
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
+
 
 PAIRS = {
     "encode_ultrafast_batch": (UK.encode_ultrafast_batch,
@@ -59,6 +68,21 @@ PAIRS = {
                                PS.decompress_speculative),
     "decompress_batch_speculative": (JBS.decompress_batch_speculative,
                                      PBS.decompress_batch_speculative),
+    # scale-out: the mesh, its steps, multi-host glue, the partial fold
+    **{name: (getattr(JSh, name), getattr(PSh, name)) for name in (
+        "make_mesh", "sharded_encode_ultrafast", "sharded_decode_symbols",
+        "checksum_tree_reduce", "roundtrip_step", "roundtrip_step_v2",
+        "roundtrip_step_zlib", "roundtrip_step_adaptive",
+        "foreign_records_step")},
+    **{name: (getattr(JMH, name), getattr(PMH, name)) for name in (
+        "initialize_if_needed", "local_batch_slice", "global_mesh")},
+    "combine": (JAd.combine, PAd.combine),
+    "combine_jax": (JAd.combine_jax, PAd.combine_tensor),
+    "adler32_partial_jax": (JAd.adler32_partial_jax, PAd.adler32_partial),
+    "combine_partials_jax": (JAd.combine_partials_jax, PAd.combine_partials),
+    # the entry points of __graft_entry__.py
+    **{name: (getattr(JG, name), getattr(PG, name)) for name in (
+        "entry", "entry_v1", "dryrun_multichip")},
 }
 
 
