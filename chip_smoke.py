@@ -146,6 +146,24 @@ process per source, all at once) and drives the port's paths:
      step's time is printed beside the unsharded function's, in turns
      over ``PAIRS`` pairs with the spread of their differences: the cost
      of the mesh layer and of NCCL at world size 1.
+16.  The host API on the card's machine: the native backend must load
+     (``models/native.py`` builds ``native/`` with g++).  Every level 0-9,
+     RLE and ultra-fast on phase 1's 16 x 1 MiB corpus and phase 5's 8 MiB
+     text6, each stream given back by zlib.decompress and by
+     ``decompress_to_vec``, input GB/s beside host ``zlib.compress`` at the
+     same level; native == the Python path on a 64 KiB slice at levels 0-3
+     and ultra-fast.  With the native backend off in-process,
+     ``decompress_to_vec_bounded`` on phase 5's text6 and idat1 8 MiB
+     streams and one 1 MiB idat1 stream takes the route to the card
+     (``decompress_batch``: K5, K4, K7, counted per call), equal to
+     zlib.decompress, every launch recorded and held to its plain version
+     (``hold_calls``; the K4, K5 and K7 rows carry ``host_api_launches``
+     and ``host_api_max_abs_err``); ``maxlen=4096`` raises OutputTooLarge
+     with the first 4096 bytes; a corrupted stream gives the Python
+     oracle's error class; a failing K4 launch propagates.
+     ``try_foreign(materialize="host")`` (K4's records expanded by the
+     native backend) on text6 and idat1 equals zlib.decompress, timed
+     beside ``materialize="device"`` and host zlib.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
@@ -1472,10 +1490,11 @@ def mesh_kernels():
             "K4": inflate_records, "K7": adler32_tiles, "K11": decode_symbols}
 
 
-def counted(torch, fn):
-    """(fn(), {K name: launches in that call}): every count set to 0 just
+def counted(torch, fn, kernels=None):
+    """(fn(), {K name: launches in that call}) of ``kernels`` ({K name:
+    wrapper}; the scale-out path's by default): every count set to 0 just
     before the call and read just after it."""
-    kernels = mesh_kernels()
+    kernels = kernels or mesh_kernels()
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
@@ -1523,9 +1542,10 @@ class Recorder:
 
 
 def recorded(torch, calls, fn):
-    """fn() with every kernel wrapper of the scale-out path recording into
-    ``calls``: K1 ``assign_pack``, K2 ``combine``, K3 ``decode2``, K4
-    ``inflate_records``, K7 ``adler32_checksums`` and K11's ``_run`` (both
+    """fn() with every kernel wrapper of the scale-out path and of the host
+    API's device route recording into ``calls``: K1 ``assign_pack``, K2
+    ``combine``, K3 ``decode2``, K4 ``inflate_records``, K5
+    ``validate_headers``, K7 ``adler32_checksums`` and K11's ``_run`` (both
     forms), replaced under every name a module of the port holds them by."""
     from fdeflate_tpu_torch.ops import decode_symbols as DS
     from fdeflate_tpu_torch.ops.adler32_pallas import adler32_checksums
@@ -1533,9 +1553,10 @@ def recorded(torch, calls, fn):
     from fdeflate_tpu_torch.ops.decode2 import decode2
     from fdeflate_tpu_torch.ops.inflate_records import inflate_records
     from fdeflate_tpu_torch.ops.repack import combine
+    from fdeflate_tpu_torch.ops.validate_headers import validate_headers
 
     wrappers = (assign_pack, combine, decode2, inflate_records,
-                adler32_checksums, DS._run)
+                validate_headers, adler32_checksums, DS._run)
     patched = []
     for name, mod in list(sys.modules.items()):
         if mod is None or not name.startswith("fdeflate_tpu_torch"):
@@ -1569,6 +1590,8 @@ def hold_calls(torch, calls, launches) -> tuple[dict, list]:
     from fdeflate_tpu_torch.ops.inflate_records import (inflate_records,
                                                         inflate_records_plain)
     from fdeflate_tpu_torch.ops.repack import combine, combine_plain
+    from fdeflate_tpu_torch.ops.validate_headers import (
+        validate_headers, validate_headers_plain)
     from fdeflate_tpu_torch.tools.time_k11 import live_view
 
     def k11_plain(fill, *a):
@@ -1595,6 +1618,8 @@ def hold_calls(torch, calls, launches) -> tuple[dict, list]:
             name = "K4"
             want = inflate_records_plain(*args[:8], **{
                 k: v for k, v in kwargs.items() if k != "stats"})
+        elif fn is validate_headers:
+            name, want = "K5", validate_headers_plain(*args, **kwargs)
         elif fn is adler32_checksums:
             name = "K7"
             data, lengths = args[:2]
@@ -1894,6 +1919,177 @@ def mesh_phase(torch, P, dev, corpus, card, max_steps, text6):
         raise AssertionError(f"a kernel of the scale-out path was not "
                              f"launched: {totals}")
     return totals, held_errs
+
+
+def host_kernels():
+    """The launch-counted wrappers of the host API's device route."""
+    from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
+    from fdeflate_tpu_torch.ops.inflate_records import inflate_records
+    from fdeflate_tpu_torch.ops.validate_headers import validate_headers
+
+    return {"K4": inflate_records, "K5": validate_headers, "K7": adler32_tiles}
+
+
+def host_api_phase(torch, P, card, corpus, text6, idat8, idat1m):
+    """Phase 16, the host API on the card's machine (see the module
+    docstring).  ``corpus`` is phase 1's uint8[16, 1 MiB]; ``text6``,
+    ``idat8`` and ``idat1m`` are (zlib stream, its bytes) of phase 5.
+    Returns ({K name: launches on the device route}, {K name:
+    max_abs_err of those launches against their plain versions})."""
+    from fdeflate_tpu_torch import _build
+    from fdeflate_tpu_torch.models import compressor as MC
+    from fdeflate_tpu_torch.models import decompressor as MD
+    from fdeflate_tpu_torch.models import native as MN
+    from fdeflate_tpu_torch.models import ultrafast as MU
+
+    t0 = time.perf_counter()
+    if not MN.available():
+        raise AssertionError("the native backend is unavailable on the "
+                             f"card's host: {MN.unavailable_reason()}")
+    print(f"native backend: {MN.library_path().name} from native/ (g++ "
+          f"-O3 -march=native), built if absent and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- the compressors on the native path, beside host zlib -----------
+    inputs = {"idat 16 x 1 MiB": [r.tobytes() for r in corpus],
+              "text6 8 MiB": [text6[1]]}
+    modes = [(f"level {lvl}", lambda d, lvl=lvl: P.compress_to_vec_with_level(
+                 d, lvl), lambda d, lvl=lvl: zlib.compress(d, lvl))
+             for lvl in range(10)]
+    rle_zlib = lambda d: (lambda c: c.compress(d) + c.flush())(  # noqa: E731
+        zlib.compressobj(6, zlib.DEFLATED, 15, 8, zlib.Z_RLE))
+    modes += [("rle", P.compress_to_vec_rle, rle_zlib),
+              ("ultra-fast", P.compress_to_vec_ultra_fast,
+               lambda d: zlib.compress(d, 1))]
+    for cname, streams in inputs.items():
+        nbytes = sum(map(len, streams))
+        for mname, ours, theirs in modes:
+            t0 = time.perf_counter()
+            outs = [ours(d) for d in streams]
+            t_ours = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = [theirs(d) for d in streams]
+            t_zlib = time.perf_counter() - t0
+            for d, z in zip(streams, outs):
+                if zlib.decompress(z) != d or P.decompress_to_vec(z) != d:
+                    raise AssertionError(f"{mname} on {cname}: the stream "
+                                         "does not give its input back")
+            print(f"host API {mname} on {cname}: {nbytes / t_ours / 1e9:.4f} "
+                  f"GB/s of input, {sum(map(len, outs)) / nbytes:.4f} of "
+                  f"the size; host zlib {nbytes / t_zlib / 1e9:.4f} GB/s, "
+                  f"{sum(map(len, ref)) / nbytes:.4f} [{card}]", flush=True)
+    # Levels 0-3 and ultra-fast: the native bytes are the Python path's
+    # (levels 4-9 differ near the ends of blocks by design, in the JAX
+    # package too; tier-1 holds each path to JAX's).
+    piece = inputs["idat 16 x 1 MiB"][0][:65536]
+    for lvl in range(4):
+        if MN.deflate(piece, lvl) != MC._compress_to_vec_with_level_python(
+                piece, lvl):
+            raise AssertionError(f"level {lvl}: native != the Python path")
+    if MN.compress_ultra(piece) != MU._compress_to_vec_ultra_fast_python(piece):
+        raise AssertionError("ultra-fast: native != the Python path")
+    print("native == the port's Python path on a 64 KiB slice at levels 0-3 "
+          "and ultra-fast: ok", flush=True)
+
+    # ---- the whole-buffer decode's route to the card, native off ---------
+    route_launches = dict.fromkeys(host_kernels(), 0)
+    route_errs = dict.fromkeys(host_kernels(), 0.0)
+    native_available = MN.available
+    MN.available = lambda: False
+    try:
+        for label, (z, raw) in (("text6 8 MiB", text6), ("idat1 8 MiB", idat8),
+                                ("idat1 1 MiB", idat1m)):
+            if len(z) < MD._DEVICE_ROUTE_MIN:
+                raise AssertionError(f"{label} is below the device route")
+            calls = []
+            out, launches = counted(torch, lambda: recorded(
+                torch, calls, lambda: P.decompress_to_vec_bounded(z, None)),
+                host_kernels())
+            if out != raw or out != zlib.decompress(z):
+                raise AssertionError(f"device route on {label} != zlib")
+            if not all(launches.values()):
+                raise AssertionError(f"device route on {label}: a kernel "
+                                     f"did not launch: {launches}")
+            errs, _plains = hold_calls(torch, calls, launches)
+            for k in route_launches:
+                route_launches[k] += launches[k]
+                route_errs[k] = max(route_errs[k], errs.get(k, 0.0))
+            route = statistics.median(
+                timed(lambda: P.decompress_to_vec_bounded(z, None))
+                for _ in range(3))
+            host = min(timed(lambda: zlib.decompress(z)) for _ in range(3))
+            MN.available = native_available
+            nat = min(timed(lambda: P.decompress_to_vec(z)) for _ in range(3))
+            MN.available = lambda: False
+            print(f"device route on {label} ({len(z)} B in): launches "
+                  f"{launches}, each == plain ({errs}); "
+                  f"{len(raw) / route / 1e9:.4f} GB/s of output by the host "
+                  f"clock; native {len(raw) / nat / 1e9:.4f}, host zlib "
+                  f"{len(raw) / host / 1e9:.4f} [{card}]", flush=True)
+        z, raw = text6
+        try:
+            P.decompress_to_vec_bounded(z, 4096)
+            raise AssertionError("maxlen=4096 did not raise OutputTooLarge")
+        except P.OutputTooLarge as e:
+            if e.partial_output != raw[:4096]:
+                raise AssertionError("OutputTooLarge: wrong partial output")
+        z, raw = idat1m
+        bad = bytearray(z)
+        bad[len(z) // 3] ^= 0x5A
+        bad = bytes(bad)
+        outcome = []
+        for fn in (lambda: P.decompress_to_vec(bad),
+                   lambda: MD._decompress_to_vec_python(bad, None)):
+            try:
+                outcome.append(("bytes", len(fn())))
+            except P.DecompressionError as e:
+                outcome.append(type(e).__name__)
+        if outcome[0] != outcome[1] or outcome[0][0] == "bytes":
+            raise AssertionError(f"corrupted stream: route {outcome[0]}, "
+                                 f"Python oracle {outcome[1]}")
+        launch = _build.launch
+
+        def failing(name, *args):
+            if name == "inflate_records":
+                raise RuntimeError("injected K4 launch failure")
+            return launch(name, *args)
+
+        _build.launch = failing
+        try:
+            P.decompress_to_vec(z)
+            raise AssertionError("a failing K4 launch was caught")
+        except RuntimeError as e:
+            if "injected K4 launch failure" not in str(e):
+                raise
+        finally:
+            _build.launch = launch
+    finally:
+        MN.available = native_available
+    print(f"device route: maxlen=4096 -> OutputTooLarge with text6's first "
+          f"4096 bytes; a corrupted idat1 stream -> {outcome[0]}, the Python "
+          "oracle's; a failing K4 launch propagates: ok", flush=True)
+
+    # ---- try_foreign(materialize="host"): K4 records, native expansion ---
+    k4 = host_kernels()["K4"]
+    for label, (z, raw) in (("text6 8 MiB", text6), ("idat1 8 MiB", idat8)):
+        torch.cuda.synchronize()
+        k4.launches = 0
+        got = P.try_foreign(z, materialize="host")
+        torch.cuda.synchronize()
+        launched = k4.launches
+        if got != raw or launched == 0:
+            raise AssertionError(f"try_foreign(materialize='host') on {label}: "
+                                 f"{'K4 did not launch' if got == raw else '!= zlib'}")
+        t = {how: statistics.median(
+                 timed(lambda: P.try_foreign(z, materialize=how))
+                 for _ in range(3)) for how in ("host", "device")}
+        host = min(timed(lambda: zlib.decompress(z)) for _ in range(3))
+        print(f"try_foreign on {label}: materialize='host' {t['host'] * 1e3:.3f}"
+              f" ms ({len(raw) / t['host'] / 1e9:.4f} GB/s), 'device' "
+              f"{t['device'] * 1e3:.3f} ms ({len(raw) / t['device'] / 1e9:.4f} "
+              f"GB/s), host zlib {len(raw) / host / 1e9:.4f} GB/s; K4 "
+              f"launches {launched} [{card}]", flush=True)
+    return route_launches, route_errs
 
 
 def main() -> int:
@@ -2323,6 +2519,19 @@ def main() -> int:
         if row["name"] in names:
             row["mesh_launches"] = mesh_launches[names[row["name"]]]
             row["mesh_max_abs_err"] = mesh_errs[names[row["name"]]]
+
+    # ---- 16. the host API: native codec, the device route, host expansion
+    t0 = time.perf_counter()
+    host_launches, host_errs = host_api_phase(
+        torch, P, card, corpus, (z_text8, text8), (z_idat8, idat8),
+        (batch[0], batch_raw[0]))
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s by the host clock",
+          flush=True)
+    names = {fn.__name__: k for k, fn in host_kernels().items()}
+    for row in rows:
+        if row["name"] in names:
+            row["host_api_launches"] = host_launches[names[row["name"]]]
+            row["host_api_max_abs_err"] = host_errs[names[row["name"]]]
 
     print(json.dumps({"kernels": rows}))
     print(card)

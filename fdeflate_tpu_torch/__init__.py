@@ -1,7 +1,7 @@
 """fdeflate_tpu_torch — the PyTorch/CUDA port of fdeflate_tpu for Hopper GPUs.
 
 The JAX package ``fdeflate_tpu`` is the reference; this package gives
-bit-identical outputs.  Seven slices are ported:
+bit-identical outputs.  Eight slices are ported:
 
 * the standard-zlib, fixed-geometry roundtrip of PNG IDAT streams (the
   benchmark's headline path):
@@ -57,12 +57,36 @@ bit-identical outputs.  Seven slices are ported:
   ``parallel/multihost.py`` (torchrun's environment, ``spawn_world``) and
   the entry points of ``entry_points.py`` (``__graft_entry__.py``'s)
 
+* the host streaming codec (slice 8), the JAX package's top-level API in
+  ``models/`` (numpy, with the native C++ backend of ``native/`` loaded
+  by ``models/native.py``): ``Compressor`` (levels 0-9, ``new_rle``),
+  ``UltraFastCompressor``, the resumable ``Decompressor`` and the
+  ``*_to_vec`` functions.  Whole-buffer decodes go to the native backend;
+  without it, inputs of 256 KiB or more go to ``decompress_batch`` on the
+  card (K5, K4, K7), with no fallback around the call
+
 K1-K11 are hand-written CUDA kernels (``csrc/``) launched for CUDA
 tensors; CPU tensors take their plain PyTorch versions.  The package
 imports ``torch`` and nothing of ``jax`` or of the JAX package: the host
 modules it needs are its own copies (``errors``, ``tables``, ``huffman``,
-``ops/septree``, ``ops/inflate_host``, ``ops/bitio``), held equal to the originals by
-tests/test_torch_hostcopies.py.
+``ops/septree``, ``ops/inflate_host``, ``ops/bitio``, ``models/``), held equal
+to the originals by tests/test_torch_hostcopies.py and
+tests/test_torch_hostcodec.py.
+
+The host API, as in the JAX package (``device`` only where a decode may
+take the card's route):
+
+    compress_to_vec(data), compress_to_vec_with_level(data, level),
+    compress_to_vec_rle(data), compress_to_vec_ultra_fast(data) -> zlib bytes
+    Compressor(sink=None, level=1, zlib_mode=True), Compressor.new_rle(),
+    UltraFastCompressor(sink=None): write_data, flush, finish
+    Decompressor(): read(input, output, output_position)
+        -> (consumed, produced); ignore_adler32(), is_done()
+    decompress_to_vec(input, device=...)
+    decompress_to_vec_bounded(input, maxlen, device=...)
+        -> bytes; raises DecompressionError (its subclasses by name) or
+           OutputTooLarge (with ``partial_output``)
+    compute_code_lengths(freqs, min_limit, max_limit), Status
 
 Public API (``device`` is "cuda" unless the caller asks for "cpu"; without
 CUDA a call that leaves it raises RuntimeError).  Every function takes the
@@ -109,6 +133,41 @@ the JAX package; the three entry points live in
 """
 
 from .entry_points import dryrun_multichip, entry, entry_v1
+from .errors import (
+    BadCodeLengthHuffmanTree,
+    BadDistanceHuffmanTree,
+    BadLiteralLengthHuffmanTree,
+    BadZlibHeader,
+    DecompressionError,
+    DistanceTooFarBack,
+    ExtraInput,
+    InputStartsWithRun,
+    InsufficientInput,
+    InvalidBlockType,
+    InvalidCodeLengthRepeat,
+    InvalidDistanceCode,
+    InvalidHdist,
+    InvalidHlit,
+    InvalidLiteralLengthCode,
+    InvalidUncompressedBlockLength,
+    OutputTooLarge,
+    Status,
+    WrongChecksum,
+)
+from .huffman import compute_code_lengths
+from .models.compressor import (
+    Compressor,
+    compress_to_vec,
+    compress_to_vec_rle,
+    compress_to_vec_ultra_fast,
+    compress_to_vec_with_level,
+)
+from .models.decompressor import (
+    Decompressor,
+    decompress_to_vec,
+    decompress_to_vec_bounded,
+)
+from .models.ultrafast import UltraFastCompressor
 from .ops.adler32_pallas import adler32_pallas
 from .ops.matchscan import compress_batch_device, compress_batch_matched
 from .ops.septree import sep_profile
@@ -132,6 +191,21 @@ from .parallel.discovery import (
 from .parallel.speculative import decompress_speculative
 
 __all__ = [
+    # the host API (the JAX package's __all__)
+    "Compressor",
+    "UltraFastCompressor",
+    "Decompressor",
+    "compress_to_vec",
+    "compress_to_vec_with_level",
+    "compress_to_vec_rle",
+    "compress_to_vec_ultra_fast",
+    "decompress_to_vec",
+    "decompress_to_vec_bounded",
+    "compute_code_lengths",
+    "DecompressionError",
+    "OutputTooLarge",
+    "Status",
+    # the device API
     "adler32_pallas",
     "compress_batch_device",
     "compress_batch_matched",

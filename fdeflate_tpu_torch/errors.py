@@ -1,7 +1,8 @@
 """Decompression error taxonomy of the port.
 
 Copy of ``fdeflate_tpu/errors.py`` (``Status`` :14, ``DecompressionError``
-:38 and its subclasses, ``error_for_status`` :164), kept in the port so
+:38 and its subclasses, ``OutputTooLarge`` :146, ``error_for_status``
+:164), kept in the port so
 that it imports nothing of the JAX package.  Class names and ``Status`` values are the original's
 (tests/test_torch_hostcopies.py holds them equal), so a port error and a
 JAX error of one kind share a class name.
@@ -147,6 +148,18 @@ class ExtraInput(DecompressionError):
     """Extra input data after the end of the stream."""
 
     status = Status.EXTRA_INPUT
+
+
+class OutputTooLarge(Exception):
+    """Bounded decompression exceeded ``maxlen`` (carries the partial output).
+
+    Mirrors BoundedDecompressionError::OutputTooLarge
+    (reference: src/decompress.rs:1090-1102).
+    """
+
+    def __init__(self, partial_output: bytes):
+        super().__init__("output too large")
+        self.partial_output = partial_output
 
 
 _STATUS_TO_ERROR: dict[Status, type[DecompressionError]] = {

@@ -14,7 +14,10 @@ imports nothing of that package:
   ``_leading_zeros16`` <- ``fdeflate_tpu/huffman.py:109-300``: the
   reference's 4096-entry literal/length and 512-entry distance decode
   tables with their secondary tables and ``first_len`` (reference:
-  src/huffman.rs:18-184), which ``ops/decode_symbols`` reads.
+  src/huffman.rs:18-184), which ``ops/decode_symbols`` reads;
+* ``FIXED_LITLEN_TABLE`` / ``FIXED_DIST_TABLE`` <- ``_build_fixed_tables``
+  of ``fdeflate_tpu/huffman.py:302``: the fixed-block decode tables of
+  ``models/decompressor.py``.
 
 tests/test_torch_hostcopies.py holds each equal to its original.
 """
@@ -26,7 +29,14 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .tables import EXCEPTIONAL_ENTRY, LITERAL_ENTRY, SECONDARY_TABLE_ENTRY
+from .tables import (
+    DISTANCE_TABLE_ENTRIES,
+    EXCEPTIONAL_ENTRY,
+    FIXED_CODE_LENGTHS,
+    LITERAL_ENTRY,
+    LITLEN_TABLE_ENTRIES,
+    SECONDARY_TABLE_ENTRY,
+)
 
 
 def compute_code_lengths(
@@ -363,3 +373,30 @@ def build_table(
 
     return DecodeTables(True, codes, primary, secondary, fs_len.astype(np.int8))
 
+
+def _build_fixed_tables() -> tuple[np.ndarray, np.ndarray]:
+    """Precompute the 512-entry litlen / 32-entry dist fixed-block tables.
+
+    The reference ships these as constants (src/tables.rs:142-202); they
+    are derived from FIXED_CODE_LENGTHS at import.
+    """
+    litlen = build_table(
+        FIXED_CODE_LENGTHS[:288],
+        LITLEN_TABLE_ENTRIES,
+        512,
+        is_distance_table=False,
+        double_literal=True,
+    )
+    assert litlen.ok and len(litlen.secondary) == 0
+    dist = build_table(
+        FIXED_CODE_LENGTHS[288:320],
+        DISTANCE_TABLE_ENTRIES,
+        32,
+        is_distance_table=True,
+        double_literal=False,
+    )
+    assert dist.ok and len(dist.secondary) == 0
+    return litlen.primary, dist.primary
+
+
+FIXED_LITLEN_TABLE, FIXED_DIST_TABLE = _build_fixed_tables()

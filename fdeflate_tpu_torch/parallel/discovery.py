@@ -22,16 +22,21 @@ false boundary, a block over the record budget) returns None, and
 ``decompress_foreign`` falls back to the sequential path.
 
 On CPU tensors stage 1 runs the same torch code and K4/K5 their plain
-versions.  ``materialize="host"`` (the native C++ expansion) is not
-ported.
+versions.  ``try_foreign(materialize="host")`` expands the chain's K4
+records on the host with the native C++ backend (``models/native.py``)
+instead of the device stitch.
 """
 
 from __future__ import annotations
+
+import os
+import zlib
 
 import numpy as np
 import torch
 
 from .. import errors as E
+from ..models import native
 from ..ops import inflate_host as host
 from ..ops.adler32 import adler32_batch
 from ..ops.inflate import WINDOW, decompress_sequential, pad_words
@@ -312,6 +317,24 @@ def _stitch(recs, mask, ranges, produced):
     return out, adler32_batch(out, prod), bad
 
 
+def _materialize_host(data: bytes, recs, chain, final_exit: int):
+    """JAX's ``materialize="host"`` (discovery.py:510-527): the chain lanes'
+    K4 records (int32[K, L]) in chain order, flattened, expanded by the
+    native ``fdn_materialize`` into the sum of their advances; the bytes
+    when their Adler-32 is the stored one, else None (malformed records or
+    no native backend)."""
+    cols = torch.tensor(chain, dtype=torch.int64, device=recs.device)
+    flat = recs[:, cols].T.reshape(-1).cpu().numpy()
+    kind = (flat >> 28) & 0xF
+    pay = flat & 0x0FFFFFFF
+    adv = np.where(kind == 1, (pay >> 16) & 3,
+                   np.where(kind == 2, ((pay >> 15) & 0xFF) + 3, 0))
+    result = native.materialize_records(flat, int(adv.sum()))
+    if result is not None and _stored_adler(data, final_exit) == zlib.adler32(result):
+        return result
+    return None
+
+
 def try_foreign(data: bytes, max_steps: int = 6144, engine: str = "auto",
                 words_dev=None, return_device: bool = False,
                 materialize: str | None = None, *, device="cuda"):
@@ -324,11 +347,14 @@ def try_foreign(data: bytes, max_steps: int = 6144, engine: str = "auto",
     device and returns (out u8[1, cap], produced) with the Adler-32
     verified there (one scalar read back).  ``engine`` picks the JAX
     package's symbol phase (its record kernel or its XLA loop); the port
-    has one, K4, and ignores it.
+    has one, K4, and ignores it.  ``materialize`` (None: the environment's
+    ``FDN_FOREIGN_MATERIALIZE``, default "device") is where the records
+    become bytes: "host" expands them with the native backend
+    (``_materialize_host``; None without it) unless ``return_device``.
     """
     del engine
-    if materialize == "host":
-        raise NotImplementedError("materialize='host' is not ported yet")
+    if materialize is None:
+        materialize = os.environ.get("FDN_FOREIGN_MATERIALIZE", "device")
     dev = device_of(device)
     if words_dev is None:
         words_dev = stage_words(data, device=dev)
@@ -346,6 +372,8 @@ def try_foreign(data: bytes, max_steps: int = 6144, engine: str = "auto",
     if walk is None:
         return None
     chain, final_exit = walk
+    if materialize == "host" and not return_device:
+        return _materialize_host(data, recs, chain, final_exit)
     mask = np.zeros(L, bool)
     mask[chain] = True
     produced = int(nout[chain].sum())

@@ -796,6 +796,72 @@ def test_compress_batch_device_cuda_equals_cpu(dev, level):
     assert got == P.compress_batch_device(datas, level, device="cpu")
     assert [zlib.decompress(o) for o in got] == datas
 
+def _split_blocks(data: bytes, level: int, step: int) -> bytes:
+    """zlib stream whose blocks end every ``step`` input bytes (the plain K4
+    of the ``device="cpu"`` runs costs a loop iteration per record)."""
+    co = zlib.compressobj(level)
+    out = b"".join(co.compress(data[i:i + step])
+                   + (co.flush(zlib.Z_BLOCK) if i + step < len(data) else b"")
+                   for i in range(0, len(data), step))
+    return out + co.flush()
+
+
+def test_host_api_device_route_cuda_equals_cpu(dev, monkeypatch):
+    """``decompress_to_vec_bounded``'s route to the card (native off, the
+    threshold cut so that a 240 kB stream takes it): the bytes of its
+    ``device="cpu"`` run, ``OutputTooLarge`` with the first 4096 bytes,
+    and the Python oracle's error class, with K4, K5 and K7 launched."""
+    from fdeflate_tpu_torch.models import decompressor as MD
+    from fdeflate_tpu_torch.models import native as MN
+
+    monkeypatch.setattr(MN, "available", lambda: False)
+    monkeypatch.setattr(MD, "_DEVICE_ROUTE_MIN", 1024)
+    data = _foreign(3, 240_000)
+    z = _split_blocks(data, 6, 20_000)
+    assert len(z) >= PD._PARALLEL_MIN
+    kernels = (inflate_records, validate_headers, adler32_tiles)
+    before = [k.launches for k in kernels]
+    assert P.decompress_to_vec(z) == data
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert P.decompress_to_vec(z, device="cpu") == data
+    with pytest.raises(P.OutputTooLarge) as got:
+        P.decompress_to_vec_bounded(z, 4096)
+    assert got.value.partial_output == data[:4096]
+    bad = bytearray(z)
+    bad[len(z) // 2] ^= 0x5A
+    outcome = []
+    for fn in (lambda: P.decompress_to_vec(bytes(bad)),
+               lambda: MD._decompress_to_vec_python(bytes(bad), None)):
+        try:
+            outcome.append(fn())
+        except P.DecompressionError as e:
+            outcome.append(type(e).__name__)
+    assert outcome[0] == outcome[1] == "WrongChecksum"
+
+
+def test_try_foreign_host_materialize_on_the_card(dev):
+    """``materialize="host"``: K4's records from the card expanded by the
+    native backend equal zlib's bytes and the device stitch's."""
+    from fdeflate_tpu_torch.models import native as MN
+
+    assert MN.available(), MN.unavailable_reason()
+    data = _foreign(4, 200_000)
+    z = zlib.compress(data, 6)
+    before = inflate_records.launches
+    assert P.try_foreign(z, materialize="host") == data
+    assert inflate_records.launches > before
+    assert P.try_foreign(z, materialize="device") == data
+
+
+def test_profiling_sync_waits_on_cuda_tensors(dev):
+    from fdeflate_tpu_torch.utils import profiling as PProf
+
+    x = torch.ones(1 << 20, device=dev)
+    y = x.cumsum(0)
+    PProf.sync(y, torch.zeros(2), "not a tensor")
+    assert float(y[-1]) == float(1 << 20)
+
+
 def _every_wrapper(dev):
     """(name, kernel call, plain call) of each of the eleven kernels' entry
     points (K7's through both its wrappers) on small inputs on ``dev``; the

@@ -3,9 +3,11 @@
 The port imports nothing of ``fdeflate_tpu`` or ``bench``; it keeps its own
 copies of the host code it needs (``fdeflate_tpu_torch/errors.py``,
 ``tables.py``, ``huffman.py``, ``ops/septree.py``, ``ops/inflate_host.py``,
-the stream header in ``trees.py``, ``ops/bitio.py``, ``tools/corpus.py``).  Each copy is held
-here to its original on the same inputs, fuzzed where the input space is
-large.
+the stream header in ``trees.py``, ``ops/bitio.py``, ``tools/corpus.py``,
+``OutputTooLarge``, the fixed-block decode tables, and ``models/``'s
+``tokenize`` and ``write_block``).  Each copy is held here to its original
+on the same inputs, fuzzed where the input space is large;
+tests/test_torch_hostcodec.py holds the rest of ``models/``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from fdeflate_tpu_torch.ops import inflate_host as PI
 from fdeflate_tpu_torch.ops import septree as PS
 from fdeflate_tpu_torch.tools import corpus as PC
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
+from fdeflate_tpu_torch.models import bitstream as PB
+from fdeflate_tpu_torch.models import ultrafast as PU
 
 TABLES = ["HUFFMAN_CODES", "HUFFMAN_LENGTHS", "LEN_SYM_TO_LEN_BASE",
           "LEN_SYM_TO_LEN_EXTRA", "LENGTH_TO_SYMBOL", "LENGTH_TO_LEN_EXTRA",
@@ -419,3 +423,89 @@ def test_adler32_combine_equals_the_original(seed):
         assert got == JAD.combine(zlib.adler32(x[:cut]),
                                   zlib.adler32(x[cut:]), len(x) - cut)
         assert got == zlib.adler32(x)
+
+
+def test_output_too_large_equals_the_original():
+    """Not a DecompressionError; carries ``partial_output``; same message."""
+    for mod in (PE, JE):
+        assert not issubclass(mod.OutputTooLarge, mod.DecompressionError)
+        assert issubclass(mod.OutputTooLarge, Exception)
+    got, want = PE.OutputTooLarge(b"part"), JE.OutputTooLarge(b"part")
+    assert (str(got), got.args, got.partial_output) == (
+        str(want), want.args, want.partial_output)
+
+
+def test_fixed_tables_equal_the_originals():
+    for name in ("FIXED_LITLEN_TABLE", "FIXED_DIST_TABLE"):
+        got, want = getattr(PH, name), getattr(JH, name)
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_tokenize_equals_the_original(seed):
+    """Zero runs of every length around 8-byte chunks and 258, literals,
+    and lengths that leave a remainder past the last full chunk."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(int(rng.integers(1, 40))):
+        if rng.random() < 0.5:
+            parts.append(bytes(int(rng.choice([1, 3, 7, 8, 9, 15, 16, 257,
+                                                258, 259, 520, 777]))))
+        else:
+            parts.append(rng.integers(0, 256, int(rng.integers(1, 30)),
+                                      dtype=np.uint8).tobytes())
+    data = np.frombuffer(b"".join(parts)[: int(rng.integers(0, 6000))],
+                         np.uint8)
+    for got, want in zip(PU.tokenize(data), JU.tokenize(data)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def _symbols(rng, n: int):
+    """A random symbol stream tiling [0, n): literal runs and back-references
+    of lengths 3-258 at distances up to the position (the bytes need not
+    match: write_block only encodes)."""
+    out, pos = [], 0
+    while pos < n:
+        if pos > 0 and rng.random() < 0.4:
+            length = int(min(rng.integers(3, 259), n - pos))
+            if length >= 3:
+                dist = int(rng.integers(1, min(pos, 32768) + 1))
+                out.append((JB.Backref, PB.Backref, length, dist))
+                pos += length
+                continue
+        end = int(min(n, pos + rng.integers(1, 80)))
+        out.append((JB.LiteralRun, PB.LiteralRun, pos, end))
+        pos = end
+    return out
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_write_block_equals_the_original(seed):
+    """Fuzzed symbol streams, final and not, with demotion on and off, from a
+    bit offset inside a byte: the same bits."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 5000))
+    alphabet = int(rng.choice([2, 16, 256]))
+    data = rng.integers(0, alphabet, n, dtype=np.uint8).tobytes()
+    base = int(rng.integers(0, 1000))
+    syms = _symbols(rng, n)
+    for demote in (True, False):
+        saved = JB.ENABLE_DEMOTION, PB.ENABLE_DEMOTION
+        JB.ENABLE_DEMOTION = PB.ENABLE_DEMOTION = demote
+        try:
+            for eof in (False, True):
+                outs = []
+                for mod, wmod, k in ((JB, JBIT, 0), (PB, PBIT, 1)):
+                    symbols = [
+                        s[k](base + s[2], base + s[3]) if s[0] is JB.LiteralRun
+                        else s[k](s[2], s[3], int(JT.DISTANCE_TO_SYM[s[3] - 1]))
+                        for s in syms]
+                    w = wmod.BitWriter(bytearray())
+                    w.write_bits(5, 3)
+                    mod.write_block(w, data, base, symbols, eof)
+                    outs.append(bytes(w.flush()))
+                assert outs[0] == outs[1], (demote, eof)
+        finally:
+            JB.ENABLE_DEMOTION, PB.ENABLE_DEMOTION = saved

@@ -91,6 +91,19 @@ assert torch.equal(decode_blocked(win, 64, light=False)[0].reshape(2, 1024), d)
 pos0 = lane_starts(cb, 2, 4, 0)[0].reshape(-1).to(torch.int32)
 assert torch.equal(combine(win, cb.reshape(-1), pos0, 2, 400, group=4),
                    combine(win, cb.reshape(-1), pos0, 2, 400))
+# the host API: every level, RLE, ultra-fast, the streamed decoder, and
+# the whole-buffer decode's device route (native off, threshold cut)
+raw = data[0].tobytes()
+for level in range(10):
+    assert P.decompress_to_vec(P.compress_to_vec_with_level(raw, level)) == raw
+assert zlib.decompress(P.compress_to_vec_rle(raw)) == raw
+d = P.Decompressor()
+buf = bytearray(2048)
+assert d.read(P.compress_to_vec_ultra_fast(raw), buf, 0)[1] == 1024 and d.is_done()
+from fdeflate_tpu_torch.models import decompressor as PD, native as PN
+PN.available = lambda: False
+PD._DEVICE_ROUTE_MIN = 64
+assert P.decompress_to_vec_bounded(zlib.compress(text, 6), None, device="cpu") == text
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fdeflate_tpu", "bench")))
 """
@@ -131,6 +144,8 @@ def test_no_import_names_the_jax_package():
     fdeflate_tpu, jax or bench (the port keeps its own copies)."""
     root = pathlib.Path(ROOT)
     files = sorted((root / "fdeflate_tpu_torch").rglob("*.py"))
+    for sub in ("models", "utils", "examples"):
+        assert any(f.parent.name == sub for f in files), sub
     files.append(root / "chip_smoke.py")
     bad = [(str(f.relative_to(root)), name) for f in files
            for name in _imported_names(f)
@@ -174,6 +189,21 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
 
 
 _Z = zlib.compress(bytes(range(256)) * 200, 6)
+_BIG = zlib.compress(np.random.default_rng(1).bytes(300000), 1)
+
+
+def _without_native(fn):
+    """fn() with the native backend reported unavailable."""
+    from fdeflate_tpu_torch.models import native
+
+    saved = native.available
+    native.available = lambda: False
+    try:
+        return fn()
+    finally:
+        native.available = saved
+
+
 DEFAULT_DEVICE_CALLS = {
     "compress_batch_ultra_fast": lambda: P.compress_batch_ultra_fast([b"abc"]),
     "fused_zlib_roundtrip": lambda: P.fused_zlib_roundtrip(8, 2048),
@@ -193,6 +223,10 @@ DEFAULT_DEVICE_CALLS = {
     "decompress_speculative": lambda: P.decompress_speculative(_Z),
     "decompress_batch_speculative":
         lambda: P.decompress_batch_speculative([_Z]),
+    "decompress_to_vec": lambda: _without_native(
+        lambda: P.decompress_to_vec(_BIG)),
+    "decompress_to_vec_bounded": lambda: _without_native(
+        lambda: P.decompress_to_vec_bounded(_BIG, 10)),
 }
 
 

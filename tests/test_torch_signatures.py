@@ -48,6 +48,12 @@ from fdeflate_tpu_torch.parallel import multihost as PMH
 from fdeflate_tpu_torch.parallel import shard as PSh
 from fdeflate_tpu_torch.parallel import speculative as PS
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
+import fdeflate_tpu as F
+import fdeflate_tpu_torch as P
+from fdeflate_tpu.models import native as JN
+from fdeflate_tpu.utils import profiling as JProf
+from fdeflate_tpu_torch.models import native as PN
+from fdeflate_tpu_torch.utils import profiling as PProf
 
 
 PAIRS = {
@@ -83,6 +89,24 @@ PAIRS = {
     # the entry points of __graft_entry__.py
     **{name: (getattr(JG, name), getattr(PG, name)) for name in (
         "entry", "entry_v1", "dryrun_multichip")},
+    # the host API: fdeflate_tpu.__all__, its classes' methods
+    **{name: (getattr(F, name), getattr(P, name)) for name in (
+        "Compressor", "UltraFastCompressor", "Decompressor", "compress_to_vec",
+        "compress_to_vec_with_level", "compress_to_vec_rle",
+        "compress_to_vec_ultra_fast", "decompress_to_vec",
+        "decompress_to_vec_bounded", "compute_code_lengths",
+        "OutputTooLarge")},
+    **{f"{cls}.{m}": (getattr(getattr(F, cls), m), getattr(getattr(P, cls), m))
+       for cls, methods in (
+           ("Compressor", ("new_rle", "write_data", "flush", "finish")),
+           ("UltraFastCompressor", ("write_data", "finish")),
+           ("Decompressor", ("read", "ignore_adler32", "is_done")))
+       for m in methods},
+    **{f"native.{name}": (getattr(JN, name), getattr(PN, name)) for name in (
+        "available", "inflate", "compress_ultra", "deflate",
+        "materialize_records")},
+    **{f"profiling.{name}": (getattr(JProf, name), getattr(PProf, name))
+       for name in ("Throughput", "counter", "report_all")},
 }
 
 
@@ -101,6 +125,40 @@ def test_signature_is_jax(name):
             assert p.default == want[p.name].default, (name, p.name)
     extra = [p.name for p in got.values() if p.kind == p.KEYWORD_ONLY]
     assert extra in ([], ["device"]), (name, extra)
+
+
+def test_decompress_to_vec_takes_a_keyword_only_device():
+    """The two whole-buffer decoders add only ``device`` (keyword-only,
+    "cuda" by default, as every entry point of the port)."""
+    for fn in (P.decompress_to_vec, P.decompress_to_vec_bounded):
+        device = inspect.signature(fn).parameters["device"]
+        assert device.kind == device.KEYWORD_ONLY and device.default == "cuda"
+
+
+LAZY = ["compress_batch_ultra_fast", "decompress_batch",
+        "decompress_batch_indexed", "decompress_speculative",
+        "decompress_batch_speculative", "decompress_foreign",
+        "compress_batch_matched", "compress_batch_device"]
+
+
+def test_port_exports_the_jax_package_api():
+    """Every name of ``fdeflate_tpu.__all__``, every error class the JAX
+    package imports at top level, and its eight lazy accessors
+    (``fdeflate_tpu/__init__.py:62-96``) are attributes of the port, the
+    first ones in its ``__all__`` too."""
+    errors = [n for n in dir(F) if isinstance(getattr(F, n), type)
+              and issubclass(getattr(F, n), BaseException)]
+    assert len(errors) == 18 and set(F.__all__) <= set(P.__all__)
+    for name in [*F.__all__, *errors, *LAZY]:
+        assert hasattr(P, name), name
+    for name in errors:
+        assert getattr(P, name).__name__ == name
+        assert issubclass(getattr(P, name), P.DecompressionError) == \
+            issubclass(getattr(F, name), F.DecompressionError)
+    assert {s.name: int(s) for s in P.Status} == {s.name: int(s)
+                                                   for s in F.Status}
+    for name in LAZY:
+        assert callable(getattr(P, name)) and callable(getattr(F, name))
 
 
 B, N, C = 3, 4096, 8
