@@ -221,6 +221,16 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def launch_count(fn) -> int:
+    """The launches so far of kernel wrapper ``fn``: the port's counter
+    ``launch.<name>`` of the entry point it launches (its own name;
+    ``pack_v1`` for ``pack_blocked``)."""
+    from fdeflate_tpu_torch.utils import profiling
+
+    name = {"pack_blocked": "pack_v1"}.get(fn.__name__, fn.__name__)
+    return profiling.counts().get("launch." + name, 0)
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
                work) -> dict:
     """One entry of the kernel JSON line; ``work`` = (bytes, operations)
@@ -590,9 +600,9 @@ def k5_batch_report(torch, P, PD, batch, dev, card) -> int:
     from fdeflate_tpu_torch.ops.validate_headers import validate_headers
 
     torch.cuda.synchronize()
-    validate_headers.launches = 0
+    n0 = launch_count(validate_headers)
     P.try_foreign_batch(batch, device=dev)
-    launches = validate_headers.launches
+    launches = launch_count(validate_headers) - n0
     if launches != 1:
         raise AssertionError(f"try_foreign_batch launched K5 {launches} times")
     w1 = PD.stage_words(batch[0], device=dev)
@@ -714,8 +724,7 @@ def sep_phase(torch, P, dev, data, lengths, streams_in, streams_trained,
     kernels = {"assign_pack": assign_pack, "combine": combine,
                "decode_sep": decode_sep}
     torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
+    n0 = {k: launch_count(fn) for k, fn in kernels.items()}
     t0 = time.perf_counter()
     enc = P.zlib_encode_step(CHUNKS, tree=sep)
     words, total_bits, adler, starts, eof = enc(data, lengths)
@@ -724,7 +733,7 @@ def sep_phase(torch, P, dev, data, lengths, streams_in, streams_trained,
         CHUNKS, N, tree=sep, device=dev)(data, lengths)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = {k: launch_count(fn) - n0[k] for k, fn in kernels.items()}
     print(f"sep path ({B} x {N} B, C={CHUNKS}, tree=sep_profile()): "
           f"{wall:.3f} s wall incl. host copies; launches {launches}",
           flush=True)
@@ -797,13 +806,12 @@ def adaptive_phase(torch, P, dev, data, lengths, card):
     step = P.fused_adaptive_roundtrip(CHUNKS, N, device=dev)
     kernels = {"assign_pack": assign_pack, "decode2": decode2}
     torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
+    n0 = {k: launch_count(fn) for k, fn in kernels.items()}
     t0 = time.perf_counter()
     out, bpos_ok, ck_ok, total_bits = step(data, lengths)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = {k: launch_count(fn) - n0[k] for k, fn in kernels.items()}
     print(f"adaptive path ({B} x {N} B, C={CHUNKS}): {wall:.3f} s wall; "
           f"launches {launches}", flush=True)
     if not all(n > 0 for n in launches.values()):
@@ -886,7 +894,7 @@ def checksum_phase(torch, P, dev, card, main_launches):
              (f"6 unaligned rows of {N} B, lengths {row_lens}", rows,
               row_lens, rows.cpu().numpy())]
     torch.cuda.synchronize()
-    adler32_tiles.launches = 0
+    n0 = launch_count(adler32_tiles)
     got = [P.adler32_pallas(x[0], ln[0]) for _l, x, ln, _h in cases[:3]]
     lens = [torch.tensor(ln, dtype=torch.int64, device=dev)
             for _l, _x, ln, _h in cases]
@@ -898,7 +906,7 @@ def checksum_phase(torch, P, dev, card, main_launches):
     batch = [adler32_checksums(x, lt, *sw)
              for (_l, x, _ln, _h), lt, sw in zip(cases, lens, tiles)]
     torch.cuda.synchronize()
-    launches = adler32_tiles.launches
+    launches = launch_count(adler32_tiles) - n0
     if launches != len(cases) + 3:
         raise AssertionError(f"adler32_tiles launched {launches} times for "
                              f"{len(cases) + 3} calls")
@@ -964,13 +972,12 @@ def v2_phase(torch, P, dev, data, lengths, card):
     kernels = {"assign_pack": assign_pack, "decode2": decode2,
                "combine": combine}
     torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
+    n0 = {k: launch_count(fn) for k, fn in kernels.items()}
     t0 = time.perf_counter()
     out, bpos_ok, ck_ok = step(data, lengths)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = {k: launch_count(fn) - n0[k] for k, fn in kernels.items()}
     print(f"v2 path ({B} x {N} B, C={CHUNKS}, fused_ultrafast_roundtrip_v2): "
           f"{wall:.3f} s wall; launches {launches}", flush=True)
     if not (launches["assign_pack"] > 0 and launches["decode2"] > 0):
@@ -1031,8 +1038,7 @@ def ab_phase(torch, P, dev, data, lengths, card):
     t = trained_tables(str(dev))
     kernels = {"pack_v1": pack_blocked, "decode2_canon": decode2_canon}
     torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
+    n0 = {k: launch_count(fn) for k, fn in kernels.items()}
     t0 = time.perf_counter()
     win, bits = encode_blocked_v1(data, lengths, C, t)
     out, bpos = decode_blocked(win, T, light=False)
@@ -1041,7 +1047,7 @@ def ab_phase(torch, P, dev, data, lengths, card):
                              adler32_batch(data, lengths), C)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = {k: launch_count(fn) - n0[k] for k, fn in kernels.items()}
     print(f"A/B chain ({B} x {N} B, C={C}, S={S}): {wall:.3f} s wall; "
           f"launches {launches}", flush=True)
     if not all(n > 0 for n in launches.values()):
@@ -1163,12 +1169,12 @@ def grouped_phase(torch, P, dev, data, lengths, streams_in, card):
         return combine(win, bits, pos0, b, w, group=GROUP)
 
     torch.cuda.synchronize()
-    combine_grouped.launches = 0
+    n0 = launch_count(combine_grouped)
     words, total_bits, adler, _s, _e = _encode(data, lengths, CHUNKS, t,
                                                assign_pack, k10)
     streams = P.finalize_streams(words, total_bits, adler)
     torch.cuda.synchronize()
-    launches = combine_grouped.launches
+    launches = launch_count(combine_grouped) - n0
     if launches != 1:
         raise AssertionError(f"the encode launched K10 {launches} times")
     n_ok = sum(zlib.decompress(s) == streams_in[i] for i, s in enumerate(streams))
@@ -1178,12 +1184,13 @@ def grouped_phase(torch, P, dev, data, lengths, streams_in, card):
     pos0 = lane_starts(bits, B, CHUNKS, t.header_bits)[0].reshape(-1).to(
         torch.int32)
     W = stream_words(N, t)
-    before = combine_grouped.launches
+    before = launch_count(combine_grouped)
     got, ops = torch_ops(lambda: combine(win, bits, pos0, B, W, group=GROUP))
     torch.cuda.synchronize()
-    if combine_grouped.launches != before + 1 or not set(ops) <= NO_COMPUTE:
+    if (launch_count(combine_grouped) != before + 1
+            or not set(ops) <= NO_COMPUTE):
         raise AssertionError(f"combine(group={GROUP}): launches "
-                             f"{combine_grouped.launches - before}, ops {ops}")
+                             f"{launch_count(combine_grouped) - before}, ops {ops}")
     if not torch.equal(got, combine(win, bits, pos0, B, W)):
         raise AssertionError("K10 differs from K2")
     err = check_equal(torch, "combine_grouped", (got,),
@@ -1225,6 +1232,7 @@ def indexed_phase(torch, P, dev, corpus, card):
     from fdeflate_tpu_torch.tools.edges import K11_KINDS, k11_edge_case
     from fdeflate_tpu_torch.tools.time_k11 import (headline_lanes, k11_bytes,
                                                    live_view, plain_k11)
+    from fdeflate_tpu_torch.utils import profiling
 
     B, N = corpus.shape
     streams_in = [r.tobytes() for r in corpus]
@@ -1233,17 +1241,16 @@ def indexed_phase(torch, P, dev, corpus, card):
     kernels = {"assign_pack": assign_pack, "combine": combine,
                "adler32_tiles": adler32_tiles, "decode_symbols": decode_symbols}
     torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
-    DP.decompress_batch_indexed.fallbacks = 0
+    n0 = {k: launch_count(fn) for k, fn in kernels.items()}
+    fb0 = profiling.counts().get("indexed.fallback", 0)
     t0 = time.perf_counter()
     streams, index = P.compress_batch_ultra_fast(streams_in,
                                                  with_index=CHUNKS)
     back = P.decompress_batch_indexed(streams, index)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    fallbacks = DP.decompress_batch_indexed.fallbacks
+    launches = {k: launch_count(fn) - n0[k] for k, fn in kernels.items()}
+    fallbacks = profiling.counts().get("indexed.fallback", 0) - fb0
     print(f"indexed path ({B} x {N} B, C={CHUNKS}): {wall:.3f} s wall incl. "
           f"host copies; launches {launches}; fallbacks {fallbacks}",
           flush=True)
@@ -1259,11 +1266,11 @@ def indexed_phase(torch, P, dev, corpus, card):
         raise AssertionError("decompress_batch_indexed differs from the input")
     case, staged, cap = headline_lanes(streams, index, dev)
     max_steps = case["max_steps"]
-    decode_symbols.launches = 0
+    n0 = launch_count(decode_symbols)
     out, produced, ok, ck_ok = P.fused_ultrafast_roundtrip(
         CHUNKS, max_steps, N)(data, lengths)
     torch.cuda.synchronize()
-    if decode_symbols.launches != 1:
+    if launch_count(decode_symbols) - n0 != 1:
         raise AssertionError("fused_ultrafast_roundtrip did not launch K11 once")
     if not (bool(ok.all()) and bool(ck_ok.all())
             and torch.equal(produced, lengths) and torch.equal(out, data)):
@@ -1378,12 +1385,12 @@ def matched_phase(torch, P, dev, card):
     launches, k7_ms = {}, {}
     for level in (1, 2, 3):
         torch.cuda.synchronize()
-        adler32_tiles.launches = 0
+        n0 = launch_count(adler32_tiles)
         t0 = time.perf_counter()
         out = P.compress_batch_device(streams, level)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[level] = adler32_tiles.launches
+        launches[level] = launch_count(adler32_tiles) - n0
         if launches[level] != 1:
             raise AssertionError(f"level {level}: K7 launched "
                                  f"{launches[level]} times, not once")
@@ -1496,11 +1503,11 @@ def counted(torch, fn, kernels=None):
     before the call and read just after it."""
     kernels = kernels or mesh_kernels()
     torch.cuda.synchronize()
-    for k in kernels.values():
-        k.launches = 0
+    n0 = {name: launch_count(k) for name, k in kernels.items()}
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: k.launches for name, k in kernels.items()}
+    return out, {name: launch_count(k) - n0[name]
+                 for name, k in kernels.items()}
 
 
 HELD_STEPS = 4096   # a K11 call of more steps is held to plain at this many
@@ -1521,7 +1528,7 @@ def snapshot(torch, x):
 class Recorder:
     """A kernel wrapper that keeps each call's arguments (cloned before the
     call) and result (cloned after it) in ``calls``; reading and setting
-    an attribute (the wrapper's launch count) goes to the wrapper."""
+    an attribute goes to the wrapper."""
 
     def __init__(self, torch, fn, calls):
         object.__setattr__(self, "_torch", torch)
@@ -2073,10 +2080,10 @@ def host_api_phase(torch, P, card, corpus, text6, idat8, idat1m):
     k4 = host_kernels()["K4"]
     for label, (z, raw) in (("text6 8 MiB", text6), ("idat1 8 MiB", idat8)):
         torch.cuda.synchronize()
-        k4.launches = 0
+        n0 = launch_count(k4)
         got = P.try_foreign(z, materialize="host")
         torch.cuda.synchronize()
-        launched = k4.launches
+        launched = launch_count(k4) - n0
         if got != raw or launched == 0:
             raise AssertionError(f"try_foreign(materialize='host') on {label}: "
                                  f"{'K4 did not launch' if got == raw else '!= zlib'}")
@@ -2174,8 +2181,7 @@ def main() -> int:
     torch.cuda.synchronize()
     kernels = {"assign_pack": assign_pack, "combine": combine,
                "decode2": decode2, "adler32_tiles": adler32_tiles}
-    for fn in kernels.values():
-        fn.launches = 0
+    n0 = {k: launch_count(fn) for k, fn in kernels.items()}
     t0 = time.perf_counter()
     words, total_bits, adler, index, _eof = P.zlib_encode_step(CHUNKS)(
         data, lengths)
@@ -2184,7 +2190,7 @@ def main() -> int:
         CHUNKS, LENGTH, device="cuda")(data, lengths)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = {k: launch_count(fn) - n0[k] for k, fn in kernels.items()}
     print(f"main path ({BATCH} x {LENGTH} B, C={CHUNKS}): {wall:.3f} s wall "
           f"incl. host copies; launches {launches}", flush=True)
     if not all(n > 0 for n in launches.values()):
@@ -2376,8 +2382,7 @@ def main() -> int:
     foreign_kernels = {"inflate_records": inflate_records,
                        "validate_headers": validate_headers}
     torch.cuda.synchronize()
-    for fn in foreign_kernels.values():
-        fn.launches = 0
+    n0 = {k: launch_count(fn) for k, fn in foreign_kernels.items()}
     t0 = time.perf_counter()
     r_text = P.try_foreign(z_text8, device=dev)
     r_idat = P.try_foreign(z_idat8, device=dev)
@@ -2387,7 +2392,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for k, fn in foreign_kernels.items():
-        launches[k] = fn.launches
+        launches[k] = launch_count(fn) - n0[k]
     print(f"foreign path: {wall:.3f} s wall; launches "
           f"{ {k: launches[k] for k in foreign_kernels} }", flush=True)
     if not all(launches[k] > 0 for k in foreign_kernels):

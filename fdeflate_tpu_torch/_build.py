@@ -26,6 +26,8 @@ import time
 
 import torch
 
+from .utils.profiling import count
+
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fdeflate_tpu_torch"
@@ -158,7 +160,8 @@ def launch(name: str, device: torch.device, *args) -> None:
     the raw pointer PyTorch's own generated kernels launch with
     (``torch.cuda.current_stream`` builds a Python object first, about as
     much host time as the rest of a wrapper).  Every kernel wrapper of the
-    port launches through here."""
+    port launches through here; each launch adds one to the counter
+    ``launch.<name>`` (``utils/profiling.counts``)."""
     fn = getattr(library(), f"fdt_{name}")
     index = device.index
     current = torch._C._cuda_getDevice()
@@ -171,6 +174,7 @@ def launch(name: str, device: torch.device, *args) -> None:
         finally:
             torch._C._cuda_setDevice(current)
     check(err, name)
+    count("launch." + name)
 
 
 def i32(x):

@@ -219,8 +219,4 @@ def assign_pack(data: torch.Tensor, lengths: torch.Tensor, C: int,
         "assign_pack", data.device, data.data_ptr(), lengths.data_ptr(),
         t.lit_tok.data_ptr(), t.len_tok.data_ptr(), win.data_ptr(),
         chunk_bits.data_ptr(), B, N, C, ww)
-    assign_pack.launches += 1
     return win, chunk_bits
-
-
-assign_pack.launches = 0

@@ -126,11 +126,7 @@ def decode2(words: torch.Tensor, chunk_starts: torch.Tensor,
     _build.launch("decode2", words.device, words.data_ptr(),
                   chunk_starts.data_ptr(), dtab.data_ptr(), out.data_ptr(),
                   bpos.data_ptr(), B, W, N, C, words.device.index)
-    decode2.launches += 1
     return out, bpos
-
-
-decode2.launches = 0
 
 
 @functools.lru_cache(maxsize=8)
@@ -246,11 +242,7 @@ def decode2_canon(win: torch.Tensor, T: int, meta: torch.Tensor,
                   packed.data_ptr(), out.data_ptr(), bpos.data_ptr(),
                   None if stats is None else stats.data_ptr(), L, ww, T,
                   dev.index)
-    decode2_canon.launches += 1
     return out, bpos
-
-
-decode2_canon.launches = 0
 
 
 def decode_blocked(win: torch.Tensor, T: int, U: int = 32, lane_major=None,

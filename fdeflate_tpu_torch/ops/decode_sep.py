@@ -146,8 +146,4 @@ def decode_sep(words: torch.Tensor, chunk_starts: torch.Tensor,
                   meta.data_ptr(), vals.data_ptr(), out.data_ptr(),
                   bpos.data_ptr(), None if stats is None else stats.data_ptr(),
                   B, W, N, C, dev.index)
-    decode_sep.launches += 1
     return out, bpos
-
-
-decode_sep.launches = 0

@@ -194,9 +194,6 @@ def decode_symbols(words, bit_pos, bit_end, out_pos, active, table_id,
                 chain, stream_row, litlen_first)[:2]
 
 
-decode_symbols.launches = 0
-
-
 def _decode_symbols_live(words, bit_pos, bit_end, out_pos, active, table_id,
                          litlen, litlen_sec, dist, dist_sec, max_steps: int,
                          bit_stop=None, chain: int = 4, stream_row=None,
@@ -207,7 +204,7 @@ def _decode_symbols_live(words, bit_pos, bit_end, out_pos, active, table_id,
     0).sum(0)`` of the full form); K11 leaves the rows past them unwritten,
     so a reader takes each lane's count.  CPU tensors take
     ``decode_symbols_plain`` (every row written) and count its steps; CUDA
-    tensors launch K11 once (``decode_symbols.launches``)."""
+    tensors launch K11 once (counter ``launch.decode_symbols``)."""
     return _run(False, words, bit_pos, bit_end, out_pos, active, table_id,
                 litlen, litlen_sec, dist, dist_sec, max_steps, bit_stop,
                 chain, stream_row, litlen_first)
@@ -249,7 +246,6 @@ def _run(fill: bool, words, bit_pos, bit_end, out_pos, active, table_id,
         None if first is None else first.data_ptr(), T, chain, L,
         max_steps, int(fill), *(x.data_ptr() for x in records),
         steps.data_ptr(), bpos.data_ptr(), opos.data_ptr(), status.data_ptr())
-    decode_symbols.launches += 1
     return records, state, steps
 
 

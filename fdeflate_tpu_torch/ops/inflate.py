@@ -31,6 +31,7 @@ import torch
 
 from .. import errors as E
 from ..tables import FIXED_CODE_LENGTHS
+from ..utils.profiling import span
 from . import inflate_host as host
 from .inflate_host import _CLS_EOB, _LIT_BASE, _canonical_order
 from .inflate_records import (
@@ -273,65 +274,69 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
     blocks; each launch decodes the current dynamic or fixed block of every
     active stream until EOB, an error or K records.  The 32 KiB window of
     prior output stays on the device across launches in which no stream
-    left its block.  Returns per stream the bytes or the error.
+    left its block.  Returns per stream the bytes or the error.  Runs in
+    the span ``inflate.sequential``.
     """
-    dev = device_of(device)
-    if not streams:
-        return []
-    states = [host._StreamState(s) for s in streams]
-    for st in states:
-        host._advance_headers(st)
-    words_np, word_base = pad_words(streams)
-    words = torch.from_numpy(words_np).to(dev)
-    K = record_budget(max_steps)
-    win_dev, win_lanes = None, None   # device windows of the last launch
+    with span("inflate.sequential"):
+        dev = device_of(device)
+        if not streams:
+            return []
+        states = [host._StreamState(s) for s in streams]
+        for st in states:
+            host._advance_headers(st)
+        words_np, word_base = pad_words(streams)
+        words = torch.from_numpy(words_np).to(dev)
+        K = record_budget(max_steps)
+        win_dev, win_lanes = None, None   # device windows of the last launch
 
-    while True:
-        lanes = [i for i, st in enumerate(states)
-                 if not st.done and st.in_block]
-        if not lanes:
-            break
-        recs, bpos, done, nout = _seq_launch(states, lanes, words, word_base,
-                                             K, dev)
-        failed = done > DONE_EOB
-        produced = np.where(failed, 0, nout)
-        cap = max(256, 1 << int(np.ceil(np.log2(max(int(produced.max()), 1)))))
-        if win_lanes == lanes:
-            window = win_dev
-        else:
-            window = torch.from_numpy(
-                np.stack([states[i].window for i in lanes])).to(dev)
-        out, new_window = materialize(recs_to_records(recs), window,
-                                      torch.from_numpy(produced).to(dev), cap)
-        out_np = out.cpu().numpy()
-        if (done == DONE_SLOTS).all():
-            # No stream leaves its block: the windows stay on the device.
-            win_dev, win_lanes = new_window, lanes
-            new_window_np = None
-        else:
-            win_dev, win_lanes = None, None
-            new_window_np = new_window.cpu().numpy()
-        for j, i in enumerate(lanes):
-            st = states[i]
-            if failed[j]:
-                st.error = E.error_for_status(_STATUS[int(done[j])])
-                st.done = True
-                continue
-            st.out += out_np[j, : produced[j]].tobytes()
-            if new_window_np is not None:
-                st.window = new_window_np[j]
-            st.bitpos = int(bpos[j])
-            if done[j] == DONE_EOB:
-                st.in_block = False
-                host._advance_headers(st)
+        while True:
+            lanes = [i for i, st in enumerate(states)
+                     if not st.done and st.in_block]
+            if not lanes:
+                break
+            recs, bpos, done, nout = _seq_launch(states, lanes, words,
+                                                 word_base, K, dev)
+            failed = done > DONE_EOB
+            produced = np.where(failed, 0, nout)
+            cap = max(256, 1 << int(np.ceil(np.log2(
+                max(int(produced.max()), 1)))))
+            if win_lanes == lanes:
+                window = win_dev
+            else:
+                window = torch.from_numpy(
+                    np.stack([states[i].window for i in lanes])).to(dev)
+            out, new_window = materialize(
+                recs_to_records(recs), window,
+                torch.from_numpy(produced).to(dev), cap)
+            out_np = out.cpu().numpy()
+            if (done == DONE_SLOTS).all():
+                # No stream leaves its block: the windows stay on the device.
+                win_dev, win_lanes = new_window, lanes
+                new_window_np = None
+            else:
+                win_dev, win_lanes = None, None
+                new_window_np = new_window.cpu().numpy()
+            for j, i in enumerate(lanes):
+                st = states[i]
+                if failed[j]:
+                    st.error = E.error_for_status(_STATUS[int(done[j])])
+                    st.done = True
+                    continue
+                st.out += out_np[j, : produced[j]].tobytes()
+                if new_window_np is not None:
+                    st.window = new_window_np[j]
+                st.bitpos = int(bpos[j])
+                if done[j] == DONE_EOB:
+                    st.in_block = False
+                    host._advance_headers(st)
 
-    results: list[bytes | E.DecompressionError] = []
-    for st in states:
-        if st.error is not None:
-            results.append(st.error)
-        elif not st.done:
-            results.append(E.InsufficientInput())
-        else:
-            results.append(bytes(st.out))
-    return results
+        results: list[bytes | E.DecompressionError] = []
+        for st in states:
+            if st.error is not None:
+                results.append(st.error)
+            elif not st.done:
+                results.append(E.InsufficientInput())
+            else:
+                results.append(bytes(st.out))
+        return results
 

@@ -230,11 +230,7 @@ def inflate_records(words, start, wend, bit_end, out0, meta, tab, K: int,
         *(x.data_ptr() for x in lane_in), meta.data_ptr(), tab.data_ptr(),
         recs.data_ptr(), bpos.data_ptr(), nout.data_ptr(), done.data_ptr(),
         None if stats is None else stats.data_ptr(), L, K)
-    inflate_records.launches += 1
     return recs, bpos, nout, done
-
-
-inflate_records.launches = 0
 
 
 def recs_to_records(recs: torch.Tensor):

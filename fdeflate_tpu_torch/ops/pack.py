@@ -120,8 +120,4 @@ def pack_blocked(tok: torch.Tensor, wwin: int) -> torch.Tensor:
         return win
     _build.launch("pack_v1", tok.device, tok.data_ptr(), win.data_ptr(), L,
                   S, wwin, tok.device.index)
-    pack_blocked.launches += 1
     return win
-
-
-pack_blocked.launches = 0

@@ -110,11 +110,7 @@ def combine(win: torch.Tensor, chunk_bits: torch.Tensor, pos0: torch.Tensor,
     _build.launch("combine", win.device, win.data_ptr(),
                   chunk_bits.data_ptr(), pos0.data_ptr(), words.data_ptr(), B,
                   L // B, ww, W)
-    combine.launches += 1
     return words
-
-
-combine.launches = 0
 
 
 def combine_grouped(win, chunk_bits, pos0, B: int, W: int):
@@ -127,8 +123,4 @@ def combine_grouped(win, chunk_bits, pos0, B: int, W: int):
     _build.launch("combine_grouped", win.device, win.data_ptr(),
                   chunk_bits.data_ptr(), pos0.data_ptr(), words.data_ptr(), B,
                   win.shape[0] // B, win.shape[1], W)
-    combine_grouped.launches += 1
     return words
-
-
-combine_grouped.launches = 0

@@ -158,11 +158,7 @@ def validate_headers(words, cands, n_bits, wend=None):
                   None if nb is None else nb.data_ptr(), words.numel(),
                   0 if nb is not None else int(n_bits), good.data_ptr(),
                   end.data_ptr(), L)
-    validate_headers.launches += 1
     return good, end
-
-
-validate_headers.launches = 0
 
 
 def _i64(x):

@@ -69,6 +69,7 @@ from ..tables import (
     LITLEN_TABLE_ENTRIES,
 )
 from ..trees import TreeTables, sep_tables, trained_tables
+from ..utils.profiling import count
 from .discovery import decompress_batch
 
 
@@ -459,8 +460,8 @@ def decompress_batch_indexed(streams: list[bytes], index: np.ndarray,
     at or above the largest ``produced``) until every stream fits; the
     records are decoded once (K11) and only materialized again.  A stream
     the pipeline rejects (``ok`` False) is decoded by ``decompress_batch``
-    instead (its error raised; counted in
-    ``decompress_batch_indexed.fallbacks``), and every stream's Adler-32 is
+    instead (its error raised; counted in the counter
+    ``indexed.fallback``), and every stream's Adler-32 is
     checked on the host (``WrongChecksum``).
     """
     dev = device_of(device)
@@ -483,7 +484,7 @@ def decompress_batch_indexed(streams: list[bytes], index: np.ndarray,
     results: list[bytes] = []
     for i, s in enumerate(streams):
         if not ok[i]:
-            decompress_batch_indexed.fallbacks += 1
+            count("indexed.fallback")
             r = decompress_batch([s], device=dev)[0]
             if isinstance(r, E.DecompressionError):
                 raise r
@@ -494,9 +495,6 @@ def decompress_batch_indexed(streams: list[bytes], index: np.ndarray,
             raise E.WrongChecksum()
         results.append(data)
     return results
-
-
-decompress_batch_indexed.fallbacks = 0
 
 
 def fused_ultrafast_roundtrip(C: int, max_steps: int, N: int, chain: int = 4,

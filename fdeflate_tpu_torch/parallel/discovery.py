@@ -21,6 +21,22 @@ stream.  A stream the chain cannot cover (a stored or fixed block, a
 false boundary, a block over the record budget) returns None, and
 ``decompress_foreign`` falls back to the sequential path.
 
+Each stage runs inside its span (``utils/profiling.span``:
+``discovery.stage1``, ``.validate``, ``.parse``, ``.tables``,
+``.records``, ``.chain``, ``.stitch``; ``inflate.batch`` around
+``decompress_batch``), from its first operation until its results are on
+the host, so a wait on the device falls in the stage that caused it; the
+stage spans do not nest.  Counters: ``discovery.streams`` (streams
+entering ``try_foreign`` / ``try_foreign_batch``), ``discovery.lanes``
+(lanes handed to K4), ``discovery.lanes_chained`` (lanes a walked chain
+used), ``inflate.calls`` (calls of ``decompress_batch``) and one
+``discovery.fallback.<reason>`` per stream left to the sequential path:
+``header`` (too short, or not a zlib deflate header), ``first_block`` (no
+dynamic header at bit 16), ``tables`` (incomplete trees; in a batch, every
+stream of the call), ``chain`` (the chain broke), ``checksum`` (a
+distance before the stream's start, or an Adler-32 mismatch; with
+``materialize="host"``, also records the native backend cannot expand).
+
 On CPU tensors stage 1 runs the same torch code and K4/K5 their plain
 versions.  ``try_foreign(materialize="host")`` expands the chain's K4
 records on the host with the native C++ backend (``models/native.py``)
@@ -51,6 +67,7 @@ from ..ops.inflate_records import (
 )
 from ..ops.ultrafast import device_of
 from ..ops.validate_headers import validate_headers
+from ..utils.profiling import count, span
 
 _MAXCL = 7
 _PARALLEL_MIN = 49152   # decompress_batch's threshold for block discovery
@@ -86,39 +103,41 @@ def scan_stage1_device(payload: bytes, min_tail_bits: int = 400, *,
     n_bits = len(payload) * 8 - min_tail_bits
     if n_bits <= 0:
         return np.zeros(0, np.int64)
-    dev = device_of(device)
-    if words is None:
-        words = stage_words(payload, device=dev)
-    data = words.reshape(-1).view(torch.uint8)[: len(payload)]
-    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
-    bits = ((data[:, None] >> shifts) & 1).reshape(-1).to(torch.int8)
-    i8, i16 = torch.int8, torch.int16
+    with span("discovery.stage1"):
+        dev = device_of(device)
+        if words is None:
+            words = stage_words(payload, device=dev)
+        data = words.reshape(-1).view(torch.uint8)[: len(payload)]
+        shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+        bits = ((data[:, None] >> shifts) & 1).reshape(-1).to(torch.int8)
+        i8, i16 = torch.int8, torch.int16
 
-    def sl(k):
-        return bits[k: k + n_bits]
+        def sl(k):
+            return bits[k: k + n_bits]
 
-    def field(k, w, dtype=i8):
-        v = sl(k).to(dtype)
-        for j in range(1, w):
-            v = v | (sl(k + j).to(dtype) << j)
-        return v
+        def field(k, w, dtype=i8):
+            v = sl(k).to(dtype)
+            for j in range(1, w):
+                v = v | (sl(k + j).to(dtype) << j)
+            return v
 
-    ok = (sl(1) == 0) & (sl(2) == 1)
-    ok &= (field(3, 5) <= 29) & (field(8, 5) <= 29)
-    ncl = field(13, 4) + 4
-    kraft = torch.zeros(n_bits, dtype=i16, device=dev)
-    nz = torch.zeros(n_bits, dtype=i8, device=dev)
-    for j in range(19):
-        cl = field(17 + 3 * j, 3, i16)
-        use = (ncl > j) & (cl > 0)
-        kraft += torch.where(use, (1 << _MAXCL) >> cl, 0).to(i16)
-        nz += use.to(i8)
-    ok &= (kraft == 1 << _MAXCL) & (nz >= 2)
+        ok = (sl(1) == 0) & (sl(2) == 1)
+        ok &= (field(3, 5) <= 29) & (field(8, 5) <= 29)
+        ncl = field(13, 4) + 4
+        kraft = torch.zeros(n_bits, dtype=i16, device=dev)
+        nz = torch.zeros(n_bits, dtype=i8, device=dev)
+        for j in range(19):
+            cl = field(17 + 3 * j, 3, i16)
+            use = (ncl > j) & (cl > 0)
+            kraft += torch.where(use, (1 << _MAXCL) >> cl, 0).to(i16)
+            nz += use.to(i8)
+        ok &= (kraft == 1 << _MAXCL) & (nz >= 2)
 
-    csum = ok.to(torch.int32).cumsum(0, dtype=torch.int32)
-    want = torch.arange(1, int(csum[-1]) + 1, dtype=torch.int32, device=dev)
-    offs = torch.searchsorted(csum, want)
-    return offs.cpu().numpy().astype(np.int64)
+        csum = ok.to(torch.int32).cumsum(0, dtype=torch.int32)
+        want = torch.arange(1, int(csum[-1]) + 1, dtype=torch.int32,
+                            device=dev)
+        offs = torch.searchsorted(csum, want)
+        return offs.cpu().numpy().astype(np.int64)
 
 
 def validate_stage2_device(payload: bytes, cands: np.ndarray,
@@ -129,13 +148,14 @@ def validate_stage2_device(payload: bytes, cands: np.ndarray,
     if len(cands) == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     dev = device_of(device)
-    if words_dev is None:
-        words_dev = stage_words(payload, device=dev)
-    c = torch.from_numpy(np.asarray(cands, np.int64)).to(dev)
-    good, end = validate_headers(words_dev, c, len(payload) * 8)
-    good = good.cpu().numpy()
-    return (np.asarray(cands, np.int64)[good],
-            end.cpu().numpy().astype(np.int64)[good])
+    with span("discovery.validate"):
+        if words_dev is None:
+            words_dev = stage_words(payload, device=dev)
+        c = torch.from_numpy(np.asarray(cands, np.int64)).to(dev)
+        good, end = validate_headers(words_dev, c, len(payload) * 8)
+        good = good.cpu().numpy()
+        return (np.asarray(cands, np.int64)[good],
+                end.cpu().numpy().astype(np.int64)[good])
 
 
 def stage2_batch_inputs(streams: list[bytes], cands: dict, word_base):
@@ -166,13 +186,14 @@ def validate_stage2_batch(streams: list[bytes], cands: dict, words,
     and payload end), so it reads nothing of the next stream.  Returns
     {index: (offsets, header_end_bits)}, stream-local, as
     ``validate_stage2_device`` gives them for each stream alone."""
-    cols = stage2_batch_inputs(streams, cands, word_base)
     good = np.zeros(0, bool)
     end = np.zeros(0, np.int64)
-    if cols.shape[1]:
-        c, wend, n_bits = torch.from_numpy(cols).to(words.device)
-        good, end = validate_headers(words, c, n_bits, wend=wend)
-        good, end = good.cpu().numpy(), end.cpu().numpy()
+    with span("discovery.validate"):
+        cols = stage2_batch_inputs(streams, cands, word_base)
+        if cols.shape[1]:
+            c, wend, n_bits = torch.from_numpy(cols).to(words.device)
+            good, end = validate_headers(words, c, n_bits, wend=wend)
+            good, end = good.cpu().numpy(), end.cpu().numpy()
     out, at = {}, 0
     for si, cs in cands.items():
         cs = np.asarray(cs, np.int64)
@@ -197,6 +218,7 @@ def _scan_parse(data: bytes, words_dev=None, *, device):
     by offset with the first lane at bit 16, or None when the stream cannot
     take the block-parallel path."""
     if len(data) < 7 or not _zlib_header_ok(data):
+        count("discovery.fallback.header")
         return None
     offsets, _ends = find_block_boundaries(data, words_dev=words_dev,
                                            device=device)
@@ -206,20 +228,22 @@ def _scan_parse(data: bytes, words_dev=None, *, device):
 def _parse_lanes(data: bytes, offsets: np.ndarray):
     """``_scan_parse``'s host part: each validated header of ``data`` (at
     ``offsets``) parsed into a lane, or None."""
-    if 16 not in set(offsets.tolist()):
-        return None  # first block not dynamic (stored/fixed)
     lanes = []
-    for off in offsets.tolist():
-        r = host._HostBitReader(data, off)
-        bfinal = r.take(1)
-        if r.take(2) != 0b10:
-            continue
-        try:
-            lengths, hlit = host._parse_dynamic_lengths(r)
-        except E.DecompressionError:
-            continue
-        lanes.append((off, bool(bfinal), r.pos, lengths, hlit))
+    with span("discovery.parse"):
+        # Else the first block is not dynamic (stored/fixed): no lanes.
+        if 16 in set(offsets.tolist()):
+            for off in offsets.tolist():
+                r = host._HostBitReader(data, off)
+                bfinal = r.take(1)
+                if r.take(2) != 0b10:
+                    continue
+                try:
+                    lengths, hlit = host._parse_dynamic_lengths(r)
+                except E.DecompressionError:
+                    continue
+                lanes.append((off, bool(bfinal), r.pos, lengths, hlit))
     if not lanes or lanes[0][0] != 16:
+        count("discovery.fallback.first_block")
         return None
     return lanes
 
@@ -239,17 +263,19 @@ def lane_inputs(lanes, words, wend, bit_end):
     ``words``; ``wend`` / ``bit_end`` int64[L] bound each lane's stream):
     (words, start, wend, bit_end, out0, meta, tab), or None when a lane's
     trees are incomplete (a header the structural scan let through)."""
-    try:
-        tables = [block_tables(lengths, hlit)
-                  for (_o, _b, _s, lengths, hlit) in lanes]
-    except ValueError:
-        return None
-    dev = words.device
-    meta, tab = pack_tables(tables, dev)
-    start = np.array([sym for (_o, _b, sym, _l, _h) in lanes], np.int64)
-    per_lane = [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
-                for a in (start, wend, bit_end, np.full(len(lanes), NO_LIMIT))]
-    return (words, *per_lane, meta, tab)
+    with span("discovery.tables"):
+        try:
+            tables = [block_tables(lengths, hlit)
+                      for (_o, _b, _s, lengths, hlit) in lanes]
+        except ValueError:
+            return None
+        dev = words.device
+        meta, tab = pack_tables(tables, dev)
+        start = np.array([sym for (_o, _b, sym, _l, _h) in lanes], np.int64)
+        per_lane = [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                    for a in (start, wend, bit_end,
+                              np.full(len(lanes), NO_LIMIT))]
+        return (words, *per_lane, meta, tab)
 
 
 def _lane_decode(lanes, max_steps: int, words, wend, bit_end):
@@ -259,9 +285,11 @@ def _lane_decode(lanes, max_steps: int, words, wend, bit_end):
     args = lane_inputs(lanes, words, wend, bit_end)
     if args is None:
         return None
-    recs, bpos, nout, done = inflate_records(*args, lane_budget(max_steps))
-    return (recs, bpos.cpu().numpy(), done.cpu().numpy() == DONE_EOB,
-            nout.cpu().numpy())
+    count("discovery.lanes", len(lanes))
+    with span("discovery.records"):
+        recs, bpos, nout, done = inflate_records(*args, lane_budget(max_steps))
+        return (recs, bpos.cpu().numpy(), done.cpu().numpy() == DONE_EOB,
+                nout.cpu().numpy())
 
 
 def _chain(lanes, lo: int, hi: int, bpos, eob, gbase: int = 0):
@@ -355,6 +383,7 @@ def try_foreign(data: bytes, max_steps: int = 6144, engine: str = "auto",
     del engine
     if materialize is None:
         materialize = os.environ.get("FDN_FOREIGN_MATERIALIZE", "device")
+    count("discovery.streams")
     dev = device_of(device)
     if words_dev is None:
         words_dev = stage_words(data, device=dev)
@@ -366,23 +395,33 @@ def try_foreign(data: bytes, max_steps: int = 6144, engine: str = "auto",
                            np.full(L, words_dev.numel()),
                            np.full(L, len(data) * 8))
     if decoded is None:
+        count("discovery.fallback.tables")
         return None
     recs, bpos, eob, nout = decoded
-    walk = _chain(lanes, 0, L, bpos, eob)
+    with span("discovery.chain"):
+        walk = _chain(lanes, 0, L, bpos, eob)
     if walk is None:
+        count("discovery.fallback.chain")
         return None
     chain, final_exit = walk
-    if materialize == "host" and not return_device:
-        return _materialize_host(data, recs, chain, final_exit)
-    mask = np.zeros(L, bool)
-    mask[chain] = True
-    produced = int(nout[chain].sum())
-    out, ck, bad = _stitch(recs, mask, [(0, L)], [produced])
-    if bool(bad[0]) or _stored_adler(data, final_exit) != int(ck[0]):
-        return None  # the chain was structurally plausible but wrong
-    if return_device:
-        return out, produced
-    return out[0, :produced].cpu().numpy().tobytes()
+    count("discovery.lanes_chained", len(chain))
+    with span("discovery.stitch"):
+        if materialize == "host" and not return_device:
+            result = _materialize_host(data, recs, chain, final_exit)
+        else:
+            mask = np.zeros(L, bool)
+            mask[chain] = True
+            produced = int(nout[chain].sum())
+            out, ck, bad = _stitch(recs, mask, [(0, L)], [produced])
+            if bool(bad[0]) or _stored_adler(data, final_exit) != int(ck[0]):
+                result = None  # the chain was plausible but wrong
+            elif return_device:
+                result = out, produced
+            else:
+                result = out[0, :produced].cpu().numpy().tobytes()
+    if result is None:
+        count("discovery.fallback.checksum")
+    return result
 
 
 def _cap_bucket(produced: int) -> int:
@@ -410,6 +449,7 @@ def try_foreign_batch(streams: list[bytes], max_steps: int = 6144,
     if S <= 1:
         return [try_foreign(s, max_steps=max_steps, device=device)
                 for s in streams]
+    count("discovery.streams", S)
     dev = device_of(device)
     results: list[bytes | None] = [None] * S
     words_np, word_base = pad_words(streams)
@@ -420,6 +460,7 @@ def try_foreign_batch(streams: list[bytes], max_steps: int = 6144,
             s, device=dev, words=words[word_base[si]:word_base[si + 1]])
         for si, s in enumerate(streams)
         if len(s) >= 7 and _zlib_header_ok(s)}
+    count("discovery.fallback.header", S - len(survivors))
     valid = validate_stage2_batch(streams, survivors, words, word_base)
 
     glanes, wend, bit_end = [], [], []
@@ -440,26 +481,34 @@ def try_foreign_batch(streams: list[bytes], max_steps: int = 6144,
         return results
     decoded = _lane_decode(glanes, max_steps, words, wend, bit_end)
     if decoded is None:
+        count("discovery.fallback.tables", len(lane_range))
         return results
     recs, bpos, eob, nout = decoded
     mask = np.zeros(recs.shape[1], bool)
     finals = {}
-    for si, (lo, hi) in lane_range.items():
-        walk = _chain(glanes, lo, hi, bpos, eob, int(word_base[si]) * 32)
-        if walk is not None:
-            mask[walk[0]] = True
-            finals[si] = walk[1]
+    with span("discovery.chain"):
+        for si, (lo, hi) in lane_range.items():
+            walk = _chain(glanes, lo, hi, bpos, eob, int(word_base[si]) * 32)
+            if walk is not None:
+                mask[walk[0]] = True
+                finals[si] = walk[1]
     confirmed = sorted(finals)
+    count("discovery.fallback.chain", len(lane_range) - len(confirmed))
+    count("discovery.lanes_chained", int(mask.sum()))
     if not confirmed:
         return results
 
-    ranges = [lane_range[si] for si in confirmed]
-    produced = [int(nout[lo:hi][mask[lo:hi]].sum()) for lo, hi in ranges]
-    out, ck, bad = _stitch(recs, mask, ranges, produced)
-    out_np, ck, bad = out.cpu().numpy(), ck.cpu().numpy(), bad.cpu().numpy()
-    for ci, si in enumerate(confirmed):
-        if not bad[ci] and _stored_adler(streams[si], finals[si]) == ck[ci]:
-            results[si] = out_np[ci, : produced[ci]].tobytes()
+    with span("discovery.stitch"):
+        ranges = [lane_range[si] for si in confirmed]
+        produced = [int(nout[lo:hi][mask[lo:hi]].sum()) for lo, hi in ranges]
+        out, ck, bad = _stitch(recs, mask, ranges, produced)
+        out_np, ck = out.cpu().numpy(), ck.cpu().numpy()
+        bad = bad.cpu().numpy()
+        for ci, si in enumerate(confirmed):
+            if not bad[ci] and _stored_adler(streams[si], finals[si]) == ck[ci]:
+                results[si] = out_np[ci, : produced[ci]].tobytes()
+    count("discovery.fallback.checksum",
+          sum(results[si] is None for si in confirmed))
     return results
 
 
@@ -495,16 +544,19 @@ def decompress_batch(streams: list[bytes], max_steps: int = 8192,
     ``engine`` picks the JAX package's symbol phase; both are ignored.
     """
     del out_capacity, engine
-    big = [i for i, s in enumerate(streams)
-           if try_parallel and len(s) >= _PARALLEL_MIN]
-    if len(big) > 1:
-        res = try_foreign_batch([streams[i] for i in big],
-                                max_steps=max_steps, device=device)
-    else:
-        res = [try_foreign(streams[i], max_steps=max_steps, device=device)
-               for i in big]
-    results_par = {i: r for i, r in zip(big, res) if r is not None}
-    rest = [s for i, s in enumerate(streams) if i not in results_par]
-    seq = iter(decompress_sequential(rest, max_steps=max_steps, device=device))
-    return [results_par[i] if i in results_par else next(seq)
-            for i in range(len(streams))]
+    count("inflate.calls")
+    with span("inflate.batch"):
+        big = [i for i, s in enumerate(streams)
+               if try_parallel and len(s) >= _PARALLEL_MIN]
+        if len(big) > 1:
+            res = try_foreign_batch([streams[i] for i in big],
+                                    max_steps=max_steps, device=device)
+        else:
+            res = [try_foreign(streams[i], max_steps=max_steps, device=device)
+                   for i in big]
+        results_par = {i: r for i, r in zip(big, res) if r is not None}
+        rest = [s for i, s in enumerate(streams) if i not in results_par]
+        seq = iter(decompress_sequential(rest, max_steps=max_steps,
+                                         device=device))
+        return [results_par[i] if i in results_par else next(seq)
+                for i in range(len(streams))]

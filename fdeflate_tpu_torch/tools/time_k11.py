@@ -62,6 +62,7 @@ from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 from fdeflate_tpu_torch.tools.time_k2_k4 import cuda_ms
 from fdeflate_tpu_torch.tools.time_k8_k9 import queued_ms
 from fdeflate_tpu_torch.trees import trained_tables
+from fdeflate_tpu_torch.utils import profiling
 
 B, N, C = 16, 1 << 20, 512
 HBM_BYTES_PER_S = 3.35e12
@@ -163,10 +164,10 @@ def main() -> None:
     case, staged, cap = headline_lanes(streams, index, dev)
     data = torch.from_numpy(corpus).to(dev)
     lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
-    before = DP.decompress_batch_indexed.fallbacks
+    before = profiling.counts().get("indexed.fallback", 0)
     if P.decompress_batch_indexed(streams, index) != streams_in:
         raise AssertionError("decompress_batch_indexed differs from the input")
-    if DP.decompress_batch_indexed.fallbacks != before:
+    if profiling.counts().get("indexed.fallback", 0) != before:
         raise AssertionError("a stream fell back to decompress_batch")
     want = plain_k11(case)
     full = decode_symbols(**case)

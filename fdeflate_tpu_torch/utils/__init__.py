@@ -1,1 +1,1 @@
-"""Utilities: profiling counters and trace helpers."""
+"""Utilities: the port's spans, counters and trace helpers."""

@@ -1,11 +1,23 @@
-"""Profiling: throughput counters and torch.profiler trace helpers.
+"""The port's spans and counters, and the ``torch.profiler`` helpers.
 
-The port's copy of ``fdeflate_tpu/utils/profiling.py``: ``Throughput`` :16,
-``counter`` :49 and ``report_all`` :55 as they are (the host clock);
-``trace`` (:60) wraps ``torch.profiler.profile`` with CUDA activity where
-CUDA is available and writes a Chrome trace into ``log_dir``; ``sync``
-(:71) waits for the devices of the CUDA tensors it is given.  A failed
-sync raises: the original's ``except Exception: pass`` is not copied.
+``span(name)`` marks a stage of the program.  While a ``torch.profiler``
+profile is active it is ``torch.profiler.record_function(name)``, so the
+stage lies on the profiler's timeline beside the device's kernels, and its
+host seconds are added to ``span_seconds()``; otherwise it is one shared
+null context (one check of the profiler's state).  ``count(name, n)`` adds
+to the process's counters, which are always on; ``counts()`` copies them.
+Neither store is ever reset: a reader takes the difference of two readings
+(``span_seconds()`` holds only time spent under a profiler).  Spans and
+counts read values already on the host: none copies from the device or
+waits for it.
+
+``trace`` profiles a region (the spans and the kernels, in one Chrome
+trace); ``sync`` waits for the devices of the CUDA tensors it is given (a
+failed sync raises).  Reading a region:
+
+    with profiling.trace(log_dir):
+        decompress_batch(streams)
+    profiling.counts()
 """
 
 from __future__ import annotations
@@ -13,63 +25,74 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
+import threading
 import time
-from dataclasses import dataclass, field
 
 import torch
 
-
-@dataclass
-class Throughput:
-    """Accumulating bytes/sec counter for a named op."""
-
-    name: str
-    bytes: int = 0
-    seconds: float = 0.0
-    calls: int = 0
-    _t0: float = field(default=0.0, repr=False)
-
-    @contextlib.contextmanager
-    def measure(self, nbytes: int):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.seconds += time.perf_counter() - t0
-            self.bytes += nbytes
-            self.calls += 1
-
-    @property
-    def gbps(self) -> float:
-        return self.bytes / self.seconds / 1e9 if self.seconds else 0.0
-
-    def report(self) -> str:
-        return (
-            f"{self.name}: {self.gbps:.3f} GB/s "
-            f"({self.bytes / 1e6:.1f} MB over {self.calls} calls)"
-        )
+_NULL = contextlib.nullcontext()
+_lock = threading.Lock()
+_counts: dict[str, int] = {}
+_seconds: dict[str, float] = {}
 
 
-_counters: dict[str, Throughput] = {}
+class _Span:
+    """``record_function(name)`` that also adds its host seconds to
+    ``span_seconds()``."""
+
+    __slots__ = ("_name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self._name = name
+        self._rf = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        with _lock:
+            _seconds[self._name] = _seconds.get(self._name, 0.0) + dt
+        return self._rf.__exit__(*exc)
 
 
-def counter(name: str) -> Throughput:
-    if name not in _counters:
-        _counters[name] = Throughput(name)
-    return _counters[name]
+def span(name: str):
+    """A context manager marking the stage ``name``: a profiler span while
+    a profile is active, else the shared null context."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL
+    return _Span(name)
 
 
-def report_all() -> str:
-    return "\n".join(c.report() for c in _counters.values())
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``."""
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> dict[str, int]:
+    """A copy of every counter."""
+    with _lock:
+        return dict(_counts)
+
+
+def span_seconds() -> dict[str, float]:
+    """A copy of the host seconds spent inside each span while a profiler
+    was active."""
+    with _lock:
+        return dict(_seconds)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | None = None):
     """Profile a region of work with ``torch.profiler`` (CPU activity, and
-    CUDA activity where CUDA is available); on exit the Chrome trace is
+    CUDA activity where CUDA is available); on exit the Chrome trace, the
+    port's spans beside the host's operations and the device's kernels, is
     written to ``log_dir/trace.json`` (default: ``fdeflate_tpu_torch_trace``
     in the temporary directory).  Yields the profiler, whose
-    ``key_averages()`` sums the region's ops and kernels."""
+    ``key_averages()`` sums the region's ops, spans and kernels."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

@@ -54,8 +54,7 @@ from fdeflate_tpu_torch.ops.pack import (
     pack_tokens,
     token_offsets,
 )
-from fdeflate_tpu_torch.ops.repack import (combine, combine_grouped,
-                                           combine_plain)
+from fdeflate_tpu_torch.ops.repack import combine, combine_plain
 from fdeflate_tpu_torch.ops.validate_headers import (
     validate_headers,
     validate_headers_plain,
@@ -73,6 +72,7 @@ from fdeflate_tpu_torch.tools.edges import (K4_KINDS, K8_UNSAFE, K11_KINDS,
                                             k8_unsafe_packed, k9_noise_tokens,
                                             k11_edge_case)
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
+from fdeflate_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +97,10 @@ def torch_ops(fn):
     with Ops() as mode:
         out = fn()
     return out, mode.names
+
+
+def _launches(name: str) -> int:
+    return profiling.counts().get("launch." + name, 0)
 
 
 @pytest.fixture(scope="module")
@@ -133,9 +137,9 @@ def _inputs(dev, name):
 def test_assign_pack_matches_plain(dev, name):
     data, lengths, C = _inputs(dev, name)
     t = trained_tables(str(dev))
-    before = assign_pack.launches
+    before = _launches("assign_pack")
     got = assign_pack(data, lengths, C, t)
-    assert assign_pack.launches == before + 1
+    assert _launches("assign_pack") == before + 1
     want = assign_pack_plain(data, lengths, C, t)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -168,9 +172,9 @@ def test_decode2_edges(dev, label):
     hints), S = 4."""
     data, lengths, C = _edge(dev, label)
     for _case, words, starts, dtab, N, C, want in k3_edge_cases(data, lengths, C):
-        before = decode2.launches
+        before = _launches("decode2")
         got = decode2(words, starts, dtab, N, C)
-        assert decode2.launches == before + 1
+        assert _launches("decode2") == before + 1
         exp = decode2_plain(words, starts, dtab, N, C)
         assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
         if want is not None:
@@ -277,10 +281,10 @@ def test_decode2_canon_matches_plain(dev, name, corrupt):
         win[1, 3] ^= 0x5A5A5A5A
         win[-1, 0] ^= 0x7FFFFFFF
     meta, packed = canon_tables(str(dev))
-    before = decode2_canon.launches
+    before = _launches("decode2_canon")
     stats = torch.zeros(5, dtype=torch.int64, device=dev)
     got = decode2_canon(win, S // 4, meta, packed, stats=stats)
-    assert decode2_canon.launches == before + 1
+    assert _launches("decode2_canon") == before + 1
     want = decode2_canon_plain(win, S // 4, meta, packed)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(stats[4]) == 0 and int(stats[1]) >= win.shape[0]
@@ -293,9 +297,9 @@ def test_decode2_canon_matches_plain(dev, name, corrupt):
     for kind in K8_UNSAFE:
         bad = k8_unsafe_packed(packed, kind)
         stats.zero_()
-        before = decode2_canon.launches
+        before = _launches("decode2_canon")
         got = decode2_canon(win, S // 4, meta, bad, stats=stats)
-        assert decode2_canon.launches == before + 1
+        assert _launches("decode2_canon") == before + 1
         want = decode2_canon_plain(win, S // 4, meta, bad)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kind
         assert int(stats[4]) == win.shape[0] and int(stats[1]) == 0, kind
@@ -312,9 +316,9 @@ def test_pack_v1_matches_plain(dev, name):
     t = trained_tables(str(dev))
     v, nb, _ = assign_tokens(data, lengths, S, t)
     tok = pack_tokens(v, nb, token_offsets(nb, C), C)
-    before = pack_blocked.launches
+    before = _launches("pack_v1")
     got = pack_blocked(tok, wwin(S))
-    assert pack_blocked.launches == before + 1
+    assert _launches("pack_v1") == before + 1
     assert torch.equal(got, pack_blocked_plain(tok, wwin(S)))
     assert torch.equal(got, assign_pack(data, lengths, C, t)[0])
     assert torch.equal(encode_blocked_v1(data, lengths, C, t)[0], got)
@@ -323,9 +327,9 @@ def test_pack_v1_matches_plain(dev, name):
     assert torch.equal(pack_blocked(noise, 40), pack_blocked_plain(noise, 40))
     noise = k9_noise_tokens(S, 64, 6).to(dev)
     for width in (1, wwin(S), 300):
-        before = pack_blocked.launches
+        before = _launches("pack_v1")
         got = pack_blocked(noise, width)
-        assert pack_blocked.launches == before + 1
+        assert _launches("pack_v1") == before + 1
         assert torch.equal(got, pack_blocked_plain(noise, width)), width
         got = pack_blocked(tok, width)
         assert torch.equal(got, pack_blocked_plain(tok, width)), width
@@ -341,9 +345,9 @@ def test_combine_grouped_matches_plain(dev, name, group):
     win, bits = assign_pack_plain(data, lengths, C, t)
     pos0 = lane_starts(bits, B, C, 32037)[0].reshape(-1).to(torch.int32)
     W = 1024 + stream_words(N, t)
-    before = combine_grouped.launches
+    before = _launches("combine_grouped")
     got = combine(win, bits, pos0, B, W, group=group)
-    assert combine_grouped.launches == before + 1
+    assert _launches("combine_grouped") == before + 1
     assert torch.equal(got, combine_plain(win, bits, pos0, B, W))
     assert torch.equal(got, combine(win, bits, pos0, B, W))
     got, ops = torch_ops(lambda: combine(win, bits, pos0, B, W, group=group))
@@ -359,9 +363,9 @@ def test_combine_grouped_edges(dev, case, group):
     words, a mix): one launch, equal to K2 and the plain version."""
     label, win, bits, pos0, B, W = k2_edge_cases()[case]
     win, bits, pos0 = (x.to(dev) for x in (win, bits, pos0))
-    before = combine_grouped.launches
+    before = _launches("combine_grouped")
     got = combine(win, bits, pos0, B, W, group=group)
-    assert combine_grouped.launches == before + 1
+    assert _launches("combine_grouped") == before + 1
     assert torch.equal(got, combine_plain(win, bits, pos0, B, W)), label
     assert torch.equal(got, combine(win, bits, pos0, B, W)), label
 
@@ -400,9 +404,9 @@ def test_decode_sep_matches_plain(dev, name, corrupt):
     if corrupt:
         words[0, 40] ^= 0x5A5A5A5A
     meta, vals = sep_tables(tree.lens, dev)
-    before = decode_sep.launches
+    before = _launches("decode_sep")
     got = decode_sep(words, starts, meta, vals, N, C)
-    assert decode_sep.launches == before + 1
+    assert _launches("decode_sep") == before + 1
     want = decode_sep_plain(words, starts, meta, vals, N, C)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if not corrupt:
@@ -421,9 +425,9 @@ def test_decode_sep_edges(dev, label):
     for case, words, starts, meta, vals, N, Ck, want in k6_edge_cases(
             data, lengths, C, tree):
         stats = torch.zeros(5, dtype=torch.int64, device=dev)
-        before = decode_sep.launches
+        before = _launches("decode_sep")
         got = decode_sep(words, starts, meta, vals, N, Ck, stats=stats)
-        assert decode_sep.launches == before + 1
+        assert _launches("decode_sep") == before + 1
         exp_out, exp_bpos, eob = decode_sep_plain_eob(words, starts, meta,
                                                       vals, N, Ck)
         assert torch.equal(got[0], exp_out), case
@@ -478,9 +482,9 @@ def test_adler32_tiles_matches_plain(dev, n, length, offset):
     x = torch.from_numpy(host).to(dev)[offset:]
     ln = n if length is None else length
     lt = torch.tensor([ln], dtype=torch.int64, device=dev)
-    before = adler32_tiles.launches
+    before = _launches("adler32_tiles")
     got = adler32_tiles(x, lt)
-    assert adler32_tiles.launches == before + 1
+    assert _launches("adler32_tiles") == before + 1
     want = adler32_tiles_plain(x, lt)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     want_ck = zlib.adler32(host[offset : offset + ln].tobytes())
@@ -515,9 +519,9 @@ def test_adler32_checksums_matches_plain(dev, case, dtype):
     T = -(-n // 1024)
     sums = torch.empty(B, T, dtype=torch.int32, device=dev)
     wsums = torch.empty(B, T, dtype=torch.int32, device=dev)
-    before = adler32_tiles.launches
+    before = _launches("adler32_tiles")
     got = adler32_checksums(rows, lengths, sums, wsums)
-    assert adler32_tiles.launches == before + 1
+    assert _launches("adler32_tiles") == before + 1
     want_s, want_w = adler32_tiles_plain(rows, lengths)
     assert torch.equal(sums, want_s) and torch.equal(wsums, want_w)
     assert torch.equal(got, fold_tiles(want_s, want_w, lengths))
@@ -533,14 +537,14 @@ def test_adler32_batch_is_one_k7_launch(dev):
     op besides allocations; the encode launches it once."""
     data, lengths, C = _inputs(dev, "ragged_B3_N8192_C4")
     adler32_batch(data, lengths)                  # the workspace, once
-    before = adler32_tiles.launches
+    before = _launches("adler32_tiles")
     got, ops = torch_ops(lambda: adler32_batch(data, lengths))
-    assert adler32_tiles.launches == before + 1
+    assert _launches("adler32_tiles") == before + 1
     assert set(ops) <= _NO_COMPUTE, ops
     assert torch.equal(got, adler32_batch_plain(data, lengths))
-    before = adler32_tiles.launches
+    before = _launches("adler32_tiles")
     P.zlib_encode_step(C)(data, lengths)
-    assert adler32_tiles.launches == before + 1
+    assert _launches("adler32_tiles") == before + 1
 
 
 def _foreign(seed: int, n: int = 200_000) -> bytes:
@@ -572,9 +576,9 @@ def _lanes(z: bytes, dev, corrupt: bool):
 @pytest.mark.parametrize("K", [64, 8192])
 def test_inflate_records_matches_plain(dev, corrupt, K):
     args = _lanes(zlib.compress(_foreign(1), 6), dev, corrupt)
-    before = inflate_records.launches
+    before = _launches("inflate_records")
     got = inflate_records(*args, K)
-    assert inflate_records.launches == before + 1
+    assert _launches("inflate_records") == before + 1
     want = inflate_records_plain(*args, K)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -588,9 +592,9 @@ def test_validate_headers_matches_plain(dev):
         PD.scan_stage1_device(z, device=dev),
         rng.integers(0, len(z) * 8 - 80, 20000)]))
     c = torch.from_numpy(cands.astype(np.int64)).to(dev)
-    before = validate_headers.launches
+    before = _launches("validate_headers")
     good, end = validate_headers(words, c, len(z) * 8)
-    assert validate_headers.launches == before + 1
+    assert _launches("validate_headers") == before + 1
     want_good, want_end = validate_headers_plain(words, c, len(z) * 8)
     assert torch.equal(good, want_good) and torch.equal(end, want_end)
     assert bool(good.any())
@@ -616,9 +620,9 @@ def test_validate_headers_two_streams(dev):
 def test_try_foreign_batch_launches_k5_once(dev):
     data = [_foreign(s, 80_000) for s in range(3)]
     streams = [zlib.compress(d, 6) for d in data]
-    before = validate_headers.launches
+    before = _launches("validate_headers")
     assert P.try_foreign_batch(streams, device=dev) == data
-    assert validate_headers.launches == before + 1
+    assert _launches("validate_headers") == before + 1
 
 
 def test_foreign_path_on_the_card(dev):
@@ -639,9 +643,9 @@ def test_combine_edges(dev, case):
     mix): every word written, equal to the plain version, one launch."""
     label, win, bits, pos0, B, W = k2_edge_cases()[case]
     win, bits, pos0 = (x.to(dev) for x in (win, bits, pos0))
-    before = combine.launches
+    before = _launches("combine")
     got = combine(win, bits, pos0, B, W)
-    assert combine.launches == before + 1
+    assert _launches("combine") == before + 1
     assert torch.equal(got, combine_plain(win, bits, pos0, B, W)), label
 
 
@@ -654,9 +658,9 @@ def test_inflate_records_edges(dev, kind):
     args, K = k4_edge_case(kind)
     want = inflate_records_plain(*args, K)
     stats = torch.zeros(4, dtype=torch.int64, device=dev)
-    before = inflate_records.launches
+    before = _launches("inflate_records")
     got = inflate_records(*(x.to(dev) for x in args), K, stats=stats)
-    assert inflate_records.launches == before + 1
+    assert _launches("inflate_records") == before + 1
     for name, g, w in zip(("recs", "bpos", "nout", "done"), got, want):
         assert torch.equal(g.cpu(), w), (kind, name)
     assert int(stats[1]) >= args[1].numel()       # a span per lane at least
@@ -687,9 +691,9 @@ def test_decode_symbols_edges(dev, kind):
     launch, against the plain version on the CPU."""
     case = k11_edge_case(kind)
     want = decode_symbols(**case)
-    before = decode_symbols.launches
+    before = _launches("decode_symbols")
     got = decode_symbols(**_on(case, dev))
-    assert decode_symbols.launches == before + 1
+    assert _launches("decode_symbols") == before + 1
     _same_records(got, want, kind)
 
 
@@ -738,9 +742,9 @@ def test_decode_symbols_live_edges(dev, kind):
     """K11's live form on its edge inputs, one launch, against plain."""
     case = k11_edge_case(kind)
     want = decode_symbols(**case)
-    before = decode_symbols.launches
+    before = _launches("decode_symbols")
     got = _decode_symbols_live(**_on(case, dev))
-    assert decode_symbols.launches == before + 1
+    assert _launches("decode_symbols") == before + 1
     _same_live(got, want, kind)
 
 
@@ -755,9 +759,9 @@ def test_decode_symbols_live_indexed_matches_plain(dev, chain):
 def test_fused_ultrafast_roundtrip_cuda_equals_cpu(dev):
     data, lengths, _case = _indexed_case(dev, N=32768, C=8)
     N = data.shape[1]
-    before = decode_symbols.launches
+    before = _launches("decode_symbols")
     got = P.fused_ultrafast_roundtrip(8, 8192, N)(data, lengths)
-    assert decode_symbols.launches == before + 1
+    assert _launches("decode_symbols") == before + 1
     want = P.fused_ultrafast_roundtrip(8, 8192, N, device="cpu")(
         data.cpu(), lengths.cpu())
     for g, w in zip(got, want):
@@ -773,11 +777,11 @@ def test_decompress_batch_indexed_cuda_equals_cpu(dev):
              rng.integers(0, 256, 20_000, dtype=np.uint8).tobytes(),
              b"small", b""]
     streams, index = P.compress_batch_ultra_fast(datas, with_index=8)
-    before = DP.decompress_batch_indexed.fallbacks
+    before = profiling.counts().get("indexed.fallback", 0)
     got = P.decompress_batch_indexed(streams, index)
     assert got == datas == P.decompress_batch_indexed(streams, index,
                                                       device="cpu")
-    assert DP.decompress_batch_indexed.fallbacks == before
+    assert profiling.counts().get("indexed.fallback", 0) == before
 
 
 
@@ -790,9 +794,9 @@ def test_compress_batch_device_cuda_equals_cpu(dev, level):
              bytes(70_000), rng.integers(0, 256, 20_000,
                                          dtype=np.uint8).tobytes(),
              b"the quick brown fox " * 900, b"x", b""]
-    before = adler32_tiles.launches
+    before = _launches("adler32_tiles")
     got = P.compress_batch_device(datas, level)
-    assert adler32_tiles.launches == before + 1
+    assert _launches("adler32_tiles") == before + 1
     assert got == P.compress_batch_device(datas, level, device="cpu")
     assert [zlib.decompress(o) for o in got] == datas
 
@@ -819,10 +823,10 @@ def test_host_api_device_route_cuda_equals_cpu(dev, monkeypatch):
     data = _foreign(3, 240_000)
     z = _split_blocks(data, 6, 20_000)
     assert len(z) >= PD._PARALLEL_MIN
-    kernels = (inflate_records, validate_headers, adler32_tiles)
-    before = [k.launches for k in kernels]
+    kernels = ("inflate_records", "validate_headers", "adler32_tiles")
+    before = [_launches(k) for k in kernels]
     assert P.decompress_to_vec(z) == data
-    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert all(_launches(k) > b for k, b in zip(kernels, before))
     assert P.decompress_to_vec(z, device="cpu") == data
     with pytest.raises(P.OutputTooLarge) as got:
         P.decompress_to_vec_bounded(z, 4096)
@@ -847,10 +851,48 @@ def test_try_foreign_host_materialize_on_the_card(dev):
     assert MN.available(), MN.unavailable_reason()
     data = _foreign(4, 200_000)
     z = zlib.compress(data, 6)
-    before = inflate_records.launches
+    before = _launches("inflate_records")
     assert P.try_foreign(z, materialize="host") == data
-    assert inflate_records.launches > before
+    assert _launches("inflate_records") > before
     assert P.try_foreign(z, materialize="device") == data
+
+
+def test_traced_batch_puts_k4_inside_its_span(dev, tmp_path):
+    """``try_foreign_batch`` on three 1 MiB streams under
+    ``profiling.trace``: every ``inflate_kernel`` interval on the device
+    lies inside a ``discovery.records`` span on the host, no device
+    operation of ``portbench.trace.timelines`` bears a span's name, the
+    counters count the call, and the bytes are zlib's."""
+    from portbench import trace as PT
+
+    from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
+
+    raw = [r.tobytes() for r in make_idat_corpus(3, 1 << 20, seed=5)]
+    streams = [zlib.compress(r, 6) for r in raw]
+    assert P.try_foreign_batch(streams) == raw           # built and warm
+    before = profiling.counts()
+    with profiling.trace(str(tmp_path)) as prof:
+        got = P.try_foreign_batch(streams)
+    assert got == raw
+    device, host = PT.timelines(prof)
+    spans = {n for n, _s, _t in host if n.startswith(("discovery.",
+                                                       "inflate."))}
+    assert {"discovery.stage1", "discovery.validate", "discovery.parse",
+            "discovery.tables", "discovery.records", "discovery.chain",
+            "discovery.stitch"} <= spans
+    assert not {n for n, _s, _t in device} & spans
+    records = [(s, t) for n, s, t in host if n == "discovery.records"]
+    k4 = [(s, t) for n, s, t in device if "inflate_kernel" in n]
+    assert len(records) == len(k4) == 1
+    slack = 50e-6   # the profiler's host and device clocks, aligned
+    assert all(any(rs - slack <= s and t <= rt + slack for rs, rt in records)
+               for s, t in k4)
+    n = {k: v - before.get(k, 0) for k, v in profiling.counts().items()}
+    assert n["discovery.streams"] == 3 and n["launch.inflate_records"] == 1
+    assert n["launch.validate_headers"] == 1
+    assert n["discovery.lanes"] >= n["discovery.lanes_chained"] > 3
+    assert not any(v for k, v in n.items()
+                   if k.startswith("discovery.fallback."))
 
 
 def test_profiling_sync_waits_on_cuda_tensors(dev):

@@ -648,31 +648,6 @@ def test_foreign_decode_example_on_the_cpu(tmp_path, capsys):
 # ------------------------------------------------------- utils/profiling
 
 
-def test_profiling_counters_equal_jax(monkeypatch):
-    """``Throughput``, ``counter`` and ``report_all`` as JAX's (the host
-    clock, patched here to step 0.25 s a reading)."""
-    import time
-
-    from fdeflate_tpu.utils import profiling as JProf
-    from fdeflate_tpu_torch.utils import profiling as PProf
-
-    reports = []
-    for mod in (JProf, PProf):
-        ticks = itertools.count()
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks) * 0.25)
-        monkeypatch.setattr(mod, "_counters", {})
-        for nbytes in (10**6, 3 * 10**6):
-            with mod.counter("decode").measure(nbytes):
-                pass
-        with mod.counter("encode").measure(5):
-            pass
-        assert mod.counter("decode").calls == 2
-        reports.append(mod.report_all())
-        monkeypatch.undo()
-    assert reports[0] == reports[1]
-    assert "decode: 0.008 GB/s (4.0 MB over 2 calls)" in reports[1]
-
-
 def test_profiling_trace_and_sync_on_the_cpu(tmp_path, monkeypatch):
     """``trace`` writes a Chrome trace of the region; ``sync`` waits only on
     CUDA tensors' devices, so CPU tensors and other objects ask nothing."""

@@ -45,6 +45,7 @@ from fdeflate_tpu_torch.ops.inflate import materialize, materialize_flat
 from fdeflate_tpu_torch.ops.ultrafast import encode_ultrafast_batch as P_encode
 from fdeflate_tpu_torch.parallel import device_pipeline as PD
 from fdeflate_tpu_torch.tools.edges import K11_KINDS, k11_edge_case
+from fdeflate_tpu_torch.utils import profiling
 from test_crafted_streams import emit_dynamic_block, lopsided_lengths
 from test_torch_inflate import _records
 
@@ -279,6 +280,10 @@ def batch():
     return datas, streams, index, JD.decompress_batch_indexed(streams, index)
 
 
+def _fallbacks() -> int:
+    return profiling.counts().get("indexed.fallback", 0)
+
+
 def test_decompress_batch_indexed(batch):
     datas, streams, index, want = batch
     from fdeflate_tpu_torch import compress_batch_ultra_fast
@@ -286,10 +291,10 @@ def test_decompress_batch_indexed(batch):
     pstreams, pindex = compress_batch_ultra_fast(datas, with_index=8,
                                                  device="cpu")
     assert pstreams == streams and np.array_equal(pindex, index)
-    before = PD.decompress_batch_indexed.fallbacks
+    before = _fallbacks()
     got = PD.decompress_batch_indexed(streams, index, device="cpu")
     assert got == want == datas
-    assert PD.decompress_batch_indexed.fallbacks == before
+    assert _fallbacks() == before
 
 
 def _jax_error(fn):
@@ -336,11 +341,11 @@ def test_decompress_batch_indexed_errors(small_batch):
     for label, (bad_s, fallbacks) in cases.items():
         bad = streams[:2] + [bad_s]
         want = _jax_error(lambda: JD.decompress_batch_indexed(bad, index))
-        before = PD.decompress_batch_indexed.fallbacks
+        before = _fallbacks()
         got = _port_error(
             lambda: PD.decompress_batch_indexed(bad, index, device="cpu"))
         assert got == want and got is not None, (label, got, want)
-        assert PD.decompress_batch_indexed.fallbacks == before + fallbacks, label
+        assert _fallbacks() == before + fallbacks, label
     assert _jax_error(lambda: JD.decompress_batch_indexed(
         streams[:2] + [cases["flipped checksum"][0]], index)) == "WrongChecksum"
 
@@ -460,11 +465,11 @@ def test_indexed_live_form_on_error_streams(small_batch, monkeypatch, case):
         words, total_bits, chunk_starts)
     _equal(got, want, case)
     assert bool(np.asarray(want[2])[2]) == (fallbacks == 0), case
-    before = PD.decompress_batch_indexed.fallbacks
+    before = _fallbacks()
     got_err = _port_error(
         lambda: PD.decompress_batch_indexed(batch, index, device="cpu"))
     want_err = _jax_error(lambda: JD.decompress_batch_indexed(batch, index))
     assert got_err == want_err, (case, got_err, want_err)
     assert (got_err is None) == (case == "clean"), case
-    assert PD.decompress_batch_indexed.fallbacks == before + fallbacks, case
+    assert _fallbacks() == before + fallbacks, case
 

@@ -51,9 +51,7 @@ from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 import fdeflate_tpu as F
 import fdeflate_tpu_torch as P
 from fdeflate_tpu.models import native as JN
-from fdeflate_tpu.utils import profiling as JProf
 from fdeflate_tpu_torch.models import native as PN
-from fdeflate_tpu_torch.utils import profiling as PProf
 
 
 PAIRS = {
@@ -105,8 +103,6 @@ PAIRS = {
     **{f"native.{name}": (getattr(JN, name), getattr(PN, name)) for name in (
         "available", "inflate", "compress_ultra", "deflate",
         "materialize_records")},
-    **{f"profiling.{name}": (getattr(JProf, name), getattr(PProf, name))
-       for name in ("Throughput", "counter", "report_all")},
 }
 
 

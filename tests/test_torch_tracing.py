@@ -1,0 +1,270 @@
+"""The port's spans and counters (``utils/profiling``) and where the
+inflate path opens and counts them, on the CPU.
+
+A span outside a profile is the shared null context; inside one it is a
+``record_function`` on the profiler's timeline.  Block discovery opens its
+stage spans in order and counts streams, lanes and each stream it leaves,
+by reason; ``_build.launch`` counts launches.  Streams stay small: the
+plain K4 takes one loop iteration per record.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import threading
+import zlib
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from fdeflate_tpu_torch import _build
+from fdeflate_tpu_torch.ops import inflate as PI
+from fdeflate_tpu_torch.parallel import discovery as PD
+from fdeflate_tpu_torch.utils import profiling
+
+STEPS = 256   # max_steps: 1024 record slots, enough for 1000-byte blocks
+
+
+def _corpus(n: int, seed: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    return np.where(rng.integers(0, 4, n) > 0, rng.integers(-8, 8, n),
+                    0).astype(np.uint8).tobytes()
+
+
+def _split(data: bytes, step: int, flush=zlib.Z_BLOCK) -> bytes:
+    """zlib-6 stream whose blocks end every ``step`` input bytes."""
+    co = zlib.compressobj(6)
+    cuts = range(0, len(data), step)
+    out = b"".join(co.compress(data[i: i + step])
+                   + (co.flush(flush) if i + step < len(data) else b"")
+                   for i in cuts)
+    return out + co.flush()
+
+
+DATA = _corpus(2000, 1)
+GOOD = _split(DATA, 1000)
+BAD = {
+    "header": (b"\x00\x01" + GOOD[2:], None),
+    "first_block": (zlib.compress(DATA, 0), DATA),
+    "tables": (GOOD, None),   # with ``block_tables`` failing (see below)
+    "chain": (_split(DATA, 1000, zlib.Z_SYNC_FLUSH), DATA),
+    "checksum": (GOOD[:-4] + bytes(4), None),
+}
+
+
+def _delta(before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in profiling.counts().items()
+            if n != before.get(k, 0)}
+
+
+@pytest.fixture
+def opened(monkeypatch):
+    """The names of the spans discovery and the sequential path open, in
+    order (``span`` replaced in both modules)."""
+    names: list[str] = []
+
+    def span(name):
+        names.append(name)
+        return profiling._NULL
+
+    monkeypatch.setattr(PD, "span", span)
+    monkeypatch.setattr(PI, "span", span)
+    return names
+
+
+# -- the module ------------------------------------------------------------
+
+def test_span_off_is_the_shared_null_context(monkeypatch):
+    def fail(name):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", fail)
+    assert not torch.autograd._profiler_enabled()
+    before = profiling.span_seconds()
+    with profiling.span("a") as s:
+        assert s is None
+    assert profiling.span("b") is profiling.span("c") is profiling._NULL
+    assert profiling.span_seconds() == before
+
+
+def test_span_under_trace_nests_in_its_parent(tmp_path):
+    before = profiling.span_seconds()
+    with profiling.trace(str(tmp_path)):
+        with profiling.span("test.outer"):
+            with profiling.span("test.inner"):
+                torch.arange(100).sum()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    iv = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+          if e.get("name", "").startswith("test.")}
+    assert iv["test.outer"][0] <= iv["test.inner"][0]
+    assert iv["test.inner"][1] <= iv["test.outer"][1]
+    after = profiling.span_seconds()
+    grew = {k: after[k] - before.get(k, 0.0) for k in ("test.outer",
+                                                         "test.inner")}
+    assert 0 < grew["test.inner"] <= grew["test.outer"]
+
+
+def test_counts_returns_a_copy():
+    profiling.count("test.copy")
+    got = profiling.counts()
+    got["test.copy"] += 100
+    got["test.other"] = 1
+    assert profiling.counts()["test.copy"] == got["test.copy"] - 100
+    assert "test.other" not in profiling.counts()
+    assert profiling.span_seconds() is not profiling.span_seconds()
+
+
+def test_count_loses_no_update_across_threads():
+    before = profiling.counts().get("test.threads", 0)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [
+            profiling.count("test.threads", 2) for _ in range(2000)])
+            for _ in range(16)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(interval)
+    assert profiling.counts()["test.threads"] - before == 16 * 2000 * 2
+
+
+def test_launch_counts_each_launch_of_a_kernel(monkeypatch):
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 7 if args[0] == "fail" else 0
+
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 0,
+                        raising=False)
+    before = profiling.counts()
+    dev = torch.device("cuda", 0)
+    _build.launch("inflate_records", dev, "ok")
+    _build.launch("inflate_records", dev, "ok")
+    _build.launch("validate_headers", dev, "ok")
+    with pytest.raises(RuntimeError, match="cudaError_t 7"):
+        _build.launch("combine", dev, "fail")
+    assert _delta(before) == {"launch.inflate_records": 2,
+                              "launch.validate_headers": 1}
+
+
+# -- the inflate path ------------------------------------------------------
+
+STAGES = ["discovery.stage1", "discovery.validate", "discovery.parse",
+          "discovery.tables", "discovery.records", "discovery.chain",
+          "discovery.stitch"]
+
+
+def test_try_foreign_counts_and_opens_the_stages_in_order(opened):
+    before = profiling.counts()
+    assert PD.try_foreign(GOOD, max_steps=STEPS, device="cpu") == DATA
+    assert opened == STAGES
+    got = _delta(before)
+    assert got["discovery.streams"] == 1
+    assert got["discovery.lanes"] >= got["discovery.lanes_chained"] == 2
+    assert not any(k.startswith("discovery.fallback") for k in got)
+
+
+def test_try_foreign_batch_counts_and_opens_the_stages_in_order(opened):
+    other = _split(_corpus(1500, 2), 500)
+    before = profiling.counts()
+    got = PD.try_foreign_batch([GOOD, other], max_steps=STEPS, device="cpu")
+    assert got == [DATA, zlib.decompress(other)]
+    assert opened == ["discovery.stage1"] * 2 + STAGES[1:2] + [
+        "discovery.parse"] * 2 + STAGES[3:]
+    n = _delta(before)
+    assert n["discovery.streams"] == 2
+    assert n["discovery.lanes"] >= n["discovery.lanes_chained"] == 2 + 3
+    assert not any(k.startswith("discovery.fallback") for k in n)
+
+
+@pytest.mark.parametrize("batch", [False, True], ids=["one", "batch"])
+@pytest.mark.parametrize("reason", list(BAD))
+def test_a_stream_discovery_leaves_counts_its_reason(reason, batch,
+                                                    monkeypatch):
+    stream, _ = BAD[reason]
+    if reason == "tables":
+        # K5 refuses incomplete trees, so no stream reaches this check by
+        # itself: the table build fails as for a header K5 let through.
+        def incomplete(lengths, hlit):
+            raise ValueError("tree must be exactly complete")
+
+        monkeypatch.setattr(PD, "block_tables", incomplete)
+    before = profiling.counts()
+    if batch:
+        got = PD.try_foreign_batch([GOOD, stream], max_steps=STEPS,
+                                   device="cpu")
+        # Incomplete trees stop the call's one K4 launch: both streams go.
+        assert got == [None if reason == "tables" else DATA, None]
+        lost = 2 if reason == "tables" else 1
+    else:
+        assert PD.try_foreign(stream, max_steps=STEPS, device="cpu") is None
+        lost = 1
+    n = _delta(before)
+    assert n["discovery.streams"] == 1 + batch
+    assert {k: v for k, v in n.items()
+            if k.startswith("discovery.fallback.")} == {
+        f"discovery.fallback.{reason}": lost}
+
+
+def test_decompress_batch_leaves_streams_to_the_sequential_span(
+        opened, monkeypatch):
+    monkeypatch.setattr(PD, "_PARALLEL_MIN", 0)
+    tiny = zlib.compress(b"hello world" * 3, 6)
+    stored, raw = BAD["first_block"]
+    before = profiling.counts()
+    got = PD.decompress_batch([tiny, stored, GOOD], max_steps=STEPS,
+                              device="cpu")
+    assert got == [b"hello world" * 3, raw, DATA]
+    assert opened[0] == "inflate.batch" and opened[-1] == "inflate.sequential"
+    assert "discovery.stitch" in opened
+    n = _delta(before)
+    assert n["inflate.calls"] == 1 and n["discovery.streams"] == 3
+    assert n["discovery.fallback.first_block"] == 2
+
+
+def test_the_sequential_span_nests_in_the_batch_span(tmp_path):
+    tiny = zlib.compress(b"hello world" * 3, 6)
+    with profiling.trace(str(tmp_path)):
+        assert PD.decompress_batch([tiny], device="cpu") == [b"hello world" * 3]
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    iv = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+          if e.get("name") in ("inflate.batch", "inflate.sequential")}
+    assert iv["inflate.batch"][0] <= iv["inflate.sequential"][0]
+    assert iv["inflate.sequential"][1] <= iv["inflate.batch"][1]
+
+
+class _Ops(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not str(func).startswith("profiler."):
+            self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_spans_and_counts_add_no_tensor_work():
+    """The same torch operations (so no copy to the host and no wait) run
+    with the spans on, under a profile, and off."""
+    small = _split(_corpus(600, 3), 300)
+    runs = []
+    for traced in (False, True):
+        with _Ops() as mode:
+            if traced:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU]):
+                    got = PD.try_foreign(small, max_steps=STEPS, device="cpu")
+            else:
+                got = PD.try_foreign(small, max_steps=STEPS, device="cpu")
+        assert got == zlib.decompress(small)
+        runs.append(mode.names)
+    assert runs[0] == runs[1] and runs[0]
