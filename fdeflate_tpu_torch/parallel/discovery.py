@@ -13,7 +13,10 @@ header (stage 1, elementwise torch over all offsets); the survivors' code
 length sections are decoded by K5 (stage 2, ``ops/validate_headers.py``;
 one launch for all streams of a batch);
 the host parses each validated header (``_parse_dynamic_lengths``, the
-port's copy in ``ops/inflate_host.py``); K4 (``ops/inflate_records.py``) decodes every
+port's copy in ``ops/inflate_host.py``) and builds its tables
+(``block_tables``); a header whose trees cannot be built is no lane (a
+false header K5 let through: only a chain that needs its offset breaks
+there); K4 (``ops/inflate_records.py``) decodes every
 candidate block in its own lane, reading straight from the stream words;
 the host walks the chain of blocks whose end-of-block exit is the next
 confirmed header; one materialize and an Adler-32 on the device finish the
@@ -29,13 +32,15 @@ the host, so a wait on the device falls in the stage that caused it; the
 stage spans do not nest.  Counters: ``discovery.streams`` (streams
 entering ``try_foreign`` / ``try_foreign_batch``), ``discovery.lanes``
 (lanes handed to K4), ``discovery.lanes_chained`` (lanes a walked chain
-used), ``inflate.calls`` (calls of ``decompress_batch``) and one
+used), ``discovery.lanes_dropped`` (headers dropped for their trees),
+``inflate.calls`` (calls of ``decompress_batch``) and one
 ``discovery.fallback.<reason>`` per stream left to the sequential path:
 ``header`` (too short, or not a zlib deflate header), ``first_block`` (no
-dynamic header at bit 16), ``tables`` (incomplete trees; in a batch, every
-stream of the call), ``chain`` (the chain broke), ``checksum`` (a
-distance before the stream's start, or an Adler-32 mismatch; with
-``materialize="host"``, also records the native backend cannot expand).
+dynamic header at bit 16), ``tables`` (the chain stopped at a header
+dropped for its trees, bit 16 included), ``chain`` (any other break),
+``checksum`` (a distance before the stream's start, or an Adler-32
+mismatch; with ``materialize="host"``, also records the native backend
+cannot expand).
 
 On CPU tensors stage 1 runs the same torch code and K4/K5 their plain
 versions.  ``try_foreign(materialize="host")`` expands the chain's K4
@@ -216,7 +221,14 @@ def _scan_parse(data: bytes, words_dev=None, *, device):
 
     Returns the lane list [(off, bfinal, sym_start, lengths, hlit)], sorted
     by offset with the first lane at bit 16, or None when the stream cannot
-    take the block-parallel path."""
+    take the block-parallel path (``_scan_lanes`` without the tables)."""
+    found = _scan_lanes(data, words_dev, device=device)
+    return None if found is None else found[0]
+
+
+def _scan_lanes(data: bytes, words_dev=None, *, device):
+    """``_scan_parse`` with each lane's K4 tables: ``_parse_lanes``' (lanes,
+    tables, dropped), or None."""
     if len(data) < 7 or not _zlib_header_ok(data):
         count("discovery.fallback.header")
         return None
@@ -226,9 +238,14 @@ def _scan_parse(data: bytes, words_dev=None, *, device):
 
 
 def _parse_lanes(data: bytes, offsets: np.ndarray):
-    """``_scan_parse``'s host part: each validated header of ``data`` (at
-    ``offsets``) parsed into a lane, or None."""
-    lanes = []
+    """``_scan_lanes``' host part: each validated header of ``data`` (at
+    ``offsets``) parsed into a lane with its tables (``block_tables``).
+
+    Returns (lanes, tables, dropped), or None.  A header whose trees the
+    table build refuses (a false header K5 let through) is no lane: its
+    offset goes to ``dropped`` and ``discovery.lanes_dropped``, and only a
+    chain that needs it breaks (``tables``; at bit 16, here)."""
+    lanes, tables, dropped = [], [], set()
     with span("discovery.parse"):
         # Else the first block is not dynamic (stored/fixed): no lanes.
         if 16 in set(offsets.tolist()):
@@ -241,11 +258,20 @@ def _parse_lanes(data: bytes, offsets: np.ndarray):
                     lengths, hlit = host._parse_dynamic_lengths(r)
                 except E.DecompressionError:
                     continue
+                try:
+                    tables.append(block_tables(lengths, hlit))
+                except ValueError:
+                    dropped.add(off)
+                    continue
                 lanes.append((off, bool(bfinal), r.pos, lengths, hlit))
+    count("discovery.lanes_dropped", len(dropped))
+    if 16 in dropped:
+        count("discovery.fallback.tables")
+        return None
     if not lanes or lanes[0][0] != 16:
         count("discovery.fallback.first_block")
         return None
-    return lanes
+    return lanes, tables, dropped
 
 
 def lane_budget(max_steps: int) -> int:
@@ -258,17 +284,20 @@ def lane_budget(max_steps: int) -> int:
     return -(-K // k_launch) * k_launch
 
 
-def lane_inputs(lanes, words, wend, bit_end):
+def lane_inputs(lanes, words, wend, bit_end, tables=None):
     """K4's inputs for candidate lanes (absolute symbol start bits into
     ``words``; ``wend`` / ``bit_end`` int64[L] bound each lane's stream):
-    (words, start, wend, bit_end, out0, meta, tab), or None when a lane's
-    trees are incomplete (a header the structural scan let through)."""
+    (words, start, wend, bit_end, out0, meta, tab).  ``tables``: each
+    lane's ``block_tables``, as ``_parse_lanes`` built them; without them
+    they are built here, and the result is None when a lane's trees are
+    incomplete (a header the structural scan let through)."""
     with span("discovery.tables"):
-        try:
-            tables = [block_tables(lengths, hlit)
-                      for (_o, _b, _s, lengths, hlit) in lanes]
-        except ValueError:
-            return None
+        if tables is None:
+            try:
+                tables = [block_tables(lengths, hlit)
+                          for (_o, _b, _s, lengths, hlit) in lanes]
+            except ValueError:
+                return None
         dev = words.device
         meta, tab = pack_tables(tables, dev)
         start = np.array([sym for (_o, _b, sym, _l, _h) in lanes], np.int64)
@@ -278,11 +307,11 @@ def lane_inputs(lanes, words, wend, bit_end):
         return (words, *per_lane, meta, tab)
 
 
-def _lane_decode(lanes, max_steps: int, words, wend, bit_end):
+def _lane_decode(lanes, max_steps: int, words, wend, bit_end, tables=None):
     """K4 over every candidate lane (JAX ``_pallas_lane_decode``).  Returns
     (recs int32[K, L], bpos, eob, nout), the last three on the host, or
-    None (see ``lane_inputs``)."""
-    args = lane_inputs(lanes, words, wend, bit_end)
+    None (only without ``tables``: see ``lane_inputs``)."""
+    args = lane_inputs(lanes, words, wend, bit_end, tables)
     if args is None:
         return None
     count("discovery.lanes", len(lanes))
@@ -292,21 +321,30 @@ def _lane_decode(lanes, max_steps: int, words, wend, bit_end):
                 nout.cpu().numpy())
 
 
-def _chain(lanes, lo: int, hi: int, bpos, eob, gbase: int = 0):
+def _walk(lanes, lo: int, hi: int, bpos, eob, gbase: int = 0):
     """Walk stream lanes[lo:hi] from bit 16: block i is confirmed when its
-    EOB exit is the next confirmed header.  Returns (lane indices, final
-    exit bit, stream-local) or None."""
+    EOB exit is the next confirmed header.  Returns (lane indices, bit,
+    done), stream-local: done when a BFINAL block ends the chain, ``bit``
+    its exit; else ``bit`` is the offset the walk found no lane for, or
+    the lane there that met no EOB."""
     by_off = {lanes[i][0]: i for i in range(lo, hi)}
     chain = []
     cur = 16
     while True:
         i = by_off.get(cur)
         if i is None or not eob[i]:
-            return None
+            return chain, cur, False
         chain.append(i)
         cur = int(bpos[i]) - gbase
         if lanes[i][1]:  # BFINAL
-            return chain, cur
+            return chain, cur, True
+
+
+def _chain(lanes, lo: int, hi: int, bpos, eob, gbase: int = 0):
+    """``_walk``'s (lane indices, final exit bit) of a whole chain, or
+    None."""
+    chain, cur, done = _walk(lanes, lo, hi, bpos, eob, gbase)
+    return (chain, cur) if done else None
 
 
 def _stored_adler(data: bytes, final_exit: int) -> int:
@@ -387,23 +425,20 @@ def try_foreign(data: bytes, max_steps: int = 6144, engine: str = "auto",
     dev = device_of(device)
     if words_dev is None:
         words_dev = stage_words(data, device=dev)
-    lanes = _scan_parse(data, words_dev=words_dev, device=dev)
-    if lanes is None:
+    found = _scan_lanes(data, words_dev=words_dev, device=dev)
+    if found is None:
         return None
+    lanes, tables, dropped = found
     L = len(lanes)
-    decoded = _lane_decode(lanes, max_steps, words_dev,
-                           np.full(L, words_dev.numel()),
-                           np.full(L, len(data) * 8))
-    if decoded is None:
-        count("discovery.fallback.tables")
-        return None
-    recs, bpos, eob, nout = decoded
+    recs, bpos, eob, nout = _lane_decode(lanes, max_steps, words_dev,
+                                         np.full(L, words_dev.numel()),
+                                         np.full(L, len(data) * 8), tables)
     with span("discovery.chain"):
-        walk = _chain(lanes, 0, L, bpos, eob)
-    if walk is None:
-        count("discovery.fallback.chain")
+        chain, final_exit, done = _walk(lanes, 0, L, bpos, eob)
+    if not done:
+        count("discovery.fallback."
+              + ("tables" if final_exit in dropped else "chain"))
         return None
-    chain, final_exit = walk
     count("discovery.lanes_chained", len(chain))
     with span("discovery.stitch"):
         if materialize == "host" and not return_device:
@@ -439,11 +474,13 @@ def try_foreign_batch(streams: list[bytes], max_steps: int = 6144,
 
     Stage 1 runs per stream; the survivors of all streams validate in one
     K5 launch over the concatenated stream words
-    (``validate_stage2_batch``); the host parses each stream's headers;
+    (``validate_stage2_batch``); the host parses each stream's headers and
+    builds their tables, dropping a header whose trees cannot be built;
     every stream's discovered blocks join one lane list over the same
     words; chains are walked per stream and all confirmed streams
-    materialize together.  Returns, per stream, the
-    bytes or None (the caller falls back for that stream).
+    materialize together.  Returns, per stream, the bytes or None (the
+    caller falls back for that stream: a dropped header costs only the
+    stream whose chain needs it).
     """
     S = len(streams)
     if S <= 1:
@@ -463,37 +500,40 @@ def try_foreign_batch(streams: list[bytes], max_steps: int = 6144,
     count("discovery.fallback.header", S - len(survivors))
     valid = validate_stage2_batch(streams, survivors, words, word_base)
 
-    glanes, wend, bit_end = [], [], []
-    lane_range = {}
+    glanes, gtables, wend, bit_end = [], [], [], []
+    lane_range, dropped = {}, {}
     for si, (offsets, _ends) in valid.items():
         s = streams[si]
         lo_w, hi_w = int(word_base[si]), int(word_base[si + 1])
-        lanes = _parse_lanes(s, offsets)
-        if lanes is None:
+        found = _parse_lanes(s, offsets)
+        if found is None:
             continue
+        lanes, tables, dropped[si] = found
         lo = len(glanes)
         for off, bfinal, sym_start, lengths, hlit in lanes:
             glanes.append((off, bfinal, lo_w * 32 + sym_start, lengths, hlit))
+        gtables += tables
         wend += [hi_w] * len(lanes)
         bit_end += [lo_w * 32 + len(s) * 8] * len(lanes)
         lane_range[si] = (lo, len(glanes))
     if not glanes:
         return results
-    decoded = _lane_decode(glanes, max_steps, words, wend, bit_end)
-    if decoded is None:
-        count("discovery.fallback.tables", len(lane_range))
-        return results
-    recs, bpos, eob, nout = decoded
+    recs, bpos, eob, nout = _lane_decode(glanes, max_steps, words, wend,
+                                         bit_end, gtables)
     mask = np.zeros(recs.shape[1], bool)
-    finals = {}
+    finals, broken = {}, {"tables": 0, "chain": 0}
     with span("discovery.chain"):
         for si, (lo, hi) in lane_range.items():
-            walk = _chain(glanes, lo, hi, bpos, eob, int(word_base[si]) * 32)
-            if walk is not None:
-                mask[walk[0]] = True
-                finals[si] = walk[1]
+            chain, cur, done = _walk(glanes, lo, hi, bpos, eob,
+                                     int(word_base[si]) * 32)
+            if done:
+                mask[chain] = True
+                finals[si] = cur
+            else:
+                broken["tables" if cur in dropped[si] else "chain"] += 1
     confirmed = sorted(finals)
-    count("discovery.fallback.chain", len(lane_range) - len(confirmed))
+    for reason, n in broken.items():
+        count(f"discovery.fallback.{reason}", n)
     count("discovery.lanes_chained", int(mask.sum()))
     if not confirmed:
         return results

@@ -895,6 +895,24 @@ def test_traced_batch_puts_k4_inside_its_span(dev, tmp_path):
                    if k.startswith("discovery.fallback."))
 
 
+def test_a_false_header_costs_no_stream_of_the_batch(dev):
+    """bench.py's images 16-31 at zlib 6 through ``decompress_batch``: K5
+    takes a false header of image 20 whose trees cannot be built; that
+    header is dropped, and every stream decodes by block discovery."""
+    from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
+
+    raw = [r.tobytes() for r in make_idat_corpus(32, 1 << 20, 0)[16:]]
+    streams = [zlib.compress(r, 6) for r in raw]
+    before = profiling.counts()
+    got = P.decompress_batch(streams, device=dev)
+    assert got == [zlib.decompress(z) for z in streams]
+    n = {k: v - before.get(k, 0) for k, v in profiling.counts().items()}
+    assert not any(v for k, v in n.items()
+                   if k.startswith("discovery.fallback."))
+    assert n["discovery.lanes_dropped"] >= 1
+    assert n["discovery.streams"] == 16
+
+
 def test_profiling_sync_waits_on_cuda_tensors(dev):
     from fdeflate_tpu_torch.utils import profiling as PProf
 

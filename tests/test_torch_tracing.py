@@ -3,13 +3,15 @@ inflate path opens and counts them, on the CPU.
 
 A span outside a profile is the shared null context; inside one it is a
 ``record_function`` on the profiler's timeline.  Block discovery opens its
-stage spans in order and counts streams, lanes and each stream it leaves,
-by reason; ``_build.launch`` counts launches.  Streams stay small: the
-plain K4 takes one loop iteration per record.
+stage spans in order and counts streams, lanes, the headers it drops for
+their trees and each stream it leaves, by reason; ``_build.launch`` counts
+launches.  Streams stay small: the plain K4 takes one loop iteration per
+record.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
 import threading
@@ -23,6 +25,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from fdeflate_tpu_torch import _build
 from fdeflate_tpu_torch.ops import inflate as PI
 from fdeflate_tpu_torch.parallel import discovery as PD
+from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 from fdeflate_tpu_torch.utils import profiling
 
 STEPS = 256   # max_steps: 1024 record slots, enough for 1000-byte blocks
@@ -46,13 +49,47 @@ def _split(data: bytes, step: int, flush=zlib.Z_BLOCK) -> bytes:
 
 DATA = _corpus(2000, 1)
 GOOD = _split(DATA, 1000)
+OTHER = _split(_corpus(1500, 2), 500)
+THIRD = _split(_corpus(1500, 5), 500)
 BAD = {
     "header": (b"\x00\x01" + GOOD[2:], None),
     "first_block": (zlib.compress(DATA, 0), DATA),
-    "tables": (GOOD, None),   # with ``block_tables`` failing (see below)
+    "tables": (THIRD, None),   # with ``block_tables`` failing (see below)
     "chain": (_split(DATA, 1000, zlib.Z_SYNC_FLUSH), DATA),
     "checksum": (GOOD[:-4] + bytes(4), None),
 }
+FALSE_HEADER = 1302677   # a false header of image 20 (``_image20``)
+
+
+@functools.lru_cache(maxsize=1)
+def _image20() -> bytes:
+    """bench.py's image 20 at zlib 6.  K5 takes the bits at FALSE_HEADER
+    for a complete dynamic header (a code 16 after a zero run repeats the
+    last plain length there); the host's parse repeats 0, as RFC 1951
+    does, and reads a literal/length code whose Kraft sum is 0.961."""
+    return zlib.compress(make_idat_corpus(21, 1 << 20, 0)[20], 6)
+
+
+def _with_false_header(stream: bytes) -> bytes:
+    """``stream`` with image 20's false header copied after its trailer,
+    where no chain goes (zlib ignores what follows the trailer)."""
+    return stream + _image20()[FALSE_HEADER // 8:][:120]
+
+
+def _refuse(monkeypatch, stream: bytes, which=slice(None)) -> None:
+    """Make the table build fail for ``stream``'s headers ``which`` alone
+    (K5 refuses incomplete trees, so no small stream reaches the failure by
+    itself: this stands for a header K5 let through)."""
+    refused = {lane[3].tobytes()
+               for lane in PD._scan_parse(stream, device="cpu")[which]}
+    build = PD.block_tables
+
+    def incomplete(lengths, hlit):
+        if lengths.tobytes() in refused:
+            raise ValueError("tree must be exactly complete")
+        return build(lengths, hlit)
+
+    monkeypatch.setattr(PD, "block_tables", incomplete)
 
 
 def _delta(before: dict) -> dict:
@@ -173,10 +210,9 @@ def test_try_foreign_counts_and_opens_the_stages_in_order(opened):
 
 
 def test_try_foreign_batch_counts_and_opens_the_stages_in_order(opened):
-    other = _split(_corpus(1500, 2), 500)
     before = profiling.counts()
-    got = PD.try_foreign_batch([GOOD, other], max_steps=STEPS, device="cpu")
-    assert got == [DATA, zlib.decompress(other)]
+    got = PD.try_foreign_batch([GOOD, OTHER], max_steps=STEPS, device="cpu")
+    assert got == [DATA, zlib.decompress(OTHER)]
     assert opened == ["discovery.stage1"] * 2 + STAGES[1:2] + [
         "discovery.parse"] * 2 + STAGES[3:]
     n = _delta(before)
@@ -191,27 +227,83 @@ def test_a_stream_discovery_leaves_counts_its_reason(reason, batch,
                                                     monkeypatch):
     stream, _ = BAD[reason]
     if reason == "tables":
-        # K5 refuses incomplete trees, so no stream reaches this check by
-        # itself: the table build fails as for a header K5 let through.
-        def incomplete(lengths, hlit):
-            raise ValueError("tree must be exactly complete")
-
-        monkeypatch.setattr(PD, "block_tables", incomplete)
+        _refuse(monkeypatch, stream)
     before = profiling.counts()
     if batch:
         got = PD.try_foreign_batch([GOOD, stream], max_steps=STEPS,
                                    device="cpu")
-        # Incomplete trees stop the call's one K4 launch: both streams go.
-        assert got == [None if reason == "tables" else DATA, None]
-        lost = 2 if reason == "tables" else 1
+        # A stream's incomplete trees cost that stream alone.
+        assert got == [DATA, None]
     else:
         assert PD.try_foreign(stream, max_steps=STEPS, device="cpu") is None
-        lost = 1
     n = _delta(before)
     assert n["discovery.streams"] == 1 + batch
     assert {k: v for k, v in n.items()
             if k.startswith("discovery.fallback.")} == {
-        f"discovery.fallback.{reason}": lost}
+        f"discovery.fallback.{reason}": 1}
+
+
+@pytest.mark.parametrize("batch", [False, True], ids=["one", "batch"])
+def test_a_chain_that_needs_a_dropped_header_leaves_by_tables(batch,
+                                                              monkeypatch):
+    _refuse(monkeypatch, THIRD, slice(1, 2))   # its second block's header
+    before = profiling.counts()
+    if batch:
+        got = PD.try_foreign_batch([GOOD, THIRD, OTHER], max_steps=STEPS,
+                                   device="cpu")
+        assert got == [DATA, None, zlib.decompress(OTHER)]
+    else:
+        assert PD.try_foreign(THIRD, max_steps=STEPS, device="cpu") is None
+    n = _delta(before)
+    assert n["discovery.lanes_dropped"] == 1
+    assert {k: v for k, v in n.items()
+            if k.startswith("discovery.fallback.")} == {
+        "discovery.fallback.tables": 1}
+
+
+@pytest.mark.parametrize("batch", [False, True], ids=["one", "batch"])
+def test_a_header_off_the_chain_whose_trees_fail_is_dropped(batch):
+    stream = _with_false_header(GOOD)
+    before = profiling.counts()
+    if batch:
+        got = PD.try_foreign_batch([stream, OTHER], max_steps=STEPS,
+                                   device="cpu")
+        assert got == [DATA, zlib.decompress(OTHER)]
+    else:
+        assert PD.try_foreign(stream, max_steps=STEPS, device="cpu") == DATA
+    n = _delta(before)
+    assert n["discovery.lanes_dropped"] == 1
+    assert n["discovery.lanes_chained"] == 2 + 3 * batch
+    assert not any(k.startswith("discovery.fallback") for k in n)
+
+
+def test_discovery_builds_each_headers_tables_once(monkeypatch):
+    built = []
+    build = PD.block_tables
+
+    def counted(lengths, hlit):
+        built.append(hlit)
+        return build(lengths, hlit)
+
+    monkeypatch.setattr(PD, "block_tables", counted)
+    before = profiling.counts()
+    got = PD.try_foreign_batch([_with_false_header(GOOD), OTHER],
+                               max_steps=STEPS, device="cpu")
+    assert got == [DATA, zlib.decompress(OTHER)]
+    n = _delta(before)
+    assert len(built) == n["discovery.lanes"] + n["discovery.lanes_dropped"]
+
+
+def test_parse_lanes_drops_image20s_false_header():
+    z = _image20()
+    offsets = np.array([16, FALSE_HEADER])
+    good, _ends = PD.validate_stage2_device(z, offsets, device="cpu")
+    assert good.tolist() == [16, FALSE_HEADER]   # K5 takes both
+    before = profiling.counts()
+    lanes, tables, dropped = PD._parse_lanes(z, offsets)
+    assert [lane[0] for lane in lanes] == [16] and len(tables) == 1
+    assert dropped == {FALSE_HEADER}
+    assert _delta(before) == {"discovery.lanes_dropped": 1}
 
 
 def test_decompress_batch_leaves_streams_to_the_sequential_span(
