@@ -69,7 +69,7 @@ from ..tables import (
     LITLEN_TABLE_ENTRIES,
 )
 from ..trees import TreeTables, sep_tables, trained_tables
-from ..utils.profiling import count
+from ..utils.profiling import count, span
 from .discovery import decompress_batch
 
 
@@ -449,6 +449,15 @@ def stage_indexed(streams: list[bytes], index: np.ndarray, device):
     return words, total_bits, chunk_starts, cap
 
 
+def _active_lanes(streams: list[bytes], index: np.ndarray) -> int:
+    """How many of ``chunk_lanes``' lanes are active (start < stop), from
+    the index and the streams' lengths on the host."""
+    cs = np.asarray(index, np.int64)
+    bits = np.array([(len(s) - 4) * 8 for s in streams], np.int64)[:, None]
+    nxt = np.concatenate([cs[:, 1:], np.full((len(cs), 1), 1 << 30)], axis=1)
+    return int((cs < np.minimum(nxt, bits)).sum())
+
+
 def decompress_batch_indexed(streams: list[bytes], index: np.ndarray,
                              max_steps: int | None = None, *,
                              device="cuda") -> list[bytes]:
@@ -462,38 +471,66 @@ def decompress_batch_indexed(streams: list[bytes], index: np.ndarray,
     the pipeline rejects (``ok`` False) is decoded by ``decompress_batch``
     instead (its error raised; counted in the counter
     ``indexed.fallback``), and every stream's Adler-32 is
-    checked on the host (``WrongChecksum``).
-    """
-    dev = device_of(device)
-    C = index.shape[1]
-    words, total_bits, chunk_starts, cap = stage_indexed(streams, index, dev)
-    if max_steps is None:
-        max_steps = max(2048, cap // C)
-    records, status, starts, steps = _indexed_symbols(
-        words, total_bits, chunk_starts, max_steps, 4)
-    for _ in range(8):
-        out, produced, ok = indexed_materialize(records, status, starts, C,
-                                                cap, steps=steps)
-        produced = produced.cpu().numpy()
-        if int(produced.max(initial=0)) <= cap:
-            break
-        cap = 1 << int(np.ceil(np.log2(int(produced.max()))))
-    out = out.cpu().numpy()
-    ok = ok.cpu().numpy()
+    checked on the host (``WrongChecksum``); the first stream in order
+    that fails raises.
 
-    results: list[bytes] = []
-    for i, s in enumerate(streams):
-        if not ok[i]:
-            count("indexed.fallback")
-            r = decompress_batch([s], device=dev)[0]
-            if isinstance(r, E.DecompressionError):
-                raise r
-            results.append(r)
-            continue
-        data = out[i, : produced[i]].tobytes()
-        if zlib.adler32(data) != int.from_bytes(s[-4:], "big"):
-            raise E.WrongChecksum()
-        results.append(data)
+    Spans (``utils/profiling.span``), inside the routing span
+    ``indexed.batch`` and not nested in each other, each through its
+    results on the host: ``indexed.stage`` (``stage_indexed``),
+    ``indexed.decode`` (K11 and every ``indexed_materialize`` round),
+    ``indexed.readback`` (the bytes and flags to the host) and
+    ``indexed.verify`` (each stream's bytes and Adler-32 compare); the
+    fallback runs in ``decompress_batch``'s own spans.  Counters, once
+    each per call: ``indexed.calls``, ``indexed.streams``,
+    ``indexed.lanes`` (active chunk lanes) and ``indexed.regrow``
+    (materialize rounds after the first).
+    """
+    count("indexed.calls")
+    count("indexed.streams", len(streams))
+    with span("indexed.batch"):
+        dev = device_of(device)
+        C = index.shape[1]
+        with span("indexed.stage"):
+            words, total_bits, chunk_starts, cap = stage_indexed(streams,
+                                                                 index, dev)
+        count("indexed.lanes", _active_lanes(streams, index))
+        if max_steps is None:
+            max_steps = max(2048, cap // C)
+        with span("indexed.decode"):
+            records, status, starts, steps = _indexed_symbols(
+                words, total_bits, chunk_starts, max_steps, 4)
+            for rounds in range(1, 9):
+                out, produced, ok = indexed_materialize(
+                    records, status, starts, C, cap, steps=steps)
+                produced = produced.cpu().numpy()
+                if int(produced.max(initial=0)) <= cap:
+                    break
+                cap = 1 << int(np.ceil(np.log2(int(produced.max()))))
+        count("indexed.regrow", rounds - 1)
+        with span("indexed.readback"):
+            out = out.cpu().numpy()
+            ok = ok.cpu().numpy()
+        with span("indexed.verify"):
+            # Each stream's checksum right after its copy, while its bytes
+            # are still in the cache.
+            checked = []
+            for i, s in enumerate(streams):
+                data = out[i, : produced[i]].tobytes() if ok[i] else None
+                checked.append((data, data is not None and zlib.adler32(data)
+                                == int.from_bytes(s[-4:], "big")))
+
+        results: list[bytes] = []
+        for s, (data, good) in zip(streams, checked):
+            if data is None:
+                count("indexed.fallback")
+                r = decompress_batch([s], device=dev)[0]
+                if isinstance(r, E.DecompressionError):
+                    raise r
+                results.append(r)
+            elif not good:
+                raise E.WrongChecksum()
+            else:
+                results.append(data)
     return results
 
 

@@ -22,8 +22,9 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from fdeflate_tpu_torch import _build
+from fdeflate_tpu_torch import _build, compress_batch_ultra_fast
 from fdeflate_tpu_torch.ops import inflate as PI
+from fdeflate_tpu_torch.parallel import device_pipeline as DP
 from fdeflate_tpu_torch.parallel import discovery as PD
 from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 from fdeflate_tpu_torch.utils import profiling
@@ -358,5 +359,83 @@ def test_spans_and_counts_add_no_tensor_work():
             else:
                 got = PD.try_foreign(small, max_steps=STEPS, device="cpu")
         assert got == zlib.decompress(small)
+        runs.append(mode.names)
+    assert runs[0] == runs[1] and runs[0]
+
+
+# -- the indexed decode ----------------------------------------------------
+
+INDEXED = ["indexed.batch", "indexed.stage", "indexed.decode",
+           "indexed.readback", "indexed.verify"]
+
+
+@functools.lru_cache(maxsize=1)
+def _indexed_batch():
+    """A 1 KiB image, whose chunks past its last symbol start hold no
+    lane, and 16 KiB of zeros, whose output outgrows the first capacity
+    (sized from the image's stream, the longer): one regrowth."""
+    datas = [make_idat_corpus(1, 1 << 10, 2)[0].tobytes(), bytes(1 << 14)]
+    streams, index = compress_batch_ultra_fast(datas, with_index=8,
+                                               device="cpu")
+    return datas, streams, index
+
+
+def test_decompress_batch_indexed_opens_its_spans_in_order(monkeypatch):
+    names: list[str] = []
+
+    def span(name):
+        names.append(name)
+        return profiling._NULL
+
+    monkeypatch.setattr(DP, "span", span)
+    datas, streams, index = _indexed_batch()
+    assert DP.decompress_batch_indexed(streams, index, device="cpu") == datas
+    assert names == INDEXED
+
+
+def test_the_indexed_stage_spans_lie_in_the_batch_span_apart(tmp_path):
+    datas, streams, index = _indexed_batch()
+    with profiling.trace(str(tmp_path)):
+        got = DP.decompress_batch_indexed(streams, index, device="cpu")
+    assert got == datas
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    iv = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+          if e.get("name") in INDEXED and e.get("ph") == "X"]
+    assert sorted(n for _s, _t, n in iv) == sorted(INDEXED)
+    iv.sort()
+    (lo, hi, outer), stages = iv[0], iv[1:]
+    assert outer == "indexed.batch"
+    assert [n for _s, _t, n in stages] == INDEXED[1:]
+    assert all(lo <= s and t <= hi for s, t, _n in stages)
+    assert all(a[1] <= b[0] for a, b in zip(stages, stages[1:]))
+
+
+def test_decompress_batch_indexed_counts_calls_streams_lanes_regrowths():
+    datas, streams, index = _indexed_batch()
+    words, total_bits, chunk_starts, _cap = DP.stage_indexed(streams, index,
+                                                             "cpu")
+    active = int(DP.chunk_lanes(total_bits, chunk_starts)[4].sum())
+    assert active < index.size   # the image's last chunks hold no lane
+    before = profiling.counts()
+    assert DP.decompress_batch_indexed(streams, index, device="cpu") == datas
+    assert {k: v for k, v in _delta(before).items()
+            if k.startswith("indexed.")} == {
+        "indexed.calls": 1, "indexed.streams": 2, "indexed.lanes": active,
+        "indexed.regrow": 1}
+
+
+def test_indexed_spans_and_counts_change_no_output_and_no_tensor_work():
+    datas, streams, index = _indexed_batch()
+    runs = []
+    for traced in (False, True):
+        with _Ops() as mode:
+            if traced:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU]):
+                    got = DP.decompress_batch_indexed(streams, index,
+                                                      device="cpu")
+            else:
+                got = DP.decompress_batch_indexed(streams, index, device="cpu")
+        assert got == datas
         runs.append(mode.names)
     assert runs[0] == runs[1] and runs[0]
