@@ -104,30 +104,43 @@ def materialize(records, window, produced, out_capacity: int,
     masking); ``out_capacity`` a bound on ``produced``.  Returns
     (u8[B, out_capacity], new window).
 
-    The front: each row's record starts (a flat scan of the records'
-    lengths), then the records that make bytes (most slots of a
-    chunk-parallel decode are empty) as flat lists in (row, step) order;
+    The front is ``flat_records`` on the transposed records;
     ``materialize_flat`` places them.  ``ptr_rounds`` is accepted and
     ignored: pointer doubling runs to its fixed point, which is JAX's
     result with ``ptr_rounds=None`` (its default).
     """
     del ptr_rounds
+    _, flat = flat_records([a.T for a in records])
+    return materialize_flat(*flat, window, produced, out_capacity,
+                            want_window)
+
+
+def flat_records(records):
+    """``materialize``'s front on row-major records: ``records`` as
+    ``materialize`` takes them, but each [B, K] (row b holds stream b's
+    records in step order; any strides).
+
+    Returns (pos, flat): ``pos`` int64[B, K], the bytes row b makes before
+    each of its records (one flat scan of the records' lengths:
+    ``row_cumsum``), and ``flat`` = (row, start, lo, hi, cnt, length,
+    dist), the records that make bytes (most slots of a chunk-parallel
+    decode are empty) as flat lists in (row, step) order, ``start``
+    absolute (the 32 KiB window first): ``materialize_flat``'s first seven
+    arguments.
+    """
     if len(records) == 5:
         rl, rlh, rc, rn, rd = records
     else:
         (rl, rc, rn, rd), rlh = records, None
-    K, B = rl.shape
+    K = rl.shape[1]
     i64 = torch.int64
-    adv = (rc.to(i64) + rn.to(i64)).T.contiguous()       # [B, K]
-    start = WINDOW + row_cumsum(adv) - adv                # record starts
-    sel = ((rc.T > 0) | (adv > 0)).reshape(-1).nonzero().squeeze(1)
-    row = sel // K
-    at = (sel % K) * B + row                              # into [K, B]
-    hi = (torch.zeros_like(at) if rlh is None else rlh.reshape(-1)[at])
-    return materialize_flat(row, start.reshape(-1)[sel], rl.reshape(-1)[at],
-                            hi, rc.reshape(-1)[at], rn.reshape(-1)[at],
-                            rd.reshape(-1)[at], window, produced,
-                            out_capacity, want_window)
+    adv = (rc.to(i64) + rn.to(i64)).contiguous()
+    pos = row_cumsum(adv) - adv
+    sel = ((rc > 0) | (adv > 0)).reshape(-1).nonzero().squeeze(1)
+    row, col = sel // K, sel % K
+    hi = torch.zeros_like(sel) if rlh is None else rlh[row, col]
+    return pos, (row, WINDOW + pos.reshape(-1)[sel], rl[row, col], hi,
+                 rc[row, col], rn[row, col], rd[row, col])
 
 
 def materialize_flat(row, start, lo, hi, cnt, length, dist, window, produced,

@@ -60,8 +60,13 @@ from .. import errors as E
 from ..models import native
 from ..ops import inflate_host as host
 from ..ops.adler32 import adler32_batch
-from ..ops.inflate import WINDOW, decompress_sequential, pad_words
-from ..ops.inflate import materialize as _materialize
+from ..ops.inflate import (
+    WINDOW,
+    decompress_sequential,
+    flat_records,
+    materialize_flat,
+    pad_words,
+)
 from ..ops.inflate_records import (
     DONE_EOB,
     NO_LIMIT,
@@ -362,6 +367,10 @@ def _stitch(recs, mask, ranges, produced):
     Returns (out u8[S, cap], Adler-32 int64[S] of each row's first
     ``produced`` bytes, bad bool[S]: a distance reaching before the
     stream's start, which empties that row).
+
+    The records are gathered stream-major, a row per stream; one flat scan
+    (``flat_records``) gives each record's start in its stream, which both
+    the distance check and the placement read.
     """
     K, L = recs.shape
     dev = recs.device
@@ -371,15 +380,16 @@ def _stitch(recs, mask, ranges, produced):
     m = torch.from_numpy(np.asarray(mask)).to(dev)
     flat = torch.cat([torch.where(m[None, :], recs, 0).T.reshape(-1),
                       torch.zeros(1, dtype=recs.dtype, device=dev)])
-    ks = torch.arange(max(r[1] - r[0] for r in ranges) * K, device=dev)[:, None]
-    records = recs_to_records(flat[torch.where(ks < width, lo * K + ks, L * K)])
-    adv = records[1].to(torch.int64) + records[2]
-    pos = adv.cumsum(dim=0) - adv
-    bad = ((records[3] > 0) & (records[3] > pos)).any(dim=0)
+    ks = torch.arange(max(r[1] - r[0] for r in ranges) * K, device=dev)
+    idx = torch.where(ks < width[:, None], lo[:, None] * K + ks, L * K)
+    records = recs_to_records(flat[idx])                 # each [S, widest]
+    pos, placed = flat_records(records)
+    bad = ((records[3] > 0) & (records[3] > pos)).any(dim=1)
     prod = torch.where(bad, 0, torch.as_tensor(produced, device=dev))
     window = torch.zeros(len(ranges), WINDOW, dtype=torch.uint8, device=dev)
-    out, _ = _materialize(records, window, prod, _cap_bucket(int(max(produced))),
-                          want_window=False)
+    out, _ = materialize_flat(*placed, window, prod,
+                              _cap_bucket(int(max(produced))),
+                              want_window=False)
     return out, adler32_batch(out, prod), bad
 
 

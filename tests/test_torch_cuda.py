@@ -636,6 +636,16 @@ def test_foreign_path_on_the_card(dev):
     assert type(out[4]).__name__ == "InsufficientInput"
 
 
+def test_try_foreign_batch_of_16_cuda_equals_cpu(dev):
+    """16 streams stitched together (``discovery._stitch``'s flat record
+    starts over many rows) give on the card what they give on the CPU."""
+    data = [_foreign(s, 30_000) for s in range(16)]
+    streams = [zlib.compress(d, (1, 6, 9)[s % 3]) for s, d in enumerate(data)]
+    got = P.try_foreign_batch(streams, device=dev)
+    assert got == P.try_foreign_batch(streams, device="cpu")
+    assert got == data
+
+
 @pytest.mark.parametrize("case", range(len(k2_edge_cases())))
 def test_combine_edges(dev, case):
     """K2 on its edge inputs (lanes of 0 bits, lanes shorter than a word,

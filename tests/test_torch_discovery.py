@@ -5,7 +5,9 @@ Stage 1 (torch over every bit offset) is held against the numpy
 ``validate_stage2``, and ``try_foreign``, ``try_foreign_batch`` and
 ``decompress_foreign`` against the JAX functions of the same names on the
 CPU: bytes or error class per stream, and None against bytes for the
-``try_*`` calls.  Every comparison is exact.
+``try_*`` calls.  ``_stitch`` is held against JAX's ``_jit_stitch_batch``
+on K4 records built in numpy, and its prefix scans to the flat form.
+Every comparison is exact.
 
 On the CPU the JAX ``try_foreign`` decodes its lanes with the XLA engine
 (``decode_symbols``), whose records pack up to 8 literals, while its stitch
@@ -283,3 +285,132 @@ def test_decompress_foreign_matches_jax(jax_ref, name):
 def test_decompress_foreign_rejects_a_bad_header():
     with pytest.raises(PE.BadZlibHeader):
         decompress_foreign(b"\x00\x00" + STREAMS["zlib6"][2:], device="cpu")
+
+
+# ------------------------------------------------------------- the stitch
+
+_LIT, _MATCH = 1 << 28, 2 << 28   # K4's record kinds (REC_LITS, REC_MATCH)
+
+
+def _k4_lane(rng, K: int, n: int, pos: int, special=None):
+    """One K4 lane of ``n`` records (the rest idle): one- and two-literal
+    records and matches whose distance stays inside the ``pos`` bytes made
+    before the lane.  ``special`` = ("bad" | "equal", step): that step is a
+    match of distance ``pos + 1`` (reaching before the stream's start) or
+    exactly ``pos``.  Returns (int32[K], bytes made)."""
+    recs = np.zeros(K, np.int64)
+    for i in range(n):
+        if special is not None and i == special[1]:
+            d = pos + 1 if special[0] == "bad" else pos
+            ln = int(rng.integers(3, 259))
+            recs[i] = _MATCH | ((ln - 3) << 15) | (d - 1)
+        elif pos == 0 or rng.random() < 0.5:
+            ln = int(rng.integers(1, 3))
+            b = rng.integers(0, 256, 2) * [1, ln - 1]   # one literal: b1 = 0
+            recs[i] = _LIT | (ln << 16) | int(b[0]) | int(b[1]) << 8
+        else:
+            ln = int(rng.integers(3, 259))
+            d = int(rng.integers(1, min(pos, 32768) + 1))
+            recs[i] = _MATCH | ((ln - 3) << 15) | (d - 1)
+        pos += ln
+    return recs.astype(np.int32), pos
+
+
+# Per stream, its lanes: (records, in the chain); ``special`` marks the
+# stream, lane and step of a distance that reaches before (or exactly to)
+# the stream's start.
+STITCH_CASES = {
+    "uneven": ([[(40, True)],
+                [(30, True), (50, False), (20, True)],
+                [(10, False), (25, True), (60, True), (5, False), (33, True)],
+                [(64, True), (64, True)]], None),
+    "reaches_before_start": ([[(30, True), (40, True)],
+                              [(20, True), (50, True), (20, True)],
+                              [(45, True)]], (1, 1, 10)),
+    "reaches_exactly_to_start": ([[(30, True), (40, True)],
+                                  [(20, True), (50, True)],
+                                  [(45, True)]], (0, 1, 0)),
+    "single_lane_stream": ([[(50, True), (10, False), (30, True)],
+                            [(64, True)],
+                            [(12, True), (40, True)]], None),
+    "one_stream": ([[(20, True), (5, False), (64, True), (30, True)]], None),
+}
+
+
+def _stitch_inputs(name: str, K: int = 64):
+    streams, special = STITCH_CASES[name]
+    rng = np.random.default_rng(sorted(STITCH_CASES).index(name))
+    cols, mask, ranges, produced = [], [], [], []
+    for si, lanes in enumerate(streams):
+        lo, pos = len(cols), 0
+        for li, (n, chained) in enumerate(lanes):
+            sp = None
+            if special is not None and special[:2] == (si, li):
+                sp = ("bad" if name == "reaches_before_start" else "equal",
+                      special[2])
+            if chained:
+                col, pos = _k4_lane(rng, K, n, pos, sp)
+            else:   # inert: its distances reach anywhere
+                col, _ = _k4_lane(rng, K, n, 0, ("bad", 0))
+            cols.append(col)
+            mask.append(chained)
+        ranges.append((lo, len(cols)))
+        produced.append(pos)
+    return np.stack(cols, 1), np.array(mask), ranges, produced
+
+
+@pytest.mark.parametrize("name", list(STITCH_CASES))
+def test_stitch_matches_jax(name):
+    """``_stitch`` on K4 records built in numpy against JAX's
+    ``_jit_stitch_batch``: the same rows, the same ``bad``, and each row's
+    Adler-32 that of JAX's row (emptied where ``bad``)."""
+    import jax.numpy as jnp
+
+    from fdeflate_tpu.ops.pallas_inflate import recs_to_records
+
+    recs, mask, ranges, produced = _stitch_inputs(name)
+    K, L = recs.shape
+    out, ck, bad = PD._stitch(torch.from_numpy(recs), mask, ranges, produced)
+
+    width = np.array([(hi - lo) * K for lo, hi in ranges], np.int32)
+    Kcol = 1 << int(np.ceil(np.log2(max(int(width.max()), 16))))
+    cap = PD._cap_bucket(max(produced))
+    want_out, want_bad = D._jit_stitch_batch(K, L, len(ranges), Kcol, cap)(
+        *recs_to_records(jnp.asarray(recs)), jnp.asarray(mask),
+        jnp.asarray(np.array([lo for lo, _ in ranges], np.int32)),
+        jnp.asarray(width), jnp.asarray(np.array(produced, np.int32)))
+    want_out, want_bad = np.asarray(want_out), np.asarray(want_bad)
+    assert np.array_equal(bad.numpy(), want_bad)
+    assert np.array_equal(out.numpy(), want_out)
+    for ci, p in enumerate(produced):
+        n = 0 if want_bad[ci] else p
+        assert int(ck[ci]) == zlib.adler32(want_out[ci, :n].tobytes())
+    expect_bad = [name == "reaches_before_start" and ci == 1
+                  for ci in range(len(ranges))]
+    assert bad.tolist() == expect_bad
+
+
+def test_stitch_scans_only_flat():
+    """Every prefix scan of ``_stitch`` runs along the last dim of its
+    tensor, or over one column: PyTorch's scan along a leading dim of a
+    many-column tensor runs one thread per column on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    scans = []
+
+    class Scans(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func.overloadpacket is torch.ops.aten.cumsum:
+                x = args[0]
+                dim = args[1] if len(args) > 1 else kwargs["dim"]
+                scans.append((tuple(x.shape), dim % max(x.dim(), 1)))
+            return func(*args, **kwargs)
+
+    recs, mask, ranges, produced = _stitch_inputs("uneven")
+    with Scans():
+        PD._stitch(torch.from_numpy(recs), mask, ranges, produced)
+    assert scans
+    for shape, dim in scans:
+        assert dim == len(shape) - 1 or int(np.prod(shape[dim + 1:])) == 1, \
+            (shape, dim)
