@@ -500,20 +500,21 @@ def foreign_kernel_inputs(torch, dev, make_idat_corpus):
     streams = [z_text, z_fixed, z_one, z_huff, bytes(corrupt)]
     words_np, base = pad_words(streams)
 
-    def parse(z):
-        return PD._scan_parse(z, device=dev)
+    def parse(z):   # (lanes, tables) of the stream's discovered blocks
+        return PD._parse_lanes(
+            z, PD.find_block_boundaries(z, device=dev)[0])[:2]
 
-    text_lanes = parse(z_text)
-    (one,) = parse(z_one)
+    text_lanes, text_tables = parse(z_text)
+    (one,), (one_tables,) = parse(z_one)
     if np.count_nonzero(one[3][288:320]) != 1:
         raise AssertionError("the one-distance-code block has another tree")
-    huff = parse(z_huff)[0]
+    huff = parse(z_huff)[0][0]
     lanes = []   # (stream, symbol start, (meta, tab), bit_end?, out0)
-    for _o, _b, sym, lengths, hlit in text_lanes:
-        lanes.append((0, sym, block_tables(lengths, hlit), False, NO_LIMIT))
-        lanes.append((4, sym, block_tables(lengths, hlit), True, 0))
+    for (_o, _b, sym, _l, _h), tables in zip(text_lanes, text_tables):
+        lanes.append((0, sym, tables, False, NO_LIMIT))
+        lanes.append((4, sym, tables, True, 0))
     lanes.append((1, 19, fixed_meta_tab(), True, 0))
-    lanes.append((2, one[2], block_tables(one[3], one[4]), True, 0))
+    lanes.append((2, one[2], one_tables, True, 0))
     for (_o, _b, sym, lengths, hlit), si in ((huff, 3), (text_lanes[0], 0)):
         nodist = lengths.copy()
         nodist[288:320] = 0
@@ -541,16 +542,15 @@ def foreign_split(torch, P, PD, z: bytes, dev):
     c1 = PD.scan_stage1_device(z, device=dev, words=wd)
     t["stage 2 (K5)"] = cuda_ms(torch, lambda: PD.validate_stage2_device(
         z, c1, words_dev=wd, device=dev), 3)
-    scan = cuda_ms(torch, lambda: PD._scan_parse(z, words_dev=wd,
-                                                 device=dev), 3)
+    base = [0, wd.numel()]
+    scan = cuda_ms(torch, lambda: PD.lane_layout([z], wd, base), 3)
     t["host header parse"] = scan - t["stage 1"] - t["stage 2 (K5)"]
-    lanes = PD._scan_parse(z, words_dev=wd, device=dev)
+    lanes, tables, *bounds, _r, _d = PD.lane_layout([z], wd, base)
     L = len(lanes)
-    bounds = (np.full(L, wd.numel()), np.full(L, len(z) * 8))
     t["record decode (tables + K4 + readback)"] = cuda_ms(
-        torch, lambda: PD._lane_decode(lanes, 6144, wd, *bounds), 3)
-    recs, bpos, eob, nout = PD._lane_decode(lanes, 6144, wd, *bounds)
-    chain, _final = PD._chain(lanes, 0, L, bpos, eob)
+        torch, lambda: PD._lane_decode(lanes, 6144, wd, *bounds, tables), 3)
+    recs, bpos, eob, nout = PD._lane_decode(lanes, 6144, wd, *bounds, tables)
+    chain, _exit, _done = PD._walk(lanes, 0, L, bpos, eob)
     mask = np.zeros(L, bool)
     mask[chain] = True
     produced = [int(nout[chain].sum())]
@@ -559,17 +559,17 @@ def foreign_split(torch, P, PD, z: bytes, dev):
     total = cuda_ms(torch, lambda: P.try_foreign(
         z, words_dev=wd, return_device=True, device=dev), 3)
     host = min(timed(lambda: zlib.decompress(z)) for _ in range(3))
-    return t, total, host, L, (lanes, wd, bounds, c1)
+    return t, total, host, L, (lanes, tables, wd, bounds, c1)
 
 
-def k4_report(torch, PD, lanes, wd, bounds, K: int) -> str:
+def k4_report(torch, PD, lanes, tables, wd, bounds, K: int) -> str:
     """K4's work on one stream's lanes: lanes, records, threads per lane
     (the kernel's fdt::inf_threads of each lane's hint), spans and sync
     rounds (the kernel's counters), and false-candidate lanes (lanes that
     are not links of the confirmed chain)."""
     from fdeflate_tpu_torch.ops.inflate_records import DONE_EOB, inflate_records
 
-    args = PD.lane_inputs(lanes, wd, *bounds)
+    args = PD.lane_inputs(lanes, wd, *bounds, tables)
     stats = torch.zeros(4, dtype=torch.int64, device=wd.device)
     recs, bpos, _nout, done = inflate_records(*args, K, stats=stats)
     start = args[1].cpu().numpy()
@@ -580,9 +580,9 @@ def k4_report(torch, PD, lanes, wd, bounds, K: int) -> str:
     while ((m < 32) & (1024 * m < end - start)).any():
         m = np.where((m < 32) & (1024 * m < end - start), 2 * m, m)
     L = len(lanes)
-    walk = PD._chain(lanes, 0, L, bpos.cpu().numpy(),
-                     done.cpu().numpy() == DONE_EOB)
-    chain = 0 if walk is None else len(walk[0])
+    walk, _exit, whole = PD._walk(lanes, 0, L, bpos.cpu().numpy(),
+                                  done.cpu().numpy() == DONE_EOB)
+    chain = len(walk) if whole else 0
     s = stats.tolist()
     ms = dict(zip(*(x.tolist() for x in np.unique(m, return_counts=True))))
     return (f"{L} lanes ({L - chain} false candidates), "
@@ -1666,12 +1666,11 @@ def blocked_text_blocks(torch, PD, z: bytes, leg, dev):
     each from its symbol bits to its EOB), the rest zero: (win, pos0,
     meta, tab) on ``dev``, the chain's lanes (absolute starts, tables) for
     the direct K4 call, and the real lanes' count."""
-    from fdeflate_tpu_torch.ops.inflate_records import (META_ROWS, TAB_PAIRS,
-                                                        block_tables)
+    from fdeflate_tpu_torch.ops.inflate_records import META_ROWS, TAB_PAIRS
 
-    lanes, wd, bounds, _c1 = leg
-    _recs, bpos, eob, _nout = PD._lane_decode(lanes, 6144, wd, *bounds)
-    chain, _final = PD._chain(lanes, 0, len(lanes), bpos, eob)
+    lanes, tables, wd, bounds, _c1 = leg
+    _recs, bpos, eob, _nout = PD._lane_decode(lanes, 6144, wd, *bounds, tables)
+    chain, _exit, _done = PD._walk(lanes, 0, len(lanes), bpos, eob)
     words = np.frombuffer(z + bytes((-len(z)) % 4) + bytes(8), "<u4")
     starts = [lanes[i][2] for i in chain]
     wwin = max((int(bpos[i]) >> 5) - (s >> 5) for i, s in zip(chain, starts)) + 3
@@ -1685,7 +1684,7 @@ def blocked_text_blocks(torch, PD, z: bytes, leg, dev):
     for j, (i, s) in enumerate(zip(chain, starts)):
         win[j] = words[s >> 5:(s >> 5) + wwin]
         pos0[j] = s & 31
-        meta[j], tab[j] = block_tables(lanes[i][3], lanes[i][4])
+        meta[j], tab[j] = tables[i]
 
     def blocked(a):   # [LB * 1024, rows] -> [LB, rows, 8, 128]
         return torch.from_numpy(np.ascontiguousarray(
@@ -2424,9 +2423,9 @@ def main() -> int:
               f"kept there) {total:.4f} ms = {len(raw) / total / 1e6:.4f} GB/s "
               f"of output; host zlib.decompress {len(raw) / host / 1e9:.4f} "
               f"GB/s [{card}]", flush=True)
-        lanes_k, wd_k, bounds_k, _c1 = legs[kind]
+        lanes_k, tables_k, wd_k, bounds_k, _c1 = legs[kind]
         print(f"K4 on foreign {kind}: "
-              f"{k4_report(torch, PD, lanes_k, wd_k, bounds_k, K)}",
+              f"{k4_report(torch, PD, lanes_k, tables_k, wd_k, bounds_k, K)}",
               flush=True)
     k5_batch_report(torch, P, PD, batch, dev, card)
     tb = cuda_ms(torch, lambda: P.try_foreign_batch(batch, device=dev), 3)
@@ -2438,8 +2437,8 @@ def main() -> int:
           f"GB/s of output; host zlib.decompress {nbytes / host / 1e9:.4f} "
           f"GB/s [{card}]", flush=True)
 
-    lanes8, wd8, bounds8, c18 = legs["text6"]
-    args8 = PD.lane_inputs(lanes8, wd8, *bounds8)
+    lanes8, tables8, wd8, bounds8, c18 = legs["text6"]
+    args8 = PD.lane_inputs(lanes8, wd8, *bounds8, tables8)
     got = inflate_records(*args8, K)
     want = inflate_records_plain(*args8, K)
     torch.cuda.synchronize()

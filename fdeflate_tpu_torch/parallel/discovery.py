@@ -2,11 +2,13 @@
 
 JAX counterpart: ``fdeflate_tpu/parallel/discovery.py`` — the device path
 of ``find_block_boundaries`` (``scan_stage1_device``,
-``validate_stage2_device``), ``_scan_parse``, ``stage_words``,
+``validate_stage2_device``), its scan and header parse, ``stage_words``,
 ``_pallas_lane_decode``, ``try_foreign`` with ``_jit_stitch``,
 ``try_foreign_batch`` with ``_jit_stitch_batch``, ``decompress_foreign``,
 and the routing of ``ops/inflate.decompress_batch``, which sits here so
-that ``ops/`` does not import ``parallel/``.
+that ``ops/`` does not import ``parallel/``.  Where JAX writes the
+discovery twice, for one stream and for a batch, the port runs one
+pipeline (``_discover``): ``try_foreign`` is it on one stream.
 
 Every bit offset of the stream is screened as a possible dynamic-block
 header (stage 1, elementwise torch over all offsets); the survivors' code
@@ -152,20 +154,16 @@ def scan_stage1_device(payload: bytes, min_tail_bits: int = 400, *,
 
 def validate_stage2_device(payload: bytes, cands: np.ndarray,
                            words_dev=None, *, device):
-    """Stage 2: K5 over the stage-1 survivors.  Returns (offsets,
-    header_end_bits) of the valid headers, int64, sorted (JAX
-    ``validate_stage2_device``, equal to the numpy ``validate_stage2``)."""
+    """Stage 2: K5 over the stage-1 survivors (``validate_stage2_batch`` on
+    one stream).  Returns (offsets, header_end_bits) of the valid headers,
+    int64, sorted (JAX ``validate_stage2_device``, equal to the numpy
+    ``validate_stage2``)."""
     if len(cands) == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    dev = device_of(device)
-    with span("discovery.validate"):
-        if words_dev is None:
-            words_dev = stage_words(payload, device=dev)
-        c = torch.from_numpy(np.asarray(cands, np.int64)).to(dev)
-        good, end = validate_headers(words_dev, c, len(payload) * 8)
-        good = good.cpu().numpy()
-        return (np.asarray(cands, np.int64)[good],
-                end.cpu().numpy().astype(np.int64)[good])
+    if words_dev is None:
+        words_dev = stage_words(payload, device=device)
+    return validate_stage2_batch([payload], {0: cands}, words_dev,
+                                 [0, words_dev.numel()])[0]
 
 
 def stage2_batch_inputs(streams: list[bytes], cands: dict, word_base):
@@ -221,30 +219,10 @@ def find_block_boundaries(payload: bytes, words_dev=None, *, device):
                                   device=device)
 
 
-def _scan_parse(data: bytes, words_dev=None, *, device):
-    """zlib header check + boundary scan + per-candidate header parse.
-
-    Returns the lane list [(off, bfinal, sym_start, lengths, hlit)], sorted
-    by offset with the first lane at bit 16, or None when the stream cannot
-    take the block-parallel path (``_scan_lanes`` without the tables)."""
-    found = _scan_lanes(data, words_dev, device=device)
-    return None if found is None else found[0]
-
-
-def _scan_lanes(data: bytes, words_dev=None, *, device):
-    """``_scan_parse`` with each lane's K4 tables: ``_parse_lanes``' (lanes,
-    tables, dropped), or None."""
-    if len(data) < 7 or not _zlib_header_ok(data):
-        count("discovery.fallback.header")
-        return None
-    offsets, _ends = find_block_boundaries(data, words_dev=words_dev,
-                                           device=device)
-    return _parse_lanes(data, offsets)
-
-
 def _parse_lanes(data: bytes, offsets: np.ndarray):
-    """``_scan_lanes``' host part: each validated header of ``data`` (at
-    ``offsets``) parsed into a lane with its tables (``block_tables``).
+    """The host parse: each validated header of ``data`` (at ``offsets``)
+    parsed into a lane (off, bfinal, symbol start bit, lengths, hlit) with
+    its tables (``block_tables``).
 
     Returns (lanes, tables, dropped), or None.  A header whose trees the
     table build refuses (a false header K5 let through) is no lane: its
@@ -279,6 +257,77 @@ def _parse_lanes(data: bytes, offsets: np.ndarray):
     return lanes, tables, dropped
 
 
+def lane_layout(streams: list[bytes], words, word_base):
+    """Every stream's lanes over their concatenated words (``pad_words``:
+    ``words`` on the device, ``word_base``): stage 1 per stream, one K5
+    (``validate_stage2_batch``) and the host parse (``_parse_lanes``) of
+    each, the lanes' symbol starts made absolute.  Returns (lanes, tables,
+    wend, bit_end, lane_range, dropped): each lane's stream word end and
+    payload end bit (int64[L]), and for each stream that kept its first
+    block its lanes ``lane_range[s] = (lo, hi)`` and the offsets
+    ``_parse_lanes`` dropped."""
+    survivors = {
+        si: scan_stage1_device(
+            s, device=words.device,
+            words=words[word_base[si]:word_base[si + 1]])
+        for si, s in enumerate(streams)
+        if len(s) >= 7 and _zlib_header_ok(s)}
+    count("discovery.fallback.header", len(streams) - len(survivors))
+    valid = validate_stage2_batch(streams, survivors, words, word_base)
+
+    lanes, tables, wend, bit_end = [], [], [], []
+    lane_range, dropped = {}, {}
+    for si, (offsets, _ends) in valid.items():
+        s = streams[si]
+        lo_w, hi_w = int(word_base[si]), int(word_base[si + 1])
+        found = _parse_lanes(s, offsets)
+        if found is None:
+            continue
+        own, own_tables, dropped[si] = found
+        lo = len(lanes)
+        for off, bfinal, sym_start, lengths, hlit in own:
+            lanes.append((off, bfinal, lo_w * 32 + sym_start, lengths, hlit))
+        tables += own_tables
+        wend += [hi_w] * len(own)
+        bit_end += [lo_w * 32 + len(s) * 8] * len(own)
+        lane_range[si] = (lo, len(lanes))
+    return (lanes, tables, np.array(wend, np.int64),
+            np.array(bit_end, np.int64), lane_range, dropped)
+
+
+def _discover(streams: list[bytes], max_steps: int, words, word_base):
+    """Block discovery of ``streams`` up to their chains, the one pipeline
+    of ``try_foreign`` and ``try_foreign_batch``: ``lane_layout``, one K4
+    over every lane (``_lane_decode``) and each stream's chain walk.
+    Returns (recs int32[K, L], nout, mask, found): ``mask`` bool[L] marks
+    the lanes of every whole chain; ``found`` maps each stream whose chain
+    reached its BFINAL block to ((lo, hi) its lanes, its lane indices in
+    chain order, its final exit bit, stream-local); recs, nout and mask are
+    None when no stream has a lane."""
+    count("discovery.streams", len(streams))
+    lanes, tables, wend, bit_end, lane_range, dropped = lane_layout(
+        streams, words, word_base)
+    if not lanes:
+        return None, None, None, {}
+    recs, bpos, eob, nout = _lane_decode(lanes, max_steps, words, wend,
+                                         bit_end, tables)
+    mask = np.zeros(len(lanes), bool)
+    found, broken = {}, {"tables": 0, "chain": 0}
+    with span("discovery.chain"):
+        for si, (lo, hi) in lane_range.items():
+            chain, cur, done = _walk(lanes, lo, hi, bpos, eob,
+                                     int(word_base[si]) * 32)
+            if done:
+                mask[chain] = True
+                found[si] = (lo, hi), chain, cur
+            else:
+                broken["tables" if cur in dropped[si] else "chain"] += 1
+    for reason, n in broken.items():
+        count(f"discovery.fallback.{reason}", n)
+    count("discovery.lanes_chained", int(mask.sum()))
+    return recs, nout, mask, found
+
+
 def lane_budget(max_steps: int) -> int:
     """Record slots per lane of the block-parallel decode: JAX's K =
     4 * max_steps (16..65536, a multiple of 16) in launches of
@@ -289,20 +338,12 @@ def lane_budget(max_steps: int) -> int:
     return -(-K // k_launch) * k_launch
 
 
-def lane_inputs(lanes, words, wend, bit_end, tables=None):
+def lane_inputs(lanes, words, wend, bit_end, tables):
     """K4's inputs for candidate lanes (absolute symbol start bits into
     ``words``; ``wend`` / ``bit_end`` int64[L] bound each lane's stream):
     (words, start, wend, bit_end, out0, meta, tab).  ``tables``: each
-    lane's ``block_tables``, as ``_parse_lanes`` built them; without them
-    they are built here, and the result is None when a lane's trees are
-    incomplete (a header the structural scan let through)."""
+    lane's ``block_tables``, as ``_parse_lanes`` built them."""
     with span("discovery.tables"):
-        if tables is None:
-            try:
-                tables = [block_tables(lengths, hlit)
-                          for (_o, _b, _s, lengths, hlit) in lanes]
-            except ValueError:
-                return None
         dev = words.device
         meta, tab = pack_tables(tables, dev)
         start = np.array([sym for (_o, _b, sym, _l, _h) in lanes], np.int64)
@@ -312,13 +353,10 @@ def lane_inputs(lanes, words, wend, bit_end, tables=None):
         return (words, *per_lane, meta, tab)
 
 
-def _lane_decode(lanes, max_steps: int, words, wend, bit_end, tables=None):
+def _lane_decode(lanes, max_steps: int, words, wend, bit_end, tables):
     """K4 over every candidate lane (JAX ``_pallas_lane_decode``).  Returns
-    (recs int32[K, L], bpos, eob, nout), the last three on the host, or
-    None (only without ``tables``: see ``lane_inputs``)."""
+    (recs int32[K, L], bpos, eob, nout), the last three on the host."""
     args = lane_inputs(lanes, words, wend, bit_end, tables)
-    if args is None:
-        return None
     count("discovery.lanes", len(lanes))
     with span("discovery.records"):
         recs, bpos, nout, done = inflate_records(*args, lane_budget(max_steps))
@@ -343,13 +381,6 @@ def _walk(lanes, lo: int, hi: int, bpos, eob, gbase: int = 0):
         cur = int(bpos[i]) - gbase
         if lanes[i][1]:  # BFINAL
             return chain, cur, True
-
-
-def _chain(lanes, lo: int, hi: int, bpos, eob, gbase: int = 0):
-    """``_walk``'s (lane indices, final exit bit) of a whole chain, or
-    None."""
-    chain, cur, done = _walk(lanes, lo, hi, bpos, eob, gbase)
-    return (chain, cur) if done else None
 
 
 def _stored_adler(data: bytes, final_exit: int) -> int:
@@ -431,33 +462,20 @@ def try_foreign(data: bytes, max_steps: int = 6144, engine: str = "auto",
     del engine
     if materialize is None:
         materialize = os.environ.get("FDN_FOREIGN_MATERIALIZE", "device")
-    count("discovery.streams")
     dev = device_of(device)
     if words_dev is None:
         words_dev = stage_words(data, device=dev)
-    found = _scan_lanes(data, words_dev=words_dev, device=dev)
-    if found is None:
+    recs, nout, mask, found = _discover([data], max_steps, words_dev,
+                                        [0, words_dev.numel()])
+    if not found:
         return None
-    lanes, tables, dropped = found
-    L = len(lanes)
-    recs, bpos, eob, nout = _lane_decode(lanes, max_steps, words_dev,
-                                         np.full(L, words_dev.numel()),
-                                         np.full(L, len(data) * 8), tables)
-    with span("discovery.chain"):
-        chain, final_exit, done = _walk(lanes, 0, L, bpos, eob)
-    if not done:
-        count("discovery.fallback."
-              + ("tables" if final_exit in dropped else "chain"))
-        return None
-    count("discovery.lanes_chained", len(chain))
+    (lo, hi), chain, final_exit = found[0]
     with span("discovery.stitch"):
         if materialize == "host" and not return_device:
             result = _materialize_host(data, recs, chain, final_exit)
         else:
-            mask = np.zeros(L, bool)
-            mask[chain] = True
             produced = int(nout[chain].sum())
-            out, ck, bad = _stitch(recs, mask, [(0, L)], [produced])
+            out, ck, bad = _stitch(recs, mask, [(lo, hi)], [produced])
             if bool(bad[0]) or _stored_adler(data, final_exit) != int(ck[0]):
                 result = None  # the chain was plausible but wrong
             elif return_device:
@@ -480,82 +498,32 @@ def _cap_bucket(produced: int) -> int:
 def try_foreign_batch(streams: list[bytes], max_steps: int = 6144,
                       engine: str = "auto", *, device="cuda"):
     """Block-parallel decode of many foreign streams in one K5 and one K4
-    launch (``engine``, as in ``try_foreign``, is ignored).
-
-    Stage 1 runs per stream; the survivors of all streams validate in one
-    K5 launch over the concatenated stream words
-    (``validate_stage2_batch``); the host parses each stream's headers and
-    builds their tables, dropping a header whose trees cannot be built;
-    every stream's discovered blocks join one lane list over the same
-    words; chains are walked per stream and all confirmed streams
-    materialize together.  Returns, per stream, the bytes or None (the
-    caller falls back for that stream: a dropped header costs only the
-    stream whose chain needs it).
+    launch (``engine``, as in ``try_foreign``, is ignored): ``_discover``
+    over the concatenated stream words, then one stitch of every confirmed
+    stream.  Returns, per stream, the bytes or None (the caller falls back
+    for that stream: a dropped header costs only the stream whose chain
+    needs it).  A batch of one is ``try_foreign``.
     """
     S = len(streams)
     if S <= 1:
         return [try_foreign(s, max_steps=max_steps, device=device)
                 for s in streams]
-    count("discovery.streams", S)
-    dev = device_of(device)
-    results: list[bytes | None] = [None] * S
     words_np, word_base = pad_words(streams)
-    words = torch.from_numpy(words_np).to(dev)
-
-    survivors = {
-        si: scan_stage1_device(
-            s, device=dev, words=words[word_base[si]:word_base[si + 1]])
-        for si, s in enumerate(streams)
-        if len(s) >= 7 and _zlib_header_ok(s)}
-    count("discovery.fallback.header", S - len(survivors))
-    valid = validate_stage2_batch(streams, survivors, words, word_base)
-
-    glanes, gtables, wend, bit_end = [], [], [], []
-    lane_range, dropped = {}, {}
-    for si, (offsets, _ends) in valid.items():
-        s = streams[si]
-        lo_w, hi_w = int(word_base[si]), int(word_base[si + 1])
-        found = _parse_lanes(s, offsets)
-        if found is None:
-            continue
-        lanes, tables, dropped[si] = found
-        lo = len(glanes)
-        for off, bfinal, sym_start, lengths, hlit in lanes:
-            glanes.append((off, bfinal, lo_w * 32 + sym_start, lengths, hlit))
-        gtables += tables
-        wend += [hi_w] * len(lanes)
-        bit_end += [lo_w * 32 + len(s) * 8] * len(lanes)
-        lane_range[si] = (lo, len(glanes))
-    if not glanes:
-        return results
-    recs, bpos, eob, nout = _lane_decode(glanes, max_steps, words, wend,
-                                         bit_end, gtables)
-    mask = np.zeros(recs.shape[1], bool)
-    finals, broken = {}, {"tables": 0, "chain": 0}
-    with span("discovery.chain"):
-        for si, (lo, hi) in lane_range.items():
-            chain, cur, done = _walk(glanes, lo, hi, bpos, eob,
-                                     int(word_base[si]) * 32)
-            if done:
-                mask[chain] = True
-                finals[si] = cur
-            else:
-                broken["tables" if cur in dropped[si] else "chain"] += 1
-    confirmed = sorted(finals)
-    for reason, n in broken.items():
-        count(f"discovery.fallback.{reason}", n)
-    count("discovery.lanes_chained", int(mask.sum()))
-    if not confirmed:
+    words = torch.from_numpy(words_np).to(device_of(device))
+    recs, nout, mask, found = _discover(streams, max_steps, words, word_base)
+    results: list[bytes | None] = [None] * S
+    if not found:
         return results
 
+    confirmed = sorted(found)
     with span("discovery.stitch"):
-        ranges = [lane_range[si] for si in confirmed]
+        ranges = [found[si][0] for si in confirmed]
         produced = [int(nout[lo:hi][mask[lo:hi]].sum()) for lo, hi in ranges]
         out, ck, bad = _stitch(recs, mask, ranges, produced)
         out_np, ck = out.cpu().numpy(), ck.cpu().numpy()
         bad = bad.cpu().numpy()
         for ci, si in enumerate(confirmed):
-            if not bad[ci] and _stored_adler(streams[si], finals[si]) == ck[ci]:
+            if not bad[ci] and _stored_adler(streams[si], found[si][2]) == ck[ci]:
                 results[si] = out_np[ci, : produced[ci]].tobytes()
     count("discovery.fallback.checksum",
           sum(results[si] is None for si in confirmed))

@@ -412,18 +412,15 @@ def k4_edge_case(kind: str):
     from ..ops.inflate import pad_words
     from ..ops.inflate_host import _fixed_foreign_meta
     from ..ops.inflate_records import NO_LIMIT, block_tables, pack_tables
-    from ..parallel.discovery import _scan_parse
+    from ..parallel.discovery import lane_layout
 
     streams = [z for _label, z in k4_streams()]
     words, base = pad_words(streams)
     rng = np.random.default_rng(63 + K4_KINDS.index(kind))
-    rows = []   # (stream, start bit in the stream, tables)
-    for si, z in enumerate(streams):
-        for _off, _bf, sym, lengths, hlit in _scan_parse(z, device="cpu"):
-            try:
-                rows.append((si, sym, block_tables(lengths, hlit), lengths, hlit))
-            except ValueError:
-                continue
+    lanes, tables, _we, _be, ranges, _dropped = lane_layout(
+        streams, torch.from_numpy(words), base)
+    rows = [(si, lanes[i][2] - int(base[si]) * 32, tables[i], *lanes[i][3:])
+            for si, (lo, hi) in ranges.items() for i in range(lo, hi)]
     if kind == "false starts":
         picked = []
         for _ in range(48):

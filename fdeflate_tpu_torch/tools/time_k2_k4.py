@@ -4,11 +4,11 @@ Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 -m fdeflate_tpu_torch.tools.time_k2_k4 [--reps 10]
 
-It uses only entry points that every slice of the port has had, so the
-same file, copied into an older checkout, times that checkout's kernels:
-to compare two trees, run it from each in one machine session, in turns
-(parent, change, change, parent).  Printed, one line each, as medians of
-``--reps`` CUDA-event timings of single calls (ms):
+Its entry points (``discovery.lane_layout`` the newest of them) stay put,
+so the same file, copied into an older checkout that has them, times that
+checkout's kernels: to compare two trees, run it from each in one machine
+session, in turns (parent, change, change, parent).  Printed, one line
+each, as medians of ``--reps`` CUDA-event timings of single calls (ms):
 
 * K2 on K1's windows of 16 x 1 MiB IDAT (``make_idat_corpus``), C = 512,
   and the encode leg (``encode_fixed``) around it;
@@ -19,7 +19,7 @@ to compare two trees, run it from each in one machine session, in turns
   (host tables, K4, read-back: ``discovery._lane_decode``) of each;
 
 then the card's name and power limit.  Every K4 output is checked to give
-the stream's chain (``discovery._chain``) before it is timed.
+each stream's whole chain (``discovery._walk``) before it is timed.
 """
 
 from __future__ import annotations
@@ -70,37 +70,22 @@ def word_salad(n: int, seed: int = 9) -> bytes:
     return b"".join(wp[int(rng.integers(256))] for _ in range(n // 7 + 1))[:n]
 
 
-def foreign_lanes(streams: list[bytes], dev):
-    """Every discovered lane of the streams over their concatenated words,
-    as ``try_foreign_batch`` lays them out: (lanes, words, wend, bit_end,
-    per-stream (lo, hi, word base))."""
+def time_k4(label: str, streams: list[bytes], dev, reps: int) -> None:
     words_np, base = pad_words(streams)
     words = torch.from_numpy(words_np).to(dev)
-    lanes, wend, bit_end, ranges = [], [], [], []
-    for si, s in enumerate(streams):
-        lo_w, hi_w = int(base[si]), int(base[si + 1])
-        found = PD._scan_parse(s, words_dev=words[lo_w:hi_w], device=dev)
-        lo = len(lanes)
-        for off, bfinal, sym, lengths, hlit in found:
-            lanes.append((off, bfinal, lo_w * 32 + sym, lengths, hlit))
-        wend += [hi_w] * len(found)
-        bit_end += [lo_w * 32 + len(s) * 8] * len(found)
-        ranges.append((lo, len(lanes), lo_w * 32))
-    return lanes, words, np.array(wend), np.array(bit_end), ranges
-
-
-def time_k4(label: str, streams: list[bytes], dev, reps: int) -> None:
-    lanes, words, wend, bit_end, ranges = foreign_lanes(streams, dev)
-    args = PD.lane_inputs(lanes, words, wend, bit_end)
+    lanes, tables, wend, bit_end, ranges, _dropped = PD.lane_layout(
+        streams, words, base)
+    args = PD.lane_inputs(lanes, words, wend, bit_end, tables)
     K = PD.lane_budget(MAX_STEPS)
     _recs, bpos, _nout, done = inflate_records(*args, K)
     bpos, eob = bpos.cpu().numpy(), done.cpu().numpy() == DONE_EOB
-    for lo, hi, gbase in ranges:
-        if PD._chain(lanes, lo, hi, bpos, eob, gbase) is None:
-            raise AssertionError(f"{label}: K4 gave no chain")
+    if len(ranges) < len(streams) or not all(
+            PD._walk(lanes, lo, hi, bpos, eob, int(base[si]) * 32)[2]
+            for si, (lo, hi) in ranges.items()):
+        raise AssertionError(f"{label}: K4 gave no chain")
     k4 = cuda_ms(lambda: inflate_records(*args, K), reps)
     piece = cuda_ms(lambda: PD._lane_decode(lanes, MAX_STEPS, words, wend,
-                                            bit_end), reps)
+                                            bit_end, tables), reps)
     print(f"K4 {label}: {len(lanes)} lanes, K={K}: kernel {k4:.4f} ms, "
           f"record decode (tables + K4 + read-back) {piece:.4f} ms",
           flush=True)

@@ -557,7 +557,8 @@ def _lanes(z: bytes, dev, corrupt: bool):
     """Every discovered block of ``z`` as a K4 lane (corrupted: one byte of
     the payload flipped after the tables were parsed)."""
     words = PD.stage_words(z, device=dev)
-    lanes = PD._scan_parse(z, words_dev=words, device=dev)
+    lanes = PD._parse_lanes(
+        z, PD.find_block_boundaries(z, words, device=dev)[0])[0]
     from fdeflate_tpu_torch.ops.inflate_host import foreign_meta
     from fdeflate_tpu_torch.ops.inflate_records import pack_tables
 

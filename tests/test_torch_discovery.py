@@ -22,6 +22,9 @@ because the plain K4 takes one loop iteration per record.
 
 from __future__ import annotations
 
+import ast
+import collections
+import inspect
 import zlib
 
 import numpy as np
@@ -241,6 +244,22 @@ def test_decompress_batch_validates_once(monkeypatch):
                               device="cpu")
     assert got == data + [zlib.decompress(STREAMS["tiny"])]
     assert len(calls) == 1
+
+
+def test_discovery_runs_one_pipeline():
+    """K5 and K4 each have one call site in the module, K4's inputs take
+    the parsed tables, and no one-stream copy of the scan or the chain
+    walk is left."""
+    tree = ast.parse(inspect.getsource(PD))
+    calls = collections.Counter(
+        node.func.id for node in ast.walk(tree)
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name))
+    assert calls["validate_headers"] == calls["inflate_records"] == 1
+    for fn in (PD.lane_inputs, PD._lane_decode):
+        tables = inspect.signature(fn).parameters["tables"]
+        assert tables.default is inspect.Parameter.empty
+    assert not [name for name in vars(PD) if name.startswith("_scan")]
+    assert not hasattr(PD, "_chain")
 
 
 def test_stage2_batch_keeps_streams_apart():

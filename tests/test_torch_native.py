@@ -180,11 +180,13 @@ def _k4_records(z: bytes):
     chain order, as ``try_foreign(materialize="host")`` hands them on."""
     dev = torch.device("cpu")
     words = PDisc.stage_words(z, device=dev)
-    lanes = PDisc._scan_parse(z, words_dev=words, device=dev)
+    lanes, tables, _dropped = PDisc._parse_lanes(
+        z, PDisc.find_block_boundaries(z, words, device=dev)[0])
     L = len(lanes)
     recs, bpos, eob, _nout = PDisc._lane_decode(
-        lanes, 2048, words, np.full(L, words.numel()), np.full(L, len(z) * 8))
-    chain, _final = PDisc._chain(lanes, 0, L, bpos, eob)
+        lanes, 2048, words, np.full(L, words.numel()), np.full(L, len(z) * 8),
+        tables)
+    chain, _exit, _done = PDisc._walk(lanes, 0, L, bpos, eob)
     return recs[:, chain].T.reshape(-1).numpy()
 
 

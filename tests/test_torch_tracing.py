@@ -81,8 +81,9 @@ def _refuse(monkeypatch, stream: bytes, which=slice(None)) -> None:
     """Make the table build fail for ``stream``'s headers ``which`` alone
     (K5 refuses incomplete trees, so no small stream reaches the failure by
     itself: this stands for a header K5 let through)."""
-    refused = {lane[3].tobytes()
-               for lane in PD._scan_parse(stream, device="cpu")[which]}
+    lanes = PD._parse_lanes(
+        stream, PD.find_block_boundaries(stream, device="cpu")[0])[0]
+    refused = {lane[3].tobytes() for lane in lanes[which]}
     build = PD.block_tables
 
     def incomplete(lengths, hlit):
@@ -276,6 +277,36 @@ def test_a_header_off_the_chain_whose_trees_fail_is_dropped(batch):
     assert n["discovery.lanes_dropped"] == 1
     assert n["discovery.lanes_chained"] == 2 + 3 * batch
     assert not any(k.startswith("discovery.fallback") for k in n)
+
+
+@pytest.mark.parametrize("name", ["confirmed", "first_block", "chain",
+                                  "checksum"])
+def test_one_stream_takes_the_batch_pipeline(name, monkeypatch):
+    """``try_foreign`` is the batch pipeline (``_discover``) on one stream:
+    the stream twice in a batch gives each copy its result, and every
+    discovery counter rises twice as much."""
+    stream = GOOD if name == "confirmed" else BAD[name][0]
+    sizes = []
+    discover = PD._discover
+    monkeypatch.setattr(PD, "_discover", lambda streams, *a: (
+        sizes.append(len(streams)) or discover(streams, *a)))
+
+    def discovery_counts(before):
+        return {k: n for k, n in _delta(before).items()
+                if k.startswith("discovery.")}
+
+    before = profiling.counts()
+    one = PD.try_foreign(stream, max_steps=STEPS, device="cpu")
+    n_one = discovery_counts(before)
+    before = profiling.counts()
+    two = PD.try_foreign_batch([stream, stream], max_steps=STEPS,
+                               device="cpu")
+    n_two = discovery_counts(before)
+    assert sizes == [1, 2]
+    assert one == (DATA if name == "confirmed" else None)
+    assert two == [one, one]
+    assert n_one["discovery.streams"] == 1
+    assert n_two == {k: 2 * n for k, n in n_one.items()}
 
 
 def test_discovery_builds_each_headers_tables_once(monkeypatch):
