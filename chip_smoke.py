@@ -32,7 +32,9 @@ process per source, all at once) and drives the port's paths:
      exit code 0-5); K5 on all stage-1 survivors of the stream and of
      random bytes, and on two streams' words at once (each candidate
      bounded by its own stream, each stream's answers those it gets
-     alone).
+     alone); K12 header_tables on its crafted headers (tools/edges.py), at
+     every bit of the text stream's first 4096 bits, and on every K5-good
+     header of bench.py's images 16-31 at zlib 6 (16 x 1 MiB).
 5.   The foreign-stream path at the JAX bench's sizes through the entry
      points: 8 MiB word-salad text at zlib 6 and 8 MiB of IDAT bytes at
      zlib 1 through try_foreign, 16 x 1 MiB IDAT streams at zlib 1 through
@@ -43,13 +45,16 @@ process per source, all at once) and drives the port's paths:
      streams take the block-parallel route.
 6.   Times with CUDA events: K4 and K5 against their plain versions at the
      path's shapes, the foreign leg split into stage 1, stage 2 (K5),
-     record decode (host tables + K4 + readback) and stitch (materialize
-     + Adler-32), output GB/s per stream kind, host zlib.decompress on the
-     same streams, and K4's work per stream (lanes, false candidates,
+     header parse (K12 + read-back), record decode (tables + K4 +
+     readback) and stitch (materialize + Adler-32), output GB/s per stream
+     kind, host zlib.decompress on the same streams, and K4's work per
+     stream (lanes, false candidates,
      records, threads per lane, spans and sync rounds per span); K5's
      launches per ``try_foreign_batch`` call (must be 1), its one call on
      one 1 MiB stream and over the batch's candidates, and the batched
-     stage 2.
+     stage 2; K12 on the 16 x 1 MiB zlib-6 batch's validated headers, one
+     call and back to back, its bound the header bits read and the tables
+     written at 3.35 TB/s.
 7.   The septree profile: K6 decode_sep against its plain version on the
      small batches (clean and corrupted) and on its edge inputs (ragged,
      corrupted, an EOB at every sub-step position of a word and at lane,
@@ -155,9 +160,9 @@ process per source, all at once) and drives the port's paths:
      and ultra-fast.  With the native backend off in-process,
      ``decompress_to_vec_bounded`` on phase 5's text6 and idat1 8 MiB
      streams and one 1 MiB idat1 stream takes the route to the card
-     (``decompress_batch``: K5, K4, K7, counted per call), equal to
+     (``decompress_batch``: K5, K12, K4, K7, counted per call), equal to
      zlib.decompress, every launch recorded and held to its plain version
-     (``hold_calls``; the K4, K5 and K7 rows carry ``host_api_launches``
+     (``hold_calls``; the K4, K5, K7 and K12 rows carry ``host_api_launches``
      and ``host_api_max_abs_err``); ``maxlen=4096`` raises OutputTooLarge
      with the first 4096 bytes; a corrupted stream gives the Python
      oracle's error class; a failing K4 launch propagates.
@@ -544,7 +549,8 @@ def foreign_split(torch, P, PD, z: bytes, dev):
         z, c1, words_dev=wd, device=dev), 3)
     base = [0, wd.numel()]
     scan = cuda_ms(torch, lambda: PD.lane_layout([z], wd, base), 3)
-    t["host header parse"] = scan - t["stage 1"] - t["stage 2 (K5)"]
+    t["header parse (K12 + read-back)"] = (scan - t["stage 1"]
+                                           - t["stage 2 (K5)"])
     lanes, tables, *bounds, _r, _d = PD.lane_layout([z], wd, base)
     L = len(lanes)
     t["record decode (tables + K4 + readback)"] = cuda_ms(
@@ -1552,18 +1558,20 @@ def recorded(torch, calls, fn):
     """fn() with every kernel wrapper of the scale-out path and of the host
     API's device route recording into ``calls``: K1 ``assign_pack``, K2
     ``combine``, K3 ``decode2``, K4 ``inflate_records``, K5
-    ``validate_headers``, K7 ``adler32_checksums`` and K11's ``_run`` (both
-    forms), replaced under every name a module of the port holds them by."""
+    ``validate_headers``, K7 ``adler32_checksums``, K11's ``_run`` (both
+    forms) and K12 ``header_tables``, replaced under every name a module of
+    the port holds them by."""
     from fdeflate_tpu_torch.ops import decode_symbols as DS
     from fdeflate_tpu_torch.ops.adler32_pallas import adler32_checksums
     from fdeflate_tpu_torch.ops.assign_pack import assign_pack
     from fdeflate_tpu_torch.ops.decode2 import decode2
+    from fdeflate_tpu_torch.ops.header_tables import header_tables
     from fdeflate_tpu_torch.ops.inflate_records import inflate_records
     from fdeflate_tpu_torch.ops.repack import combine
     from fdeflate_tpu_torch.ops.validate_headers import validate_headers
 
     wrappers = (assign_pack, combine, decode2, inflate_records,
-                validate_headers, adler32_checksums, DS._run)
+                validate_headers, adler32_checksums, DS._run, header_tables)
     patched = []
     for name, mod in list(sys.modules.items()):
         if mod is None or not name.startswith("fdeflate_tpu_torch"):
@@ -1594,6 +1602,8 @@ def hold_calls(torch, calls, launches) -> tuple[dict, list]:
     from fdeflate_tpu_torch.ops.assign_pack import (assign_pack,
                                                     assign_pack_plain)
     from fdeflate_tpu_torch.ops.decode2 import decode2, decode2_plain
+    from fdeflate_tpu_torch.ops.header_tables import (header_tables,
+                                                      header_tables_plain)
     from fdeflate_tpu_torch.ops.inflate_records import (inflate_records,
                                                         inflate_records_plain)
     from fdeflate_tpu_torch.ops.repack import combine, combine_plain
@@ -1627,6 +1637,10 @@ def hold_calls(torch, calls, launches) -> tuple[dict, list]:
                 k: v for k, v in kwargs.items() if k != "stats"})
         elif fn is validate_headers:
             name, want = "K5", validate_headers_plain(*args, **kwargs)
+        elif fn is header_tables:   # the plain version on the CPU
+            name = "K12"
+            want = tuple(x.to(out[0].device) for x in header_tables_plain(
+                *(a.cpu() for a in args)))
         elif fn is adler32_checksums:
             name = "K7"
             data, lengths = args[:2]
@@ -1670,6 +1684,7 @@ def blocked_text_blocks(torch, PD, z: bytes, leg, dev):
 
     lanes, tables, wd, bounds, _c1 = leg
     _recs, bpos, eob, _nout = PD._lane_decode(lanes, 6144, wd, *bounds, tables)
+    lane_meta, lane_tab = (x.cpu().numpy() for x in tables)
     chain, _exit, _done = PD._walk(lanes, 0, len(lanes), bpos, eob)
     words = np.frombuffer(z + bytes((-len(z)) % 4) + bytes(8), "<u4")
     starts = [lanes[i][2] for i in chain]
@@ -1684,7 +1699,7 @@ def blocked_text_blocks(torch, PD, z: bytes, leg, dev):
     for j, (i, s) in enumerate(zip(chain, starts)):
         win[j] = words[s >> 5:(s >> 5) + wwin]
         pos0[j] = s & 31
-        meta[j], tab[j] = tables[i]
+        meta[j], tab[j] = lane_meta[i], lane_tab[i]
 
     def blocked(a):   # [LB * 1024, rows] -> [LB, rows, 8, 128]
         return torch.from_numpy(np.ascontiguousarray(
@@ -1930,10 +1945,12 @@ def mesh_phase(torch, P, dev, corpus, card, max_steps, text6):
 def host_kernels():
     """The launch-counted wrappers of the host API's device route."""
     from fdeflate_tpu_torch.ops.adler32_pallas import adler32_tiles
+    from fdeflate_tpu_torch.ops.header_tables import header_tables
     from fdeflate_tpu_torch.ops.inflate_records import inflate_records
     from fdeflate_tpu_torch.ops.validate_headers import validate_headers
 
-    return {"K4": inflate_records, "K5": validate_headers, "K7": adler32_tiles}
+    return {"K4": inflate_records, "K5": validate_headers, "K7": adler32_tiles,
+            "K12": header_tables}
 
 
 def host_api_phase(torch, P, card, corpus, text6, idat8, idat1m):
@@ -2307,9 +2324,13 @@ def main() -> int:
                                                         inflate_records_plain)
     from fdeflate_tpu_torch.ops.validate_headers import (
         validate_headers, validate_headers_plain)
+    from fdeflate_tpu_torch.ops.header_tables import (header_tables,
+                                                      header_tables_plain)
     from fdeflate_tpu_torch.parallel import discovery as PD
     from fdeflate_tpu_torch.tools.edges import (K4_KINDS, k4_edge_case,
-                                                k5_cross_stream)
+                                                k5_cross_stream,
+                                                k12_edge_case)
+    from fdeflate_tpu_torch.tools.time_k2_k4 import k12_bytes, k12_inputs
 
     k4_args, z1m, w1m = foreign_kernel_inputs(torch, dev, make_idat_corpus)
     K = PD.lane_budget(6144)
@@ -2370,6 +2391,27 @@ def main() -> int:
                                  "from the stream alone")
     print(f"validate_headers == plain on {xc.numel()} candidates over two "
           f"streams' words, each stream's == the stream alone: ok", flush=True)
+    # K12 on its crafted headers, at every bit of the text stream's first
+    # 4096 bits, and on the 16 x 1 MiB batch's validated headers (phase 6
+    # times it there).
+    k12_args = k12_inputs(dev)
+    k12_cases = [("crafted headers", k12_edge_case()[:4])]
+    c = torch.arange(4096, dtype=torch.int64, device=dev)
+    k12_cases.append(("every bit of the text stream's first 4096", (
+        w1m, c, torch.full_like(c, w1m.numel()),
+        torch.full_like(c, len(z1m) * 8))))
+    k12_cases.append(("the 16 x 1 MiB batch's validated headers", k12_args))
+    errs["header_tables"] = 0.0
+    for label, args in k12_cases:
+        args = [x.to(dev) for x in args]
+        got = header_tables(*args)
+        want = header_tables_plain(*(x.cpu() for x in args))
+        torch.cuda.synchronize()
+        errs["header_tables"] = max(errs["header_tables"], check_equal(
+            torch, f"header_tables ({label})", (g.cpu() for g in got), want))
+        counts = np.bincount(got[0][0].cpu().numpy(), minlength=3).tolist()
+        print(f"header_tables == plain on {label} ({args[1].numel()} headers: "
+              f"lanes, skipped, dropped {counts}): ok", flush=True)
 
     # ---- 5. the foreign path at the bench's sizes, through the entry points
     text8 = word_salad(FOREIGN_MB << 20)
@@ -2379,7 +2421,8 @@ def main() -> int:
     batch = [zlib.compress(r, 1) for r in batch_raw]
     small = small_mixed_batch()
     foreign_kernels = {"inflate_records": inflate_records,
-                       "validate_headers": validate_headers}
+                       "validate_headers": validate_headers,
+                       "header_tables": header_tables}
     torch.cuda.synchronize()
     n0 = {k: launch_count(fn) for k, fn in foreign_kernels.items()}
     t0 = time.perf_counter()
@@ -2457,6 +2500,9 @@ def main() -> int:
                             + out_bytes(got), 16 * nrec),
         # per candidate: ~20 code-length reads and checks of 4 operations
         "validate_headers": (4 * wd8.numel() + 8 * n8c + 9 * n8c, 80 * n8c),
+        # bytes alone: each header's bits read and its tables written
+        "header_tables": (k12_bytes(k12_args[1], header_tables(*k12_args)[0]),
+                          0),
     })
     foreign_fns = {
         "inflate_records": (lambda: inflate_records(*args8, K),
@@ -2465,6 +2511,10 @@ def main() -> int:
         "validate_headers": (lambda: validate_headers(wd8, c8, n8),
                              lambda: validate_headers_plain(wd8, c8, n8),
                              PLAIN_REPS, f"{c8.numel()} candidates"),
+        "header_tables": (lambda: header_tables(*k12_args),
+                          lambda: header_tables_plain(
+                              *(x.cpu() for x in k12_args)), 1,
+                          f"{k12_args[1].numel()} headers of 16 x 1 MiB"),
     }
     sources.update({
         "inflate_records": ("fdeflate_tpu_torch/csrc/inflate_records.cu",
@@ -2472,6 +2522,10 @@ def main() -> int:
         "validate_headers": ("fdeflate_tpu_torch/csrc/validate_headers.cu",
                              "fdeflate_tpu/ops/pallas_inflate.py:604 "
                              "(_validate_kernel)"),
+        "header_tables": ("fdeflate_tpu_torch/csrc/header_tables.cu",
+                          "none: the host parse of "
+                          "fdeflate_tpu/parallel/discovery.py and "
+                          "pallas_inflate.py:106 (foreign_meta)"),
     })
     for kname, (kern, plain, reps, shape) in foreign_fns.items():
         ms = cuda_ms(torch, kern, KERNEL_REPS)
@@ -2479,11 +2533,18 @@ def main() -> int:
         src, repl = sources[kname]
         rows.append(kernel_row(kname, src, repl, launches[kname], errs[kname],
                                ms, plain_ms, work[kname]))
-        print(f"{kname} (text6 {FOREIGN_MB} MiB, {shape}): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (one run) [{card}]"
-              if reps == 1 else f"{kname} (text6 {FOREIGN_MB} MiB, {shape}): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
-              flush=True)
+        where = ("" if kname == "header_tables"
+                 else f"text6 {FOREIGN_MB} MiB, ")
+        print(f"{kname} ({where}{shape}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (one run) [{card}]" if reps == 1 else
+              f"{kname} ({where}{shape}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms [{card}]", flush=True)
+    queued = back_to_back_ms(torch, foreign_fns["header_tables"][0],
+                             KERNEL_REPS)
+    rows[-1]["back_to_back_ms"] = queued
+    print(f"header_tables back to back: {queued:.4f} ms a call; bound "
+          f"{rows[-1]['bound_ms']:.6f} ms ({work['header_tables'][0]} bytes "
+          f"at 3.35 TB/s) [{card}]", flush=True)
 
     # ---- 7-9. runtime trees and the checksum entry point ------------------
     rows.append(sep_phase(torch, P, dev, data, lengths, streams_in, streams,

@@ -67,6 +67,8 @@ _SIGNATURES = {
     # rd, rp, steps, bpos, opos, status, stream
     "fdt_decode_symbols": [_P, _I, _I] + [_P] * 9 + [_I, _P, _P, _I, _P]
                           + [_I] * 5 + [_P] * 11,
+    # words, offs, wend, bit_end, W, info, meta, tab, H, stream
+    "fdt_header_tables": [_P] * 4 + [_L] + [_P] * 3 + [_I, _P],
 }
 
 build_seconds: float | None = None  # wall time of this process's nvcc run
@@ -183,6 +185,14 @@ def i32(x):
     if x.dtype == torch.int32 and x.is_contiguous():
         return x
     return x.to(torch.int32).contiguous()
+
+
+def i64(x):
+    """``x`` flat, contiguous and int64; ``x`` itself when it is one."""
+    x = x.reshape(-1)
+    if x.dtype == torch.int64 and x.is_contiguous():
+        return x
+    return x.to(torch.int64).contiguous()
 
 
 def require_cuda(*tensors) -> None:

@@ -142,14 +142,14 @@ def validate_headers(words, cands, n_bits, wend=None):
     _build.require_cuda(words, cands, *per)
     dev = words.device
     words = _build.i32(words.reshape(-1))
-    cands = _i64(cands)
+    cands = _build.i64(cands)
     L = cands.numel()
     good = torch.empty(L, dtype=torch.bool, device=dev)
     end = torch.empty(L, dtype=torch.int64, device=dev)
     if L == 0:
         return good, end
-    nb = _i64(n_bits) if isinstance(n_bits, torch.Tensor) else None
-    we = None if wend is None else _i64(wend)
+    nb = _build.i64(n_bits) if isinstance(n_bits, torch.Tensor) else None
+    we = None if wend is None else _build.i64(wend)
     if any(x is not None and x.numel() != L for x in (nb, we)):
         raise ValueError("validate_headers: n_bits and wend need one entry "
                          "per candidate")
@@ -159,11 +159,3 @@ def validate_headers(words, cands, n_bits, wend=None):
                   0 if nb is not None else int(n_bits), good.data_ptr(),
                   end.data_ptr(), L)
     return good, end
-
-
-def _i64(x):
-    """``x`` flat, contiguous and int64; ``x`` itself when it is."""
-    x = x.reshape(-1)
-    if x.dtype == torch.int64 and x.is_contiguous():
-        return x
-    return x.to(torch.int64).contiguous()

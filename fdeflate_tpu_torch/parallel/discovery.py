@@ -14,11 +14,12 @@ Every bit offset of the stream is screened as a possible dynamic-block
 header (stage 1, elementwise torch over all offsets); the survivors' code
 length sections are decoded by K5 (stage 2, ``ops/validate_headers.py``;
 one launch for all streams of a batch);
-the host parses each validated header (``_parse_dynamic_lengths``, the
-port's copy in ``ops/inflate_host.py``) and builds its tables
-(``block_tables``); a header whose trees cannot be built is no lane (a
-false header K5 let through: only a chain that needs its offset breaks
-there); K4 (``ops/inflate_records.py``) decodes every
+K12 (``ops/header_tables.py``, one launch for all streams) parses each
+validated header and builds its tables on the device, where they stay for
+K4, and the host reads back each header's status, BFINAL and symbol start;
+a header whose trees cannot be built is no lane (a false header K5 let
+through: only a chain that needs its offset breaks there); K4
+(``ops/inflate_records.py``) decodes every
 candidate block in its own lane, reading straight from the stream words;
 the host walks the chain of blocks whose end-of-block exit is the next
 confirmed header; one materialize and an Adler-32 on the device finish the
@@ -27,14 +28,16 @@ false boundary, a block over the record budget) returns None, and
 ``decompress_foreign`` falls back to the sequential path.
 
 Each stage runs inside its span (``utils/profiling.span``:
-``discovery.stage1``, ``.validate``, ``.parse``, ``.tables``,
-``.records``, ``.chain``, ``.stitch``; ``inflate.batch`` around
+``discovery.stage1``, ``.validate``, ``.parse``, ``.tables`` (twice: the
+lanes' rows taken, then their per-lane inputs uploaded), ``.records``,
+``.chain``, ``.stitch``; ``inflate.batch`` around
 ``decompress_batch``), from its first operation until its results are on
 the host, so a wait on the device falls in the stage that caused it; the
 stage spans do not nest.  Counters: ``discovery.streams`` (streams
 entering ``try_foreign`` / ``try_foreign_batch``), ``discovery.lanes``
 (lanes handed to K4), ``discovery.lanes_chained`` (lanes a walked chain
-used), ``discovery.lanes_dropped`` (headers dropped for their trees),
+used), ``discovery.headers`` (headers handed to K12: lanes, dropped and
+skipped), ``discovery.lanes_dropped`` (headers dropped for their trees),
 ``inflate.calls`` (calls of ``decompress_batch``) and one
 ``discovery.fallback.<reason>`` per stream left to the sequential path:
 ``header`` (too short, or not a zlib deflate header), ``first_block`` (no
@@ -44,8 +47,8 @@ dropped for its trees, bit 16 included), ``chain`` (any other break),
 mismatch; with ``materialize="host"``, also records the native backend
 cannot expand).
 
-On CPU tensors stage 1 runs the same torch code and K4/K5 their plain
-versions.  ``try_foreign(materialize="host")`` expands the chain's K4
+On CPU tensors stage 1 runs the same torch code and K4, K5 and K12 their
+plain versions.  ``try_foreign(materialize="host")`` expands the chain's K4
 records on the host with the native C++ backend (``models/native.py``)
 instead of the device stitch.
 """
@@ -62,6 +65,7 @@ from .. import errors as E
 from ..models import native
 from ..ops import inflate_host as host
 from ..ops.adler32 import adler32_batch
+from ..ops.header_tables import DROPPED, LANE, header_tables, parse_header
 from ..ops.inflate import (
     WINDOW,
     decompress_sequential,
@@ -72,9 +76,7 @@ from ..ops.inflate import (
 from ..ops.inflate_records import (
     DONE_EOB,
     NO_LIMIT,
-    block_tables,
     inflate_records,
-    pack_tables,
     recs_to_records,
 )
 from ..ops.ultrafast import device_of
@@ -219,78 +221,98 @@ def find_block_boundaries(payload: bytes, words_dev=None, *, device):
                                   device=device)
 
 
-def _parse_lanes(data: bytes, offsets: np.ndarray):
-    """The host parse: each validated header of ``data`` (at ``offsets``)
-    parsed into a lane (off, bfinal, symbol start bit, lengths, hlit) with
-    its tables (``block_tables``).
-
-    Returns (lanes, tables, dropped), or None.  A header whose trees the
-    table build refuses (a false header K5 let through) is no lane: its
-    offset goes to ``dropped`` and ``discovery.lanes_dropped``, and only a
-    chain that needs it breaks (``tables``; at bit 16, here)."""
-    lanes, tables, dropped = [], [], set()
-    with span("discovery.parse"):
-        # Else the first block is not dynamic (stored/fixed): no lanes.
-        if 16 in set(offsets.tolist()):
-            for off in offsets.tolist():
-                r = host._HostBitReader(data, off)
-                bfinal = r.take(1)
-                if r.take(2) != 0b10:
-                    continue
-                try:
-                    lengths, hlit = host._parse_dynamic_lengths(r)
-                except E.DecompressionError:
-                    continue
-                try:
-                    tables.append(block_tables(lengths, hlit))
-                except ValueError:
-                    dropped.add(off)
-                    continue
-                lanes.append((off, bool(bfinal), r.pos, lengths, hlit))
-    count("discovery.lanes_dropped", len(dropped))
+def _stream_lanes(offsets, status):
+    """Block discovery's rules for one stream's parsed headers (``offsets``
+    sorted, ``status`` each header's ``header_tables`` status): (the
+    indices of its lanes, the offsets dropped for their trees, None), or
+    (None, dropped, reason) when the stream is left: ``tables`` when its
+    header at bit 16 is dropped, ``first_block`` when its first lane is not
+    at bit 16."""
+    dropped = {int(o) for o, st in zip(offsets, status) if st == DROPPED}
     if 16 in dropped:
-        count("discovery.fallback.tables")
+        return None, dropped, "tables"
+    kept = [i for i, st in enumerate(status) if st == LANE]
+    if not kept or offsets[kept[0]] != 16:
+        return None, dropped, "first_block"
+    return kept, dropped, None
+
+
+def _parse_lanes(data: bytes, offsets: np.ndarray):
+    """The plain parse of one stream's validated headers (``offsets``):
+    each header through ``parse_header`` on the host, under
+    ``lane_layout``'s rules (``_stream_lanes``; nothing is parsed unless bit
+    16 is among the offsets).  Returns (lanes (off, bfinal, symbol start
+    bit, lengths, hlit), their tables (meta, tab), dropped offsets), or None
+    where discovery leaves the stream.  For callers that read the parsed
+    lengths; it counts nothing."""
+    offsets = np.asarray(offsets, np.int64)
+    if not (offsets == 16).any():
         return None
-    if not lanes or lanes[0][0] != 16:
-        count("discovery.fallback.first_block")
+    parsed = []
+    for off in offsets.tolist():
+        r = host._HostBitReader(data, off)
+        status, bfinal, lengths, hlit, tables = parse_header(r)
+        parsed.append((status, (off, bool(bfinal), r.pos, lengths, hlit),
+                       tables))
+    kept, dropped, reason = _stream_lanes(offsets, [p[0] for p in parsed])
+    if reason is not None:
         return None
-    return lanes, tables, dropped
+    return ([parsed[i][1] for i in kept], [parsed[i][2] for i in kept],
+            dropped)
 
 
 def lane_layout(streams: list[bytes], words, word_base):
     """Every stream's lanes over their concatenated words (``pad_words``:
     ``words`` on the device, ``word_base``): stage 1 per stream, one K5
-    (``validate_stage2_batch``) and the host parse (``_parse_lanes``) of
-    each, the lanes' symbol starts made absolute.  Returns (lanes, tables,
-    wend, bit_end, lane_range, dropped): each lane's stream word end and
-    payload end bit (int64[L]), and for each stream that kept its first
-    block its lanes ``lane_range[s] = (lo, hi)`` and the offsets
-    ``_parse_lanes`` dropped."""
+    (``validate_stage2_batch``), then one K12 (``header_tables``) over the
+    validated headers of every stream whose headers include bit 16, and
+    each stream's rules (``_stream_lanes``).  Returns (lanes, tables, wend,
+    bit_end, lane_range, dropped): each lane (off, bfinal, absolute symbol
+    start bit); their tables (meta int32[L, 64], tab int32[L, 160]) on
+    ``words``' device, the rows K12 built, never on the host; each lane's
+    stream word end and payload end bit (int64[L]); and for each stream
+    that kept its first block its lanes ``lane_range[s] = (lo, hi)`` and
+    the offsets dropped for their trees."""
+    dev = words.device
     survivors = {
         si: scan_stage1_device(
-            s, device=words.device,
-            words=words[word_base[si]:word_base[si + 1]])
+            s, device=dev, words=words[word_base[si]:word_base[si + 1]])
         for si, s in enumerate(streams)
         if len(s) >= 7 and _zlib_header_ok(s)}
     count("discovery.fallback.header", len(streams) - len(survivors))
     valid = validate_stage2_batch(streams, survivors, words, word_base)
+    heads = {si: offs for si, (offs, _ends) in valid.items()
+             if (offs == 16).any()}
+    count("discovery.fallback.first_block", len(valid) - len(heads))
+    cols = stage2_batch_inputs(streams, heads, word_base)
+    count("discovery.headers", cols.shape[1])
+    with span("discovery.parse"):
+        info, meta, tab = header_tables(words, *torch.from_numpy(cols).to(dev))
+        status, bfinal, start = info.cpu().numpy()
 
-    lanes, tables, wend, bit_end = [], [], [], []
+    lanes, rows, wend, bit_end = [], [], [], []
     lane_range, dropped = {}, {}
-    for si, (offsets, _ends) in valid.items():
-        s = streams[si]
+    at = 0
+    for si, offs in heads.items():
         lo_w, hi_w = int(word_base[si]), int(word_base[si + 1])
-        found = _parse_lanes(s, offsets)
-        if found is None:
-            continue
-        own, own_tables, dropped[si] = found
-        lo = len(lanes)
-        for off, bfinal, sym_start, lengths, hlit in own:
-            lanes.append((off, bfinal, lo_w * 32 + sym_start, lengths, hlit))
-        tables += own_tables
-        wend += [hi_w] * len(own)
-        bit_end += [lo_w * 32 + len(s) * 8] * len(own)
-        lane_range[si] = (lo, len(lanes))
+        kept, gone, reason = _stream_lanes(offs, status[at:at + len(offs)])
+        count("discovery.lanes_dropped", len(gone))
+        if reason is None:
+            dropped[si] = gone
+            lo = len(lanes)
+            for k in kept:
+                lanes.append((int(offs[k]), bool(bfinal[at + k]),
+                              int(start[at + k])))
+                rows.append(at + k)
+            wend += [hi_w] * len(kept)
+            bit_end += [lo_w * 32 + len(streams[si]) * 8] * len(kept)
+            lane_range[si] = (lo, len(lanes))
+        else:
+            count(f"discovery.fallback.{reason}")
+        at += len(offs)
+    with span("discovery.tables"):
+        idx = torch.tensor(rows, dtype=torch.int64, device=dev)
+        tables = meta.index_select(0, idx), tab.index_select(0, idx)
     return (lanes, tables, np.array(wend, np.int64),
             np.array(bit_end, np.int64), lane_range, dropped)
 
@@ -340,13 +362,14 @@ def lane_budget(max_steps: int) -> int:
 
 def lane_inputs(lanes, words, wend, bit_end, tables):
     """K4's inputs for candidate lanes (absolute symbol start bits into
-    ``words``; ``wend`` / ``bit_end`` int64[L] bound each lane's stream):
-    (words, start, wend, bit_end, out0, meta, tab).  ``tables``: each
-    lane's ``block_tables``, as ``_parse_lanes`` built them."""
+    ``words`` at ``lane[2]``; ``wend`` / ``bit_end`` int64[L] bound each
+    lane's stream): (words, start, wend, bit_end, out0, meta, tab).
+    ``tables``: the lanes' (meta int32[L, 64], tab int32[L, 160]), as
+    ``lane_layout`` gives them (``pack_tables`` stacks per-lane ones)."""
     with span("discovery.tables"):
         dev = words.device
-        meta, tab = pack_tables(tables, dev)
-        start = np.array([sym for (_o, _b, sym, _l, _h) in lanes], np.int64)
+        meta, tab = (t.to(dev) for t in tables)
+        start = np.array([lane[2] for lane in lanes], np.int64)
         per_lane = [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
                     for a in (start, wend, bit_end,
                               np.full(len(lanes), NO_LIMIT))]

@@ -1,6 +1,6 @@
 """Edge inputs of K1 (assign_pack), K2 (combine), K3 (decode2), K4
 (inflate_records), K5 (validate_headers), K6 (decode_sep), K8
-(decode2_canon) and K9 (pack_v1).
+(decode2_canon), K9 (pack_v1) and K12 (header_tables).
 
 These kernels put a group of threads on each lane: thread segments,
 staged tiles, spans and lane ownership have edges the headline corpus may
@@ -412,15 +412,17 @@ def k4_edge_case(kind: str):
     from ..ops.inflate import pad_words
     from ..ops.inflate_host import _fixed_foreign_meta
     from ..ops.inflate_records import NO_LIMIT, block_tables, pack_tables
-    from ..parallel.discovery import lane_layout
+    from ..parallel.discovery import _parse_lanes, find_block_boundaries
 
     streams = [z for _label, z in k4_streams()]
     words, base = pad_words(streams)
     rng = np.random.default_rng(63 + K4_KINDS.index(kind))
-    lanes, tables, _we, _be, ranges, _dropped = lane_layout(
-        streams, torch.from_numpy(words), base)
-    rows = [(si, lanes[i][2] - int(base[si]) * 32, tables[i], *lanes[i][3:])
-            for si, (lo, hi) in ranges.items() for i in range(lo, hi)]
+    rows = []
+    for si, z in enumerate(streams):
+        found = _parse_lanes(z, find_block_boundaries(z, device="cpu")[0])
+        if found is not None:
+            rows += [(si, lane[2], tabs, *lane[3:])
+                     for lane, tabs in zip(found[0], found[1])]
     if kind == "false starts":
         picked = []
         for _ in range(48):
@@ -456,6 +458,137 @@ def k4_edge_case(kind: str):
     col = torch.from_numpy
     return (col(words), col(start), col(wend), col(bit_end), col(out0), meta,
             tab), K
+
+
+# ---- K12 header_tables -----------------------------------------------------
+
+# A complete code over the 19 code-length symbols: 13 of 4 bits, 6 of 5.
+_CL_LENS = np.array([4] * 13 + [5] * 6, np.int64)
+_REP_BITS = {16: 2, 17: 3, 18: 7}
+
+
+def _sections(lengths):
+    """RFC 1951's code-length sections of ``lengths``: [(symbol, extra)],
+    zero runs as 17/18 and runs of a length as 16 after its first."""
+    out, i, n = [], 0, len(lengths)
+    while i < n:
+        v = int(lengths[i])
+        run = 1
+        while i + run < n and int(lengths[i + run]) == v:
+            run += 1
+        if v == 0 and run >= 11:
+            k = min(run, 138)
+            out.append((18, k - 11))
+        elif v == 0 and run >= 3:
+            k = min(run, 10)
+            out.append((17, k - 3))
+        else:
+            out.append((v, 0))
+            k = 1
+            while run - k >= 3:
+                r = min(run - k, 6)
+                out.append((16, r - 3))
+                k += r
+        i += k
+    return out
+
+
+def _header_bits(lit, dist, *, btype=2, hlit=None, hdist=None, cl=_CL_LENS,
+                 sections=None):
+    """A dynamic block header as (value, bits), LSB first: BFINAL 1,
+    ``btype``, HLIT, HDIST (``hlit`` / ``hdist`` or the lengths' counts),
+    HCLEN 19 and the ``cl`` code-length code lengths, then ``sections``
+    (or ``_sections`` of the lengths) under that code."""
+    from ..tables import CLCL_ORDER, canonical_codes
+
+    hlit = len(lit) if hlit is None else hlit
+    hdist = len(dist) if hdist is None else hdist
+    fields = [(1, 1), (btype, 2), (hlit - 257, 5), (hdist - 1, 5), (15, 4)]
+    fields += [(int(cl[s]), 3) for s in CLCL_ORDER]
+    if sections is None:
+        sections = _sections(list(lit) + list(dist))
+    codes = canonical_codes(cl) if sections else None
+    for sym, extra in sections:
+        fields.append((int(codes[sym]), int(cl[sym])))
+        if sym >= 16:
+            fields.append((extra, _REP_BITS[sym]))
+    value, n = 0, 0
+    for v, k in fields:
+        value |= (v & ((1 << k) - 1)) << n
+        n += k
+    return value, n
+
+
+def k12_headers():
+    """[(label, (value, bits) of the header, status, (lit, dist) or None)]:
+    K12's crafted headers, each with the status ``header_tables`` gives
+    it (0 a lane, 1 skipped, 2 dropped) and, for a lane, the code lengths
+    whose ``foreign_meta`` its tables are."""
+    lit = [8] * 254 + [9] * 4                    # 258 symbols, complete
+    runs = [7] * 127 + [0] * 129 + [8, 8]        # a zero run of 129
+    two, one, none = [1, 1], [0, 0, 3], [0]
+    # a 17, then a 16 that repeats 0 (RFC 1951; K5 repeats the last 7)
+    after17 = ([(7, 0)] + [(16, 3)] * 21 + [(17, 7), (16, 3), (18, 102)]
+               + [(8, 0), (8, 0)] + _sections(two))
+    incomplete_cl = np.zeros(19, np.int64)
+    incomplete_cl[[0, 8]] = 2
+    cases = [
+        ("two distance codes", _header_bits(lit, two), 0, (lit, two)),
+        ("one distance code", _header_bits(lit, one), 0, (lit, one)),
+        ("no distance code", _header_bits(lit, none), 0, (lit, none)),
+        ("runs of 16, 17 and 18", _header_bits(runs, [2, 0, 0, 2, 2, 0, 2]),
+         0, (runs, [2, 0, 0, 2, 2, 0, 2])),
+        ("a 16 after a 17 repeats 0",
+         _header_bits(runs, two, sections=after17), 0, (runs, two)),
+        ("BTYPE 1", _header_bits(lit, two, btype=1), 1, None),
+        ("HLIT 287", _header_bits(lit, two, hlit=287, sections=[]), 1, None),
+        ("HDIST 31", _header_bits(lit, two, hdist=31, sections=[]), 1, None),
+        ("incomplete code-length code",
+         _header_bits(lit, two, cl=incomplete_cl, sections=[]), 1, None),
+        ("a 16 first", _header_bits(lit, two, sections=[(16, 0)]
+                                    + _sections(lit + two)), 1, None),
+        ("a repeat past the end",
+         _header_bits(lit, two, sections=_sections(lit) + [(18, 127)]), 1,
+         None),
+        ("no end-of-block code", _header_bits([8] * 256 + [0, 0], two), 1,
+         None),
+        ("incomplete literal/length code",
+         _header_bits([8] * 254 + [9] * 3 + [0], two), 2, None),
+    ]
+    return cases
+
+
+def k12_edge_case():
+    """K12's inputs on the CPU: (words, offs, wend, bit_end, labels, status,
+    tables).  Each crafted header (``k12_headers``) is a stream of its own,
+    at bit 5 of it, with a few random bytes after it; three more take the
+    first header cut 3 bits before its end, 2 bits after it (6 bits left
+    before its last section, a 4-bit code: the parse wants 7) and inside
+    its HLIT field (status 1).  ``tables`` holds each lane's (lit, dist) lengths, else
+    None."""
+    from ..ops.inflate import pad_words
+
+    rng = np.random.default_rng(64)
+    cases = k12_headers()
+    value, n = cases[0][1]
+    cases += [("truncated in its sections", (value, n), 1, None, n - 3),
+              ("6 bits left before its last section", (value, n), 1, None,
+               n + 2),
+              ("truncated in its fields", (value, n), 1, None, 10)]
+    streams = []
+    for case in cases:
+        value, n = case[1]
+        value = (value << 5) | int(rng.integers(0, 32))
+        nbytes = (n + 5 + 7) // 8
+        streams.append(value.to_bytes(nbytes, "little") + rng.bytes(8))
+    words, base = pad_words(streams)
+    offs = np.asarray(base[:-1], np.int64) * 32 + 5
+    bit_end = np.array([o + (c[4] if len(c) > 4 else 8 * len(s) - 5)
+                        for o, c, s in zip(offs, cases, streams)], np.int64)
+    col = torch.from_numpy
+    return (col(words), col(offs), col(np.asarray(base[1:], np.int64)),
+            col(bit_end), [c[0] for c in cases], [c[2] for c in cases],
+            [c[3] for c in cases])
 
 
 # ---- K11 decode_symbols ----------------------------------------------------

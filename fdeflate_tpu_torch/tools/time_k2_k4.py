@@ -16,7 +16,13 @@ each, as medians of ``--reps`` CUDA-event timings of single calls (ms):
   zlib 6 and 8 MiB of IDAT at zlib 1 (``try_foreign``'s lanes) and in 16 x
   1 MiB IDAT streams at zlib 1 (``try_foreign_batch``'s lanes over the
   concatenated words), with the lanes' count, and the record-decode piece
-  (host tables, K4, read-back: ``discovery._lane_decode``) of each;
+  (per-lane uploads, K4, read-back: ``discovery._lane_decode``) of each;
+* K12 (``ops/header_tables``) on every K5-good header of bench.py's
+  images 16-31 at zlib 6 (16 x 1 MiB, the discovery cell's streams): one
+  call, back to back, and the parse stage around it (its inputs'
+  upload, K12, the read-back of its statuses), with its bound (the header
+  bits read and the tables written at 3.35 TB/s); skipped in a checkout
+  that has no K12;
 
 then the card's name and power limit.  Every K4 output is checked to give
 each stream's whole chain (``discovery._walk``) before it is timed.
@@ -91,6 +97,73 @@ def time_k4(label: str, streams: list[bytes], dev, reps: int) -> None:
           flush=True)
 
 
+def back_to_back_ms(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` with ``reps`` calls queued between
+    two CUDA events (the median of three such runs)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def k12_inputs(dev):
+    """K12's inputs as the discovery cell gives them: every K5-good header
+    of bench.py's images 16-31 at zlib 6 (16 x 1 MiB, image 20's false
+    header among them) over the streams' concatenated words, on ``dev``:
+    (words, offs, wend, bit_end)."""
+    raw = [r.tobytes() for r in make_idat_corpus(32, 1 << 20, 0)[16:]]
+    streams = [zlib.compress(r, 6) for r in raw]
+    words_np, base = pad_words(streams)
+    words = torch.from_numpy(words_np).to(dev)
+    surv = {si: PD.scan_stage1_device(
+        z, device=dev, words=words[base[si]:base[si + 1]])
+        for si, z in enumerate(streams)}
+    valid = PD.validate_stage2_batch(streams, surv, words, base)
+    cols = PD.stage2_batch_inputs(
+        streams, {si: v[0] for si, v in valid.items()}, base)
+    return (words, *torch.from_numpy(cols).to(dev))
+
+
+def k12_bytes(offs, info) -> int:
+    """K12's bytes: each header's bits read, to its symbol start (its 17
+    bits of fixed fields where it was skipped), and its meta and tab
+    written."""
+    status, _bfinal, start = info.cpu().numpy()
+    bits = np.where(status == 1, 17, start - offs.cpu().numpy())
+    return int(((bits + 7) // 8).sum()) + len(status) * 4 * (64 + 160)
+
+
+def time_k12(dev, reps: int) -> None:
+    try:
+        from fdeflate_tpu_torch.ops.header_tables import header_tables
+    except ImportError:
+        print("K12: not in this checkout", flush=True)
+        return
+    args = k12_inputs(dev)
+    info = header_tables(*args)[0]
+    nbytes = k12_bytes(args[1], info)
+    one = cuda_ms(lambda: header_tables(*args), reps)
+    queued = back_to_back_ms(lambda: header_tables(*args), reps)
+    cols = torch.stack(args[1:]).cpu()
+    stage = cuda_ms(lambda: header_tables(
+        args[0], *cols.to(dev))[0].cpu(), reps)
+    counts = np.bincount(info[0].cpu().numpy(), minlength=3).tolist()
+    print(f"K12 zlib6 16 x 1 MiB images 16-31: {info.shape[1]} headers "
+          f"(lanes, skipped, dropped {counts}): kernel {one:.4f} ms one call, "
+          f"{queued:.4f} ms back to back, parse stage (upload, K12, "
+          f"read-back) {stage:.4f} ms; bound {nbytes / 3.35e9:.6f} ms "
+          f"({nbytes} bytes at 3.35 TB/s)", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
@@ -118,6 +191,7 @@ def main() -> None:
     time_k4("text6 8 MiB", [text], dev, args.reps)
     time_k4("idat1 8 MiB", [idat], dev, args.reps)
     time_k4("idat1 16 x 1 MiB batch", batch, dev, args.reps)
+    time_k12(dev, args.reps)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())

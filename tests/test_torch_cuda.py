@@ -42,6 +42,13 @@ from fdeflate_tpu_torch.ops.decode_sep import (decode_sep, decode_sep_plain,
                                                decode_sep_plain_eob)
 from fdeflate_tpu_torch.ops.decode_symbols import (_decode_symbols_live,
                                                    decode_symbols)
+from fdeflate_tpu_torch.ops.header_tables import (
+    DROPPED,
+    LANE,
+    header_tables,
+    header_tables_plain,
+)
+from fdeflate_tpu_torch.ops.inflate import pad_words
 from fdeflate_tpu_torch.ops.inflate_records import (
     NO_LIMIT,
     inflate_records,
@@ -69,8 +76,10 @@ from fdeflate_tpu_torch.tools.edges import (K4_KINDS, K8_UNSAFE, K11_KINDS,
                                             k1_long_lane, k2_edge_cases,
                                             k3_edge_cases, k4_edge_case,
                                             k5_cross_stream, k6_edge_cases,
+                                            k12_edge_case,
                                             k8_unsafe_packed, k9_noise_tokens,
                                             k11_edge_case)
+from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 from fdeflate_tpu_torch.trees import sep_tables, trained_tables
 from fdeflate_tpu_torch.utils import profiling
 
@@ -647,6 +656,106 @@ def test_try_foreign_batch_of_16_cuda_equals_cpu(dev):
     assert got == data
 
 
+def _k12_equals_plain(dev, words, offs, wend, bit_end):
+    """K12 on the card, one launch, equal to the plain version (run on the
+    CPU) in all its outputs; returns the statuses."""
+    before = _launches("header_tables")
+    got = header_tables(*(x.to(dev) for x in (words, offs, wend, bit_end)))
+    assert _launches("header_tables") == before + 1
+    want = header_tables_plain(*(x.cpu() for x in (words, offs, wend, bit_end)))
+    for name, g, w in zip(("info", "meta", "tab"), got, want):
+        assert torch.equal(g.cpu(), w), name
+    return got[0][0].cpu()
+
+
+@pytest.mark.parametrize("source", ["text", "idat"])
+def test_header_tables_at_every_bit(dev, source):
+    """K12 at every bit offset of the first 4096 bits of a zlib-6 stream
+    (most not a header: skipped), and again with the stream ending 600
+    bits after each offset (parses cut short)."""
+    raw = (_foreign(7, 100_000) if source == "text"
+           else make_idat_corpus(1, 1 << 17, 8)[0].tobytes())
+    z = zlib.compress(raw, 6)
+    words = PD.stage_words(z, device="cpu")
+    c = torch.arange(4096, dtype=torch.int64)
+    wend = torch.full((4096,), words.numel(), dtype=torch.int64)
+    status = [_k12_equals_plain(dev, words, c, wend, end) for end in (
+        torch.full((4096,), len(z) * 8, dtype=torch.int64), c + 600)]
+    assert {LANE, 1} <= set(status[0].tolist())
+
+
+def test_header_tables_on_a_batchs_validated_headers(dev):
+    """K12 on every K5-good header of bench.py's images 16-31 at zlib 6
+    (16 x 1 MiB, image 20's false header among them), each bounded by its
+    own stream over the concatenated words."""
+    raw = [r.tobytes() for r in make_idat_corpus(32, 1 << 20, 0)[16:]]
+    streams = [zlib.compress(r, 6) for r in raw]
+    words_np, base = pad_words(streams)
+    words = torch.from_numpy(words_np).to(dev)
+    survivors = {si: PD.scan_stage1_device(
+        z, device=dev, words=words[base[si]:base[si + 1]])
+        for si, z in enumerate(streams)}
+    valid = PD.validate_stage2_batch(streams, survivors, words, base)
+    cols = PD.stage2_batch_inputs(
+        streams, {si: v[0] for si, v in valid.items()}, base)
+    status = _k12_equals_plain(dev, torch.from_numpy(words_np),
+                               *torch.from_numpy(cols))
+    assert (status == DROPPED).sum() >= 1 and (status == LANE).sum() > 100
+
+
+def test_header_tables_on_crafted_headers(dev):
+    """K12 on ``edges.k12_edge_case``: each crafted header's status (a
+    lane with no, one and two distance codes and with runs; skipped for
+    BTYPE, HLIT, HDIST, the code-length code, a leading 16, a repeat past
+    the end, no end-of-block code, truncation; dropped for an incomplete
+    literal/length code), equal to the plain version."""
+    words, offs, wend, bit_end, labels, want, _lengths = k12_edge_case()
+    status = _k12_equals_plain(dev, words, offs, wend, bit_end)
+    assert status.tolist() == want, labels
+
+
+def test_lane_layout_launches_header_tables_once(dev):
+    """One K12 launch per ``lane_layout`` call: ``try_foreign`` and
+    ``try_foreign_batch`` on the card."""
+    data = [_foreign(s, 60_000) for s in range(3)]
+    streams = [zlib.compress(d, 6) for d in data]
+    before = _launches("header_tables")
+    assert P.try_foreign(streams[0], device=dev) == data[0]
+    assert _launches("header_tables") == before + 1
+    assert P.try_foreign_batch(streams, device=dev) == data
+    assert _launches("header_tables") == before + 2
+
+
+def test_try_foreign_batch_counts_equal_cpu(dev):
+    """Small streams (a false header past one stream's trailer, a stored
+    stream, a bad zlib header among them) through ``try_foreign_batch`` on
+    the card and on the CPU: zlib's bytes where discovery keeps the stream,
+    and the same discovery counters."""
+    def blocks(d, step):   # a block ended every ``step`` bytes
+        co = zlib.compressobj(6)
+        return b"".join(co.compress(d[i:i + step]) + (
+            co.flush(zlib.Z_BLOCK) if i + step < len(d) else b"")
+            for i in range(0, len(d), step)) + co.flush()
+
+    image20 = zlib.compress(make_idat_corpus(21, 1 << 20, 0)[20], 6)
+    rng = np.random.default_rng(9)
+    data = [np.where(rng.integers(0, 4, 3000) > 0, rng.integers(-8, 8, 3000),
+                     0).astype(np.uint8).tobytes() for _ in range(3)]
+    good = [blocks(d, 1000) for d in data]
+    streams = [good[0], good[1] + image20[1302677 // 8:][:120], good[2],
+               zlib.compress(b"stored" * 99, 0), b"\x00\x01" + good[0][2:]]
+    runs = []
+    for device in (dev, "cpu"):
+        before = profiling.counts()
+        got = P.try_foreign_batch(streams, max_steps=256, device=device)
+        n = {k: v - before.get(k, 0) for k, v in profiling.counts().items()
+             if k.startswith("discovery.") and v != before.get(k, 0)}
+        runs.append((got, n))
+    assert runs[0] == runs[1]
+    assert runs[0][0] == data + [None, None]
+    assert runs[0][1]["discovery.lanes_dropped"] == 1
+
+
 @pytest.mark.parametrize("case", range(len(k2_edge_cases())))
 def test_combine_edges(dev, case):
     """K2 on its edge inputs (lanes of 0 bits, lanes shorter than a word,
@@ -876,7 +985,6 @@ def test_traced_batch_puts_k4_inside_its_span(dev, tmp_path):
     counters count the call, and the bytes are zlib's."""
     from portbench import trace as PT
 
-    from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 
     raw = [r.tobytes() for r in make_idat_corpus(3, 1 << 20, seed=5)]
     streams = [zlib.compress(r, 6) for r in raw]
@@ -910,7 +1018,6 @@ def test_a_false_header_costs_no_stream_of_the_batch(dev):
     """bench.py's images 16-31 at zlib 6 through ``decompress_batch``: K5
     takes a false header of image 20 whose trees cannot be built; that
     header is dropped, and every stream decodes by block discovery."""
-    from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
 
     raw = [r.tobytes() for r in make_idat_corpus(32, 1 << 20, 0)[16:]]
     streams = [zlib.compress(r, 6) for r in raw]
@@ -934,9 +1041,9 @@ def test_profiling_sync_waits_on_cuda_tensors(dev):
 
 
 def _every_wrapper(dev):
-    """(name, kernel call, plain call) of each of the eleven kernels' entry
+    """(name, kernel call, plain call) of each of the twelve kernels' entry
     points (K7's through both its wrappers) on small inputs on ``dev``; the
-    plain call of K11 runs on the CPU."""
+    plain calls of K11 and K12 run on the CPU."""
     data, lengths, C = _inputs(dev, "ragged_B3_N8192_C4")
     B, N = data.shape
     t = trained_tables(str(dev))
@@ -960,6 +1067,7 @@ def _every_wrapper(dev):
     zw = PD.stage_words(z, device=dev)
     c = torch.from_numpy(PD.scan_stage1_device(z, device="cpu")).to(dev)
     k11 = k11_edge_case("stacked tables")
+    k12 = k12_edge_case()[:4]
     return [
         ("assign_pack", lambda: assign_pack(data, lengths, C, t),
          lambda: assign_pack_plain(data, lengths, C, t)),
@@ -985,6 +1093,8 @@ def _every_wrapper(dev):
          lambda: (combine_plain(win, bits, pos0, B, W),)),
         ("decode_symbols", lambda: _flat(decode_symbols(**_on(k11, dev))),
          lambda: tuple(x.to(dev) for x in _flat(decode_symbols(**k11)))),
+        ("header_tables", lambda: header_tables(*(x.to(dev) for x in k12)),
+         lambda: tuple(x.to(dev) for x in header_tables_plain(*k12))),
     ]
 
 

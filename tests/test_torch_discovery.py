@@ -247,14 +247,15 @@ def test_decompress_batch_validates_once(monkeypatch):
 
 
 def test_discovery_runs_one_pipeline():
-    """K5 and K4 each have one call site in the module, K4's inputs take
-    the parsed tables, and no one-stream copy of the scan or the chain
+    """K5, K12 and K4 each have one call site in the module, K4's inputs
+    take the parsed tables, and no one-stream copy of the scan or the chain
     walk is left."""
     tree = ast.parse(inspect.getsource(PD))
     calls = collections.Counter(
         node.func.id for node in ast.walk(tree)
         if isinstance(node, ast.Call) and isinstance(node.func, ast.Name))
     assert calls["validate_headers"] == calls["inflate_records"] == 1
+    assert calls["header_tables"] == 1
     for fn in (PD.lane_inputs, PD._lane_decode):
         tables = inspect.signature(fn).parameters["tables"]
         assert tables.default is inspect.Parameter.empty

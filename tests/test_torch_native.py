@@ -185,7 +185,7 @@ def _k4_records(z: bytes):
     L = len(lanes)
     recs, bpos, eob, _nout = PDisc._lane_decode(
         lanes, 2048, words, np.full(L, words.numel()), np.full(L, len(z) * 8),
-        tables)
+        K4.pack_tables(tables, dev))
     chain, _exit, _done = PDisc._walk(lanes, 0, L, bpos, eob)
     return recs[:, chain].T.reshape(-1).numpy()
 

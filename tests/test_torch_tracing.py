@@ -23,6 +23,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from fdeflate_tpu_torch import _build, compress_batch_ultra_fast
+from fdeflate_tpu_torch.ops import header_tables as HT
 from fdeflate_tpu_torch.ops import inflate as PI
 from fdeflate_tpu_torch.parallel import device_pipeline as DP
 from fdeflate_tpu_torch.parallel import discovery as PD
@@ -80,18 +81,19 @@ def _with_false_header(stream: bytes) -> bytes:
 def _refuse(monkeypatch, stream: bytes, which=slice(None)) -> None:
     """Make the table build fail for ``stream``'s headers ``which`` alone
     (K5 refuses incomplete trees, so no small stream reaches the failure by
-    itself: this stands for a header K5 let through)."""
+    itself: this stands for a header K5 let through).  The plain K12
+    builds each header's tables through ``HT.block_tables``."""
     lanes = PD._parse_lanes(
         stream, PD.find_block_boundaries(stream, device="cpu")[0])[0]
     refused = {lane[3].tobytes() for lane in lanes[which]}
-    build = PD.block_tables
+    build = HT.block_tables
 
     def incomplete(lengths, hlit):
         if lengths.tobytes() in refused:
             raise ValueError("tree must be exactly complete")
         return build(lengths, hlit)
 
-    monkeypatch.setattr(PD, "block_tables", incomplete)
+    monkeypatch.setattr(HT, "block_tables", incomplete)
 
 
 def _delta(before: dict) -> dict:
@@ -196,9 +198,11 @@ def test_launch_counts_each_launch_of_a_kernel(monkeypatch):
 
 # -- the inflate path ------------------------------------------------------
 
+# ``discovery.tables`` twice: the lanes' rows taken (``lane_layout``), then
+# their per-lane inputs uploaded (``lane_inputs``).
 STAGES = ["discovery.stage1", "discovery.validate", "discovery.parse",
-          "discovery.tables", "discovery.records", "discovery.chain",
-          "discovery.stitch"]
+          "discovery.tables", "discovery.tables", "discovery.records",
+          "discovery.chain", "discovery.stitch"]
 
 
 def test_try_foreign_counts_and_opens_the_stages_in_order(opened):
@@ -215,8 +219,7 @@ def test_try_foreign_batch_counts_and_opens_the_stages_in_order(opened):
     before = profiling.counts()
     got = PD.try_foreign_batch([GOOD, OTHER], max_steps=STEPS, device="cpu")
     assert got == [DATA, zlib.decompress(OTHER)]
-    assert opened == ["discovery.stage1"] * 2 + STAGES[1:2] + [
-        "discovery.parse"] * 2 + STAGES[3:]
+    assert opened == ["discovery.stage1"] * 2 + STAGES[1:]
     n = _delta(before)
     assert n["discovery.streams"] == 2
     assert n["discovery.lanes"] >= n["discovery.lanes_chained"] == 2 + 3
@@ -311,19 +314,20 @@ def test_one_stream_takes_the_batch_pipeline(name, monkeypatch):
 
 def test_discovery_builds_each_headers_tables_once(monkeypatch):
     built = []
-    build = PD.block_tables
+    build = HT.block_tables
 
     def counted(lengths, hlit):
         built.append(hlit)
         return build(lengths, hlit)
 
-    monkeypatch.setattr(PD, "block_tables", counted)
+    monkeypatch.setattr(HT, "block_tables", counted)
     before = profiling.counts()
     got = PD.try_foreign_batch([_with_false_header(GOOD), OTHER],
                                max_steps=STEPS, device="cpu")
     assert got == [DATA, zlib.decompress(OTHER)]
     n = _delta(before)
     assert len(built) == n["discovery.lanes"] + n["discovery.lanes_dropped"]
+    assert n["discovery.headers"] == len(built)   # none skipped here
 
 
 def test_parse_lanes_drops_image20s_false_header():
@@ -335,7 +339,13 @@ def test_parse_lanes_drops_image20s_false_header():
     lanes, tables, dropped = PD._parse_lanes(z, offsets)
     assert [lane[0] for lane in lanes] == [16] and len(tables) == 1
     assert dropped == {FALSE_HEADER}
-    assert _delta(before) == {"discovery.lanes_dropped": 1}
+    assert _delta(before) == {}   # the plain helper counts nothing
+    # K12's plain version drops it too, under the same contract.
+    words = PD.stage_words(z, device="cpu")
+    info, _meta, _tab = HT.header_tables(
+        words, torch.from_numpy(offsets), torch.full((2,), words.numel()),
+        torch.full((2,), len(z) * 8))
+    assert info[0].tolist() == [HT.LANE, HT.DROPPED]
 
 
 def test_decompress_batch_leaves_streams_to_the_sequential_span(
