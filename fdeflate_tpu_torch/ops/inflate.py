@@ -31,7 +31,7 @@ import torch
 
 from .. import errors as E
 from ..tables import FIXED_CODE_LENGTHS
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import inflate_host as host
 from .inflate_host import _CLS_EOB, _LIT_BASE, _canonical_order
 from .inflate_records import (
@@ -254,28 +254,45 @@ def record_budget(max_steps: int) -> int:
     return min(8192, 1 << max(4, (4 * max_steps - 1).bit_length()))
 
 
+def _advance(st) -> int:
+    """``_advance_headers`` on one stream; returns the bytes its stored
+    blocks appended."""
+    n = len(st.out)
+    host._advance_headers(st)
+    return len(st.out) - n
+
+
 def _seq_launch(states, lanes, words, word_base, K: int, dev):
     """One K4 launch over the current block of the streams in ``lanes``.
 
-    Returns (records [K, len(lanes)], bpos int64 (stream bits), done,
-    nout) with bpos, done and nout on the host."""
-    for i in lanes:
-        st = states[i]
-        if st.meta_tab is None:
-            if st.lengths == "fixed":
-                st.meta_tab = fixed_meta_tab()
-            else:
-                st.meta_tab = block_tables(*st.lengths)
-    meta, tab = pack_tables([states[i].meta_tab for i in lanes], dev)
-    base = word_base[lanes] * 32
-    start = base + np.array([states[i].bitpos for i in lanes], np.int64)
-    bit_end = base + np.array([len(states[i].data) * 8 for i in lanes], np.int64)
-    out0 = np.array([len(states[i].out) for i in lanes], np.int64)
-    per_lane = [torch.from_numpy(a).to(dev)
-                for a in (start, word_base[np.asarray(lanes) + 1], bit_end, out0)]
-    recs, bpos, nout, done = inflate_records(words, *per_lane, meta, tab, K)
-    return (recs, bpos.cpu().numpy() - base, done.cpu().numpy(),
-            nout.cpu().numpy())
+    Builds the tables of each lane that entered a new block (counted by
+    kind) in the span ``sequential.parse``; the launch runs through the
+    read-back of its exits in ``sequential.records``.  Returns (records
+    [K, len(lanes)], bpos int64 (stream bits), done, nout) with bpos, done
+    and nout on the host."""
+    with span("sequential.parse"):
+        entered = [states[i] for i in lanes if states[i].meta_tab is None]
+        fixed = sum(st.lengths == "fixed" for st in entered)
+        for st in entered:
+            st.meta_tab = (fixed_meta_tab() if st.lengths == "fixed"
+                           else block_tables(*st.lengths))
+        meta, tab = pack_tables([states[i].meta_tab for i in lanes], dev)
+        base = word_base[lanes] * 32
+        start = base + np.array([states[i].bitpos for i in lanes], np.int64)
+        bit_end = base + np.array([len(states[i].data) * 8 for i in lanes],
+                                  np.int64)
+        out0 = np.array([len(states[i].out) for i in lanes], np.int64)
+        per_lane = [torch.from_numpy(a).to(dev)
+                    for a in (start, word_base[np.asarray(lanes) + 1], bit_end,
+                              out0)]
+    count("sequential.blocks.fixed", fixed)
+    count("sequential.blocks.dynamic", len(entered) - fixed)
+    count("sequential.launches")
+    with span("sequential.records"):
+        recs, bpos, nout, done = inflate_records(words, *per_lane, meta, tab,
+                                                 K)
+        return (recs, bpos.cpu().numpy() - base, done.cpu().numpy(),
+                nout.cpu().numpy())
 
 
 def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
@@ -287,18 +304,30 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
     blocks; each launch decodes the current dynamic or fixed block of every
     active stream until EOB, an error or K records.  The 32 KiB window of
     prior output stays on the device across launches in which no stream
-    left its block.  Returns per stream the bytes or the error.  Runs in
-    the span ``inflate.sequential``.
+    left its block.  Returns per stream the bytes or the error.
+
+    Runs in the span ``inflate.sequential``, and inside it, one after
+    another and not nested, ``sequential.parse`` (the streams' words
+    staged; every ``_advance_headers``; each launch's tables and per-lane
+    uploads), ``sequential.records`` (K4 through the read-back of its
+    exits) and ``sequential.materialize`` (the records expanded, the bytes
+    read back, the windows kept, uploaded or read back, each stream's bytes
+    appended).  Counts ``sequential.streams``, ``sequential.launches``,
+    ``sequential.blocks.dynamic`` / ``.fixed`` (blocks entered by a
+    launch), ``sequential.stored_bytes`` (bytes the host copied from stored
+    blocks) and ``sequential.window_host`` (launches whose windows were
+    uploaded from the host).
     """
     with span("inflate.sequential"):
         dev = device_of(device)
+        count("sequential.streams", len(streams))
         if not streams:
             return []
         states = [host._StreamState(s) for s in streams]
-        for st in states:
-            host._advance_headers(st)
-        words_np, word_base = pad_words(streams)
-        words = torch.from_numpy(words_np).to(dev)
+        with span("sequential.parse"):
+            stored = sum(_advance(st) for st in states)
+            words_np, word_base = pad_words(streams)
+            words = torch.from_numpy(words_np).to(dev)
         K = record_budget(max_steps)
         win_dev, win_lanes = None, None   # device windows of the last launch
 
@@ -313,35 +342,43 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
             produced = np.where(failed, 0, nout)
             cap = max(256, 1 << int(np.ceil(np.log2(
                 max(int(produced.max()), 1)))))
-            if win_lanes == lanes:
-                window = win_dev
-            else:
-                window = torch.from_numpy(
-                    np.stack([states[i].window for i in lanes])).to(dev)
-            out, new_window = materialize(
-                recs_to_records(recs), window,
-                torch.from_numpy(produced).to(dev), cap)
-            out_np = out.cpu().numpy()
-            if (done == DONE_SLOTS).all():
-                # No stream leaves its block: the windows stay on the device.
-                win_dev, win_lanes = new_window, lanes
-                new_window_np = None
-            else:
-                win_dev, win_lanes = None, None
-                new_window_np = new_window.cpu().numpy()
-            for j, i in enumerate(lanes):
-                st = states[i]
-                if failed[j]:
-                    st.error = E.error_for_status(_STATUS[int(done[j])])
-                    st.done = True
-                    continue
-                st.out += out_np[j, : produced[j]].tobytes()
-                if new_window_np is not None:
-                    st.window = new_window_np[j]
-                st.bitpos = int(bpos[j])
-                if done[j] == DONE_EOB:
-                    st.in_block = False
-                    host._advance_headers(st)
+            ended = []                    # lanes that reached their EOB
+            with span("sequential.materialize"):
+                if win_lanes == lanes:
+                    window = win_dev
+                else:
+                    count("sequential.window_host")
+                    window = torch.from_numpy(
+                        np.stack([states[i].window for i in lanes])).to(dev)
+                out, new_window = materialize(
+                    recs_to_records(recs), window,
+                    torch.from_numpy(produced).to(dev), cap)
+                out_np = out.cpu().numpy()
+                if (done == DONE_SLOTS).all():
+                    # No stream leaves its block: the windows stay on the
+                    # device.
+                    win_dev, win_lanes = new_window, lanes
+                    new_window_np = None
+                else:
+                    win_dev, win_lanes = None, None
+                    new_window_np = new_window.cpu().numpy()
+                for j, i in enumerate(lanes):
+                    st = states[i]
+                    if failed[j]:
+                        st.error = E.error_for_status(_STATUS[int(done[j])])
+                        st.done = True
+                        continue
+                    st.out += out_np[j, : produced[j]].tobytes()
+                    if new_window_np is not None:
+                        st.window = new_window_np[j]
+                    st.bitpos = int(bpos[j])
+                    if done[j] == DONE_EOB:
+                        st.in_block = False
+                        ended.append(st)
+            if ended:
+                with span("sequential.parse"):
+                    stored += sum(_advance(st) for st in ended)
+        count("sequential.stored_bytes", stored)
 
         results: list[bytes | E.DecompressionError] = []
         for st in states:
@@ -352,4 +389,3 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
             else:
                 results.append(bytes(st.out))
         return results
-

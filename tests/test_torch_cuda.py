@@ -1031,6 +1031,24 @@ def test_a_false_header_costs_no_stream_of_the_batch(dev):
     assert n["discovery.streams"] == 16
 
 
+def test_a_batch_of_256_thumbnails_on_the_card_equals_zlib(dev):
+    """The thumbnail cell's call: 256 128 x 128 RGB images with real PNG
+    rows at zlib 6, every stream under block discovery's threshold, so
+    the sequential path decodes them all, one K4 launch per round."""
+    from portbench.thumbnails import make_rgb_thumbnails
+
+    streams = [zlib.compress(r.tobytes(), 6)
+               for r in make_rgb_thumbnails(256, seed=4)]
+    before = profiling.counts()
+    got = P.decompress_batch(streams, device=dev)
+    assert got == [zlib.decompress(z) for z in streams]
+    n = {k: v - before.get(k, 0) for k, v in profiling.counts().items()}
+    assert n.get("discovery.streams", 0) == 0
+    assert n["sequential.streams"] == 256
+    assert n["sequential.blocks.dynamic"] >= 512
+    assert n["launch.inflate_records"] == n["sequential.launches"] >= 2
+
+
 def test_profiling_sync_waits_on_cuda_tensors(dev):
     from fdeflate_tpu_torch.utils import profiling as PProf
 

@@ -357,8 +357,10 @@ def test_decompress_batch_leaves_streams_to_the_sequential_span(
     got = PD.decompress_batch([tiny, stored, GOOD], max_steps=STEPS,
                               device="cpu")
     assert got == [b"hello world" * 3, raw, DATA]
-    assert opened[0] == "inflate.batch" and opened[-1] == "inflate.sequential"
-    assert "discovery.stitch" in opened
+    seq = opened.index("inflate.sequential")
+    assert opened[0] == "inflate.batch" and "discovery.stitch" in opened[:seq]
+    assert opened[seq + 1:] and all(n.startswith("sequential.")
+                                    for n in opened[seq + 1:])
     n = _delta(before)
     assert n["inflate.calls"] == 1 and n["discovery.streams"] == 3
     assert n["discovery.fallback.first_block"] == 2
@@ -373,6 +375,107 @@ def test_the_sequential_span_nests_in_the_batch_span(tmp_path):
           if e.get("name") in ("inflate.batch", "inflate.sequential")}
     assert iv["inflate.batch"][0] <= iv["inflate.sequential"][0]
     assert iv["inflate.sequential"][1] <= iv["inflate.batch"][1]
+
+
+# -- the sequential path ---------------------------------------------------
+
+SEQ_RAW = _corpus(300, 9)
+
+
+def _fixed(data: bytes) -> bytes:
+    co = zlib.compressobj(6, strategy=zlib.Z_FIXED)
+    return co.compress(data) + co.flush()
+
+
+def _seq_batch():
+    """GOOD (two dynamic blocks), one fixed block, one stored block: the
+    first launch takes GOOD's first block and the fixed one, the second
+    GOOD's second; the host copies the 300 stored bytes."""
+    batch = [GOOD, _fixed(SEQ_RAW), zlib.compress(SEQ_RAW, 0)]
+    # BFINAL and BTYPE of each first block: dynamic, fixed final, stored final.
+    assert [z[2] & 7 for z in batch] == [0b100, 0b011, 0b001]
+    return batch, [DATA, SEQ_RAW, SEQ_RAW]
+
+
+SEQ_ROUND = ["sequential.parse", "sequential.records",
+             "sequential.materialize"]
+
+
+def test_the_sequential_stages_open_in_order(opened):
+    """The streams' framing parsed, then per launch its tables, K4, the
+    bytes; after a launch in which a stream reached its EOB, its next
+    header."""
+    batch, want = _seq_batch()
+    assert PI.decompress_sequential(batch, max_steps=STEPS,
+                                    device="cpu") == want
+    assert opened == ["inflate.sequential", "sequential.parse",
+                      *SEQ_ROUND, "sequential.parse",
+                      *SEQ_ROUND, "sequential.parse"]
+
+
+def test_the_sequential_counters_rise_by_blocks_launches_and_stored_bytes():
+    batch, want = _seq_batch()
+    before = profiling.counts()
+    assert PI.decompress_sequential(batch, max_steps=STEPS,
+                                    device="cpu") == want
+    assert {k: v for k, v in _delta(before).items()
+            if k.startswith("sequential.")} == {
+        "sequential.streams": 3, "sequential.launches": 2,
+        "sequential.blocks.dynamic": 2, "sequential.blocks.fixed": 1,
+        "sequential.stored_bytes": 300, "sequential.window_host": 2}
+
+
+def test_windows_stay_on_the_device_while_no_stream_leaves_its_block(opened):
+    """16 record slots a launch: a block takes many launches, each counted
+    once per block; the windows go through the host only for the first
+    launch and after each of the two launches in which a block ended."""
+    batch, want = _seq_batch()
+    before = profiling.counts()
+    assert PI.decompress_sequential(batch[:2], max_steps=4,
+                                    device="cpu") == want[:2]
+    n = _delta(before)
+    assert n["sequential.blocks.dynamic"] == 2
+    assert n["sequential.blocks.fixed"] == 1
+    assert n["sequential.window_host"] == 3
+    assert n["sequential.launches"] > 20
+    assert "sequential.stored_bytes" not in n
+    assert opened.count("sequential.records") == n["sequential.launches"]
+
+
+def test_the_sequential_stage_spans_lie_in_its_span_apart(tmp_path):
+    batch, want = _seq_batch()
+    with profiling.trace(str(tmp_path)):
+        assert PD.decompress_batch(batch, max_steps=STEPS,
+                                   device="cpu") == want
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    iv = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                if e.get("ph") == "X" and e.get("name") in (
+                    "inflate.sequential", *SEQ_ROUND))
+    (lo, hi, outer), stages = iv[0], iv[1:]
+    assert outer == "inflate.sequential"
+    assert [n for _s, _t, n in stages] == [
+        "sequential.parse", *SEQ_ROUND, "sequential.parse", *SEQ_ROUND,
+        "sequential.parse"]
+    assert all(lo <= s and t <= hi for s, t, _n in stages)
+    assert all(a[1] <= b[0] for a, b in zip(stages, stages[1:]))
+
+
+def test_sequential_spans_and_counts_change_no_output_and_no_tensor_work():
+    batch, want = _seq_batch()
+    runs = []
+    for traced in (False, True):
+        with _Ops() as mode:
+            if traced:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU]):
+                    got = PI.decompress_sequential(batch, max_steps=STEPS,
+                                                   device="cpu")
+            else:
+                got = PI.decompress_sequential(batch, max_steps=STEPS,
+                                               device="cpu")
+        assert got == want
+        runs.append(mode.names)
+    assert runs[0] == runs[1] and runs[0]
 
 
 class _Ops(TorchDispatchMode):
