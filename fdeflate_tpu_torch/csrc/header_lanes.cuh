@@ -15,7 +15,11 @@
 //     kHdrDropped where the table build fails: a literal/length code, or a
 //     distance code of two or more codes, that is not exactly complete;
 //     else kHdrLane, with foreign_meta's meta[64] and tab[160] (its special
-//     cases for no and for one distance code included).
+//     cases for no and for one distance code included);
+//   * host_ok 1 where the host's own tree rule (_check_trees) takes the
+//     lane's trees too: it refuses a single distance code longer than 1
+//     bit, which foreign_meta takes.  0 for every header that is not a
+//     lane.
 //
 // The parse is one serial chain; every thread of the group runs it in step
 // (the same loads, broadcast, and the same branches), so each holds the
@@ -87,9 +91,9 @@ FDT_HD void canon_rows(const int* cnt, int32_t* b, int32_t* k, int32_t* acc,
   }
 }
 
-// The header at bit c: info[0] its status, info[H] BFINAL and info[2 * H]
-// its symbol start (0 and -1 when skipped); meta[64] and tab[160] its
-// tables, zero unless it is a lane.
+// The header at bit c: info[0] its status, info[H] BFINAL, info[2 * H]
+// its symbol start (0 and -1 when skipped) and info[3 * H] host_ok;
+// meta[64] and tab[160] its tables, zero unless it is a lane.
 template <class G>
 FDT_GROUP void header_group(const G& g, const uint32_t* words, int64_t wend,
                             int64_t c, int64_t bit_end, HdrScratch& sh,
@@ -184,6 +188,7 @@ FDT_GROUP void header_group(const G& g, const uint32_t* words, int64_t wend,
   // length before it: chunks 0-8 the literal/length code, 9 the distance.
   int cnt[2][16] = {};
   int nz_d = 0;
+  bool host_ok = false;
   if (status == kHdrLane) {
     g.sync();
     typename G::template Var<int> rk[10];
@@ -207,6 +212,7 @@ FDT_GROUP void header_group(const G& g, const uint32_t* words, int64_t wend,
     for (int L = 1; L <= 15; ++L) nz_d += cnt[1][L];
     if (!complete15(cnt[0]) || (nz_d >= 2 && !complete15(cnt[1])))
       status = kHdrDropped;
+    host_ok = status == kHdrLane && (nz_d != 1 || cnt[1][1] == 1);
     if (status == kHdrLane) {
       g.each([&](int i) {
         for (int k = i; k < kTabEntries; k += g.m) sh.ent[k] = kSentinel;
@@ -260,6 +266,7 @@ FDT_GROUP void header_group(const G& g, const uint32_t* words, int64_t wend,
       info[0] = status;
       info[H] = status == kHdrSkipped ? 0 : bfinal;
       info[2 * H] = status == kHdrSkipped ? -1 : pos;
+      info[3 * H] = host_ok ? 1 : 0;
     }
   });
 }

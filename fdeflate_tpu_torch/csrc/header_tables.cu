@@ -7,8 +7,9 @@
 // Python, with the card idle.  One launch takes every header of a call
 // (all streams of a batch, over their concatenated words) from the stream
 // words to its status, symbol start and (meta[64], tab[160]) rows, which
-// stay on the card for K4; the host reads back the three int64 rows of
-// `info` alone.
+// stay on the card for K4; the host reads back the four int64 rows of
+// `info` alone.  Block discovery launches it once a call; the sequential
+// path once a round, over the streams that reached a dynamic header.
 //
 // Bound on the H100: the serial section decode of a header (up to 316
 // code lengths, each a 7-bit table lookup after the last), a few
@@ -49,8 +50,8 @@ header_tables_kernel(const uint32_t* __restrict__ words,
 
 // Per header h: its absolute first bit `offs[h]` into `words` (W words),
 // its stream's word end `wend[h]` (words at or past it, or past W, read as
-// 0) and payload end bit `bit_end[h]`.  Writes info int64[3, H] (status,
-// BFINAL, symbol start), meta int32[H, 64] and tab int32[H, 160].
+// 0) and payload end bit `bit_end[h]`.  Writes info int64[4, H] (status,
+// BFINAL, symbol start, host_ok), meta int32[H, 64] and tab int32[H, 160].
 extern "C" int fdt_header_tables(const void* words, const void* offs,
                                  const void* wend, const void* bit_end,
                                  int64_t W, void* info, void* meta, void* tab,

@@ -5,10 +5,14 @@ JAX counterpart: ``fdeflate_tpu/ops/inflate.py`` — ``materialize``,
 ``_seq_pallas_launch`` and ``_decompress_batch_sequential`` with the
 record-kernel engine (``decompress_batch``, which routes big streams to
 block discovery first, is in ``parallel/discovery.py``).  The symbol phase is K4
-(``ops/inflate_records.py``); the host parses the framing and block headers
-between launches with the port's copies of the JAX package's host
-helpers (``ops/inflate_host.py``: ``_StreamState``, ``_advance_headers``,
-``_parse_dynamic_lengths``).
+(``ops/inflate_records.py``).  Between launches the host reads the framing,
+stored and fixed blocks (``_frame``, after the port's copy of the JAX
+package's ``_advance_headers`` in ``ops/inflate_host.py``); the dynamic
+headers the streams reached are parsed, and their K4 tables built, by K12
+(``ops/header_tables.py``), one launch a round, into a bank of tables that
+stays on the device.  A header K12 does not make a lane of, or whose trees
+the host's rule refuses, is an error: the host's parse of it
+(``_header_error``) gives only its class.
 
 Where the JAX sequential path re-decodes a stream on its XLA engine
 (``decode_symbols``) after any record-kernel anomaly, the port has no
@@ -25,6 +29,7 @@ reads.
 from __future__ import annotations
 
 import functools
+import zlib
 
 import numpy as np
 import torch
@@ -33,6 +38,7 @@ from .. import errors as E
 from ..tables import FIXED_CODE_LENGTHS
 from ..utils.profiling import count, span
 from . import inflate_host as host
+from .header_tables import LANE, header_tables
 from .inflate_host import _CLS_EOB, _LIT_BASE, _canonical_order
 from .inflate_records import (
     DONE_BAD_DIST,
@@ -41,9 +47,9 @@ from .inflate_records import (
     DONE_SLOTS,
     DONE_TOO_FAR,
     DONE_TRUNCATED,
-    block_tables,
+    META_ROWS,
+    TAB_PAIRS,
     inflate_records,
-    pack_tables,
     recs_to_records,
 )
 from .ultrafast import device_of, row_cumsum
@@ -240,12 +246,14 @@ def fixed_meta_tab():
 def pad_words(streams: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
     """Little-endian words of the streams, each padded to a word and by 8
     zero bytes (``discovery.stage_words``), concatenated.  Returns (words
-    int32[W], word_base int64[S + 1])."""
-    padded = [s + bytes((-len(s)) % 4) + bytes(8) for s in streams]
+    int32[W], word_base int64[S + 1]); the words are one copy of the
+    streams' bytes, writable."""
+    pads = [bytes((-len(s)) % 4 + 8) for s in streams]
     base = np.zeros(len(streams) + 1, np.int64)
-    base[1:] = np.cumsum([len(p) // 4 for p in padded])
-    words = np.frombuffer(b"".join(padded), "<u4").astype(np.int32)
-    return words, base
+    base[1:] = np.cumsum([(len(s) + len(p)) // 4
+                          for s, p in zip(streams, pads)])
+    buf = bytearray().join(x for pair in zip(streams, pads) for x in pair)
+    return np.frombuffer(buf, "<i4").astype(np.int32, copy=False), base
 
 
 def record_budget(max_steps: int) -> int:
@@ -254,42 +262,189 @@ def record_budget(max_steps: int) -> int:
     return min(8192, 1 << max(4, (4 * max_steps - 1).bit_length()))
 
 
-def _advance(st) -> int:
-    """``_advance_headers`` on one stream; returns the bytes its stored
-    blocks appended."""
-    n = len(st.out)
-    host._advance_headers(st)
-    return len(st.out) - n
+@functools.lru_cache(maxsize=8)
+def _fixed_rows(dev: torch.device):
+    """``fixed_meta_tab()`` as (meta int32[1, 64], tab int32[1, 160]) on
+    ``dev``, uploaded once per device."""
+    meta, tab = fixed_meta_tab()
+    return (torch.from_numpy(meta).reshape(1, -1).to(dev),
+            torch.from_numpy(tab).reshape(1, -1).to(dev))
 
 
-def _seq_launch(states, lanes, words, word_base, K: int, dev):
-    """One K4 launch over the current block of the streams in ``lanes``.
+def _frame(st) -> int | None:
+    """``_advance_headers`` up to a dynamic header, which it does not parse:
+    the zlib header at bit 0, stored blocks (copied), a fixed block
+    entered, the Adler-32 after the last block, with the original's errors.
+    Returns the stream bit of the dynamic header it stopped at (the stream
+    left there, ``last_block`` as before the header), else None."""
+    r = host._HostBitReader(st.data, st.bitpos)
+    try:
+        if st.bitpos == 0:
+            cmf = r.take(8)
+            flg = r.take(8)
+            if (cmf & 0x0F != 0x08 or (cmf & 0xF0) > 0x70 or flg & 0x20 != 0
+                    or ((cmf << 8) | flg) % 31 != 0):
+                raise E.BadZlibHeader()
+        while not st.done and not st.in_block:
+            if st.last_block:
+                r.pos = (r.pos + 7) & ~7
+                stored = int.from_bytes(r.take(32).to_bytes(4, "little"),
+                                        "big")
+                if stored != zlib.adler32(st.out):
+                    raise E.WrongChecksum()
+                st.done = True
+                break
+            header = r.take(3)
+            btype = header >> 1
+            if btype == 0b10:
+                st.bitpos = r.pos - 3
+                return st.bitpos
+            st.last_block = bool(header & 1)
+            if btype == 0b00:
+                r.pos = (r.pos + 7) & ~7
+                length = r.take(16)
+                nlen = r.take(16)
+                if nlen != (~length & 0xFFFF):
+                    raise E.InvalidUncompressedBlockLength()
+                byte0 = r.pos >> 3
+                if len(st.data) - byte0 < length:
+                    raise E.InsufficientInput()
+                chunk = st.data[byte0: byte0 + length]
+                st.out += chunk
+                host._update_window(st, np.frombuffer(chunk, np.uint8))
+                r.pos += length * 8
+            elif btype == 0b01:
+                st.in_block = True
+            else:
+                raise E.InvalidBlockType()
+    except E.DecompressionError as err:
+        st.error = err
+        st.done = True
+    st.bitpos = r.pos
+    return None
 
-    Builds the tables of each lane that entered a new block (counted by
-    kind) in the span ``sequential.parse``; the launch runs through the
-    read-back of its exits in ``sequential.records``.  Returns (records
-    [K, len(lanes)], bpos int64 (stream bits), done, nout) with bpos, done
-    and nout on the host."""
+
+class _Bank:
+    """The K4 tables of each stream's current block, on the device for the
+    call: meta int32[S, 64], tab int32[S, 160], row i stream i's.  K12's
+    rows and the fixed code's are written in stream order, with no wait on
+    the device."""
+
+    def __init__(self, S: int, dev: torch.device):
+        self.dev = dev
+        self.meta = torch.zeros(S, META_ROWS, dtype=torch.int32, device=dev)
+        self.tab = torch.zeros(S, TAB_PAIRS, dtype=torch.int32, device=dev)
+
+    def put(self, slots: torch.Tensor, meta, tab) -> None:
+        self.meta.index_copy_(0, slots, meta)
+        self.tab.index_copy_(0, slots, tab)
+
+    def put_fixed(self, streams: list[int]) -> None:
+        meta, tab = _fixed_rows(self.dev)
+        n = len(streams)
+        self.put(torch.tensor(streams, dtype=torch.int64, device=self.dev),
+                 meta.expand(n, -1), tab.expand(n, -1))
+
+    def take(self, lanes: torch.Tensor):
+        return (self.meta.index_select(0, lanes),
+                self.tab.index_select(0, lanes))
+
+
+def _bit_rows(states, si: np.ndarray, bits, word_base):
+    """(rows int64[3, n], base): the streams ``si`` at their stream bits
+    ``bits`` over the concatenated words, as the kernels take them (the
+    absolute bit, the stream's word end, its payload's end bit), and each
+    stream's first bit."""
+    base = word_base[si] * 32
+    ends = np.array([len(states[i].data) * 8 for i in si.tolist()], np.int64)
+    return np.stack([base + np.asarray(bits, np.int64), word_base[si + 1],
+                     base + ends]), base
+
+
+def _header_error(st, bit: int) -> None:
+    """End the stream with the error class of its dynamic header at stream
+    bit ``bit``, one that K12 made no lane of or whose trees the host's rule
+    refuses: the host's parse (``_parse_dynamic_lengths``, ``_check_trees``)
+    from there raises it, as in ``_advance_headers``.  A header the host
+    takes here is one K12 refused wrongly, and raises RuntimeError."""
+    r = host._HostBitReader(st.data, bit + 3)
+    try:
+        host._check_trees(*host._parse_dynamic_lengths(r))
+    except E.DecompressionError as err:
+        st.error = err
+        st.done = True
+        st.bitpos = r.pos
+        return
+    raise RuntimeError(f"K12 refused a dynamic header at bit {bit} that "
+                       "the host's parse takes")
+
+
+def _enter(states, idx, words, word_base, bank: _Bank) -> int:
+    """Move the streams ``idx`` to their next compressed block or their
+    end; returns the bytes their stored blocks appended.
+
+    The host frames each stream (``_frame``); one K12 launch takes the
+    dynamic headers they reached and writes its rows into their slots of
+    ``bank``; one read-back of its ``info`` routes them.  A lane whose trees
+    the host's rule takes enters its block at K12's symbol start; any other
+    header ends its stream with the host's error class (``_header_error``,
+    ``sequential.headers.host``).  Counts the blocks entered, by kind."""
+    stored, heads, fixed = 0, [], []
+    for i in idx:
+        st = states[i]
+        n = len(st.out)
+        bit = _frame(st)
+        stored += len(st.out) - n
+        if bit is not None:
+            heads.append((i, bit))
+        elif st.in_block:
+            fixed.append(i)
+    if fixed:
+        bank.put_fixed(fixed)
+    count("sequential.blocks.fixed", len(fixed))
+    if not heads:
+        return stored
+    si = np.array([i for i, _ in heads], np.int64)
+    rows, base = _bit_rows(states, si, [bit for _, bit in heads], word_base)
+    cols = torch.from_numpy(np.vstack([rows, si])).to(bank.dev)
+    info, meta, tab = header_tables(words, cols[0], cols[1], cols[2])
+    bank.put(cols[3], meta, tab)
+    status, bfinal, start, host_ok = info.cpu().numpy()
+    entered = 0
+    for j, (i, bit) in enumerate(heads):
+        st = states[i]
+        if status[j] == LANE and host_ok[j]:
+            st.bitpos = int(start[j] - base[j])
+            st.last_block = bool(bfinal[j])
+            st.in_block = True
+            entered += 1
+        else:
+            _header_error(st, bit)
+    count("sequential.headers.device", entered)
+    count("sequential.headers.host", len(heads) - entered)
+    count("sequential.blocks.dynamic", entered)
+    return stored
+
+
+def _seq_launch(states, lanes, words, word_base, bank: _Bank, K: int):
+    """One K4 launch over the current block of the streams in ``lanes``,
+    each with its bank row.
+
+    The per-lane uploads and the rows' gather run in the span
+    ``sequential.parse``; the launch runs through the read-back of its
+    exits in ``sequential.records``.  Returns (records [K, len(lanes)],
+    bpos int64 (stream bits), done, nout) with bpos, done and nout on the
+    host."""
     with span("sequential.parse"):
-        entered = [states[i] for i in lanes if states[i].meta_tab is None]
-        fixed = sum(st.lengths == "fixed" for st in entered)
-        for st in entered:
-            st.meta_tab = (fixed_meta_tab() if st.lengths == "fixed"
-                           else block_tables(*st.lengths))
-        meta, tab = pack_tables([states[i].meta_tab for i in lanes], dev)
-        base = word_base[lanes] * 32
-        start = base + np.array([states[i].bitpos for i in lanes], np.int64)
-        bit_end = base + np.array([len(states[i].data) * 8 for i in lanes],
-                                  np.int64)
+        si = np.asarray(lanes, np.int64)
+        rows, base = _bit_rows(states, si, [states[i].bitpos for i in lanes],
+                               word_base)
         out0 = np.array([len(states[i].out) for i in lanes], np.int64)
-        per_lane = [torch.from_numpy(a).to(dev)
-                    for a in (start, word_base[np.asarray(lanes) + 1], bit_end,
-                              out0)]
-    count("sequential.blocks.fixed", fixed)
-    count("sequential.blocks.dynamic", len(entered) - fixed)
+        cols = torch.from_numpy(np.vstack([rows, out0, si])).to(bank.dev)
+        meta, tab = bank.take(cols[4])
     count("sequential.launches")
     with span("sequential.records"):
-        recs, bpos, nout, done = inflate_records(words, *per_lane, meta, tab,
+        recs, bpos, nout, done = inflate_records(words, *cols[:4], meta, tab,
                                                  K)
         return (recs, bpos.cpu().numpy() - base, done.cpu().numpy(),
                 nout.cpu().numpy())
@@ -300,23 +455,28 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
     """Per-block decode with one K4 lane per stream (JAX
     ``_decompress_batch_sequential``, record-kernel engine).
 
-    The host parses framing and headers between launches and copies stored
-    blocks; each launch decodes the current dynamic or fixed block of every
-    active stream until EOB, an error or K records.  The 32 KiB window of
-    prior output stays on the device across launches in which no stream
-    left its block.  Returns per stream the bytes or the error.
+    Between launches the host frames the streams and copies stored blocks,
+    and one K12 launch parses the dynamic headers they reached
+    (``_enter``); each launch decodes the current dynamic or fixed block of
+    every active stream until EOB, an error or K records, with its tables
+    from the bank on the device.  The 32 KiB window of prior output stays
+    on the device across launches in which no stream left its block.
+    Returns per stream the bytes or the error.
 
     Runs in the span ``inflate.sequential``, and inside it, one after
     another and not nested, ``sequential.parse`` (the streams' words
-    staged; every ``_advance_headers``; each launch's tables and per-lane
-    uploads), ``sequential.records`` (K4 through the read-back of its
+    staged; the framing, K12 through the read-back of its ``info``, the
+    host's parse of the headers it refused; each launch's per-lane uploads
+    and tables), ``sequential.records`` (K4 through the read-back of its
     exits) and ``sequential.materialize`` (the records expanded, the bytes
     read back, the windows kept, uploaded or read back, each stream's bytes
     appended).  Counts ``sequential.streams``, ``sequential.launches``,
-    ``sequential.blocks.dynamic`` / ``.fixed`` (blocks entered by a
-    launch), ``sequential.stored_bytes`` (bytes the host copied from stored
-    blocks) and ``sequential.window_host`` (launches whose windows were
-    uploaded from the host).
+    ``sequential.blocks.dynamic`` / ``.fixed`` (blocks entered),
+    ``sequential.headers.device`` / ``.host`` (dynamic headers K12 turned
+    into blocks; headers it refused, each its stream's error),
+    ``sequential.stored_bytes`` (bytes the host copied from stored blocks)
+    and ``sequential.window_host`` (launches whose windows were uploaded
+    from the host).
     """
     with span("inflate.sequential"):
         dev = device_of(device)
@@ -325,9 +485,11 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
             return []
         states = [host._StreamState(s) for s in streams]
         with span("sequential.parse"):
-            stored = sum(_advance(st) for st in states)
             words_np, word_base = pad_words(streams)
             words = torch.from_numpy(words_np).to(dev)
+            bank = _Bank(len(streams), dev)
+            stored = _enter(states, range(len(streams)), words, word_base,
+                            bank)
         K = record_budget(max_steps)
         win_dev, win_lanes = None, None   # device windows of the last launch
 
@@ -337,7 +499,7 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
             if not lanes:
                 break
             recs, bpos, done, nout = _seq_launch(states, lanes, words,
-                                                 word_base, K, dev)
+                                                 word_base, bank, K)
             failed = done > DONE_EOB
             produced = np.where(failed, 0, nout)
             cap = max(256, 1 << int(np.ceil(np.log2(
@@ -374,10 +536,10 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
                     st.bitpos = int(bpos[j])
                     if done[j] == DONE_EOB:
                         st.in_block = False
-                        ended.append(st)
+                        ended.append(i)
             if ended:
                 with span("sequential.parse"):
-                    stored += sum(_advance(st) for st in ended)
+                    stored += _enter(states, ended, words, word_base, bank)
         count("sequential.stored_bytes", stored)
 
         results: list[bytes | E.DecompressionError] = []

@@ -288,7 +288,7 @@ def lane_layout(streams: list[bytes], words, word_base):
     count("discovery.headers", cols.shape[1])
     with span("discovery.parse"):
         info, meta, tab = header_tables(words, *torch.from_numpy(cols).to(dev))
-        status, bfinal, start = info.cpu().numpy()
+        status, bfinal, start = info[:3].cpu().numpy()
 
     lanes, rows, wend, bit_end = [], [], [], []
     lane_range, dropped = {}, {}

@@ -1,6 +1,7 @@
 """Edge inputs of K1 (assign_pack), K2 (combine), K3 (decode2), K4
 (inflate_records), K5 (validate_headers), K6 (decode_sep), K8
-(decode2_canon), K9 (pack_v1) and K12 (header_tables).
+(decode2_canon), K9 (pack_v1) and K12 (header_tables), and streams with bad
+dynamic headers for the sequential path that launches K12.
 
 These kernels put a group of threads on each lane: thread segments,
 staged tiles, spans and lane ownership have edges the headline corpus may
@@ -12,6 +13,8 @@ host, to the same.
 """
 
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
@@ -523,10 +526,13 @@ def k12_headers():
     """[(label, (value, bits) of the header, status, (lit, dist) or None)]:
     K12's crafted headers, each with the status ``header_tables`` gives
     it (0 a lane, 1 skipped, 2 dropped) and, for a lane, the code lengths
-    whose ``foreign_meta`` its tables are."""
+    whose ``foreign_meta`` its tables are.  The lanes with a single
+    distance code of 2, 3 or 5 bits are trees the host's own rule refuses
+    (``host_ok`` 0, ``BadDistanceHuffmanTree``); one of 1 bit it takes."""
     lit = [8] * 254 + [9] * 4                    # 258 symbols, complete
     runs = [7] * 127 + [0] * 129 + [8, 8]        # a zero run of 129
     two, one, none = [1, 1], [0, 0, 3], [0]
+    one1, one2, one5 = [0, 1], [0, 2], [0, 0, 0, 0, 5]
     # a 17, then a 16 that repeats 0 (RFC 1951; K5 repeats the last 7)
     after17 = ([(7, 0)] + [(16, 3)] * 21 + [(17, 7), (16, 3), (18, 102)]
                + [(8, 0), (8, 0)] + _sections(two))
@@ -536,6 +542,12 @@ def k12_headers():
         ("two distance codes", _header_bits(lit, two), 0, (lit, two)),
         ("one distance code", _header_bits(lit, one), 0, (lit, one)),
         ("no distance code", _header_bits(lit, none), 0, (lit, none)),
+        ("a single 1-bit distance code", _header_bits(lit, one1), 0,
+         (lit, one1)),
+        ("a single 2-bit distance code", _header_bits(lit, one2), 0,
+         (lit, one2)),
+        ("a single 5-bit distance code", _header_bits(lit, one5), 0,
+         (lit, one5)),
         ("runs of 16, 17 and 18", _header_bits(runs, [2, 0, 0, 2, 2, 0, 2]),
          0, (runs, [2, 0, 0, 2, 2, 0, 2])),
         ("a 16 after a 17 repeats 0",
@@ -589,6 +601,44 @@ def k12_edge_case():
     return (col(words), col(offs), col(np.asarray(base[1:], np.int64)),
             col(bit_end), [c[0] for c in cases], [c[2] for c in cases],
             [c[3] for c in cases])
+
+
+# Crafted headers of ``k12_headers`` that a stream must not get past, and the
+# error class the host's parse gives each.
+BAD_HEADERS = {
+    "incomplete code-length code": "BadCodeLengthHuffmanTree",
+    "HLIT 287": "InvalidHlit",
+    "a 16 first": "InvalidCodeLengthRepeat",
+    "no end-of-block code": "BadLiteralLengthHuffmanTree",
+    "incomplete literal/length code": "BadCodeLengthHuffmanTree",
+    "a single 2-bit distance code": "BadDistanceHuffmanTree",
+}
+
+
+def bad_header_streams(data: bytes, seed: int = 26):
+    """{label: (zlib stream, error class)}: each of ``BAD_HEADERS`` as a
+    stream's first block (bit 16) and after a good dynamic block of
+    ``data`` and an empty stored block (so that a second round of the
+    sequential path meets it), random bytes after it; and a good header cut
+    in its fields and in its sections, the stream's last bits
+    (``InsufficientInput``)."""
+    rng = np.random.default_rng(seed)
+    headers = {label: bits for label, bits, _st, _l in k12_headers()}
+    co = zlib.compressobj(6)
+    prefix = co.compress(data) + co.flush(zlib.Z_SYNC_FLUSH)
+    out = {}
+    for label, cls in BAD_HEADERS.items():
+        value, n = headers[label]
+        block = value.to_bytes((n + 7) // 8, "little") + rng.bytes(16)
+        out[f"{label}, first"] = (b"\x78\x9c" + block, cls)
+        out[f"{label}, second"] = (prefix + block, cls)
+    value, n = headers["two distance codes"]
+    good = value.to_bytes((n + 7) // 8, "little")
+    out["a header cut in its fields"] = (prefix + good[:1],
+                                         "InsufficientInput")
+    out["a header cut in its sections"] = (prefix + good[: n // 16],
+                                           "InsufficientInput")
+    return out
 
 
 # ---- K11 decode_symbols ----------------------------------------------------

@@ -137,7 +137,7 @@ def k12_bytes(offs, info) -> int:
     """K12's bytes: each header's bits read, to its symbol start (its 17
     bits of fixed fields where it was skipped), and its meta and tab
     written."""
-    status, _bfinal, start = info.cpu().numpy()
+    status, _bfinal, start = info[:3].cpu().numpy()
     bits = np.where(status == 1, 17, start - offs.cpu().numpy())
     return int(((bits + 7) // 8).sum()) + len(status) * 4 * (64 + 160)
 

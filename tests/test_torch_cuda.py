@@ -1049,6 +1049,72 @@ def test_a_batch_of_256_thumbnails_on_the_card_equals_zlib(dev):
     assert n["launch.inflate_records"] == n["sequential.launches"] >= 2
 
 
+def _no_host_parse(monkeypatch):
+    """Make the host's header parse and table build raise, under every name
+    the port holds them by."""
+    from fdeflate_tpu_torch.ops import header_tables as HT
+    from fdeflate_tpu_torch.ops import inflate_host
+    from fdeflate_tpu_torch.ops import inflate_records as K4
+
+    def boom(*_a, **_k):
+        raise AssertionError("a dynamic header parsed on the host")
+
+    monkeypatch.setattr(inflate_host, "_parse_dynamic_lengths", boom)
+    for mod in (K4, HT):
+        monkeypatch.setattr(mod, "block_tables", boom)
+
+
+def test_the_sequential_path_on_the_card_equals_the_cpu(dev):
+    """256 small thumbnails of every block kind and the crafted bad streams
+    (``edges.bad_header_streams``) through ``decompress_sequential``: the
+    card's answers are the CPU's (K12 and the plain parse), one K12 launch
+    a round that met a dynamic header, the bad headers handed to the host."""
+    from fdeflate_tpu_torch.ops.inflate import decompress_sequential
+    from fdeflate_tpu_torch.tools.edges import bad_header_streams
+    from portbench.thumbnails import make_rgb_thumbnails
+
+    images = [r.tobytes() for r in make_rgb_thumbnails(256, 32, 32, 26)]
+    fixed = zlib.compressobj(6, strategy=zlib.Z_FIXED)
+    streams = [zlib.compress(im, (6, 0, 9, 1)[k % 4])
+               for k, im in enumerate(images)]
+    streams[5] = fixed.compress(images[5]) + fixed.flush()
+    bad = bad_header_streams(images[0][:400])
+    streams += [z for z, _cls in bad.values()]
+    runs = []
+    for where in (dev, "cpu"):
+        before = profiling.counts()
+        got = decompress_sequential(streams, device=where)
+        runs.append((got, {k: v - before.get(k, 0)
+                           for k, v in profiling.counts().items()}))
+    (got, n), (want, n_cpu) = runs
+    assert got[:256] == want[:256] == images
+    assert [type(g).__name__ for g in got[256:]] == [
+        type(w).__name__ for w in want[256:]] == [c for _z, c in bad.values()]
+    for k in ("sequential.headers.device", "sequential.headers.host",
+              "sequential.blocks.dynamic", "sequential.launches"):
+        assert n[k] == n_cpu[k], k
+    assert n["sequential.headers.host"] == len(bad)
+    assert n["launch.header_tables"] == 2
+
+
+def test_no_good_thumbnail_header_is_parsed_on_the_host(dev, monkeypatch):
+    """The thumbnail cell's call with the host's header parse and table
+    build made to raise: its 512 dynamic headers all go to K12, two
+    launches, and every image decodes."""
+    from portbench.thumbnails import make_rgb_thumbnails
+
+    _no_host_parse(monkeypatch)
+    streams = [zlib.compress(r.tobytes(), 6)
+               for r in make_rgb_thumbnails(256, seed=26)]
+    before = profiling.counts()
+    got = P.decompress_batch(streams, device=dev)
+    assert got == [zlib.decompress(z) for z in streams]
+    n = {k: v - before.get(k, 0) for k, v in profiling.counts().items()}
+    assert n["sequential.headers.device"] == 512
+    assert n.get("sequential.headers.host", 0) == 0
+    assert n["launch.header_tables"] == 2
+
+
 def test_profiling_sync_waits_on_cuda_tensors(dev):
     from fdeflate_tpu_torch.utils import profiling as PProf
 

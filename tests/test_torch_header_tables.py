@@ -81,7 +81,7 @@ def _lane_code(lib, words, offs, wend, bit_end):
     cols = [x.reshape(-1).to(torch.int64).contiguous()
             for x in (offs, wend, bit_end)]
     H = cols[0].numel()
-    info = torch.full((3, H), 7, dtype=torch.int64)
+    info = torch.full((4, H), 7, dtype=torch.int64)
     meta = torch.full((H, 64), 7, dtype=torch.int32)
     tab = torch.full((H, 160), 7, dtype=torch.int32)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
@@ -163,7 +163,7 @@ def test_plain_equals_the_old_parse(name):
     offsets = PD.find_block_boundaries(z, device="cpu")[0]
     info, meta, tab = HT.header_tables(*_headers([z], {0: offsets}))
     want_lanes, want_tables, want_dropped = _old_parse_lanes(z, offsets)
-    status, bfinal, start = info.numpy()
+    status, bfinal, start = info[:3].numpy()
     lanes = np.flatnonzero(status == HT.LANE)
     assert [(int(offsets[i]), bool(bfinal[i]), int(start[i])) for i in lanes] \
         == [lane[:3] for lane in want_lanes]
@@ -202,13 +202,39 @@ def test_plain_classifies_crafted_headers(i):
     info, meta, tab = HT.header_tables(words, offs, wend, bit_end)
     assert info[0, i].item() == status[i]
     if status[i] == HT.SKIPPED:
-        assert info[1:, i].tolist() == [0, -1]
+        assert info[1:3, i].tolist() == [0, -1]
     if lengths[i] is None:
         assert not meta[i].any() and not tab[i].any()
+        assert info[3, i].item() == 0
     else:
         m, t = foreign_meta(np.array(lengths[i][0]), np.array(lengths[i][1]))
         assert np.array_equal(meta[i].numpy(), m)
         assert np.array_equal(tab[i].numpy(), t)
+        assert info[3, i].item() == _jax_takes_trees(*lengths[i])
+
+
+def _jax_takes_trees(lit, dist) -> bool:
+    """Whether the JAX package's host table build takes the trees (the
+    host's rule, ``host_ok``)."""
+    lengths = np.zeros(320, np.int64)
+    lengths[:len(lit)] = lit
+    lengths[288:288 + len(dist)] = dist
+    try:
+        JI._tables_from_lengths(lengths, len(lit))
+    except JE.DecompressionError:
+        return False
+    return True
+
+
+def test_crafted_headers_include_trees_only_the_card_takes():
+    """K12 makes lanes of single distance codes longer than one bit, which
+    the host's rule refuses: ``host_ok`` tells them apart."""
+    words, offs, wend, bit_end, labels, status, _lengths = _K12
+    info = HT.header_tables(words, offs, wend, bit_end)[0]
+    refused = [lab for lab, st, ok in zip(labels, status, info[3].tolist())
+               if st == HT.LANE and not ok]
+    assert refused == ["one distance code", "a single 2-bit distance code",
+                       "a single 5-bit distance code"]
 
 
 def test_header_tables_needs_one_entry_per_header():

@@ -414,6 +414,7 @@ def test_the_sequential_stages_open_in_order(opened):
 
 
 def test_the_sequential_counters_rise_by_blocks_launches_and_stored_bytes():
+    """GOOD's two dynamic headers both parsed by K12, none by the host."""
     batch, want = _seq_batch()
     before = profiling.counts()
     assert PI.decompress_sequential(batch, max_steps=STEPS,
@@ -422,6 +423,7 @@ def test_the_sequential_counters_rise_by_blocks_launches_and_stored_bytes():
             if k.startswith("sequential.")} == {
         "sequential.streams": 3, "sequential.launches": 2,
         "sequential.blocks.dynamic": 2, "sequential.blocks.fixed": 1,
+        "sequential.headers.device": 2,
         "sequential.stored_bytes": 300, "sequential.window_host": 2}
 
 
