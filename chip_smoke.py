@@ -555,8 +555,8 @@ def foreign_split(torch, P, PD, z: bytes, dev):
     L = len(lanes)
     t["record decode (tables + K4 + readback)"] = cuda_ms(
         torch, lambda: PD._lane_decode(lanes, 6144, wd, *bounds, tables), 3)
-    recs, bpos, eob, nout = PD._lane_decode(lanes, 6144, wd, *bounds, tables)
-    chain, _exit, _done = PD._walk(lanes, 0, L, bpos, eob)
+    recs, bpos, done, nout = PD._lane_decode(lanes, 6144, wd, *bounds, tables)
+    chain, _exit, _whole = PD._walk(lanes, 0, L, bpos, done)
     mask = np.zeros(L, bool)
     mask[chain] = True
     produced = [int(nout[chain].sum())]
@@ -1683,9 +1683,9 @@ def blocked_text_blocks(torch, PD, z: bytes, leg, dev):
     from fdeflate_tpu_torch.ops.inflate_records import META_ROWS, TAB_PAIRS
 
     lanes, tables, wd, bounds, _c1 = leg
-    _recs, bpos, eob, _nout = PD._lane_decode(lanes, 6144, wd, *bounds, tables)
+    _recs, bpos, done, _nout = PD._lane_decode(lanes, 6144, wd, *bounds, tables)
     lane_meta, lane_tab = (x.cpu().numpy() for x in tables)
-    chain, _exit, _done = PD._walk(lanes, 0, len(lanes), bpos, eob)
+    chain, _exit, _whole = PD._walk(lanes, 0, len(lanes), bpos, done)
     words = np.frombuffer(z + bytes((-len(z)) % 4) + bytes(8), "<u4")
     starts = [lanes[i][2] for i in chain]
     wwin = max((int(bpos[i]) >> 5) - (s >> 5) for i, s in zip(chain, starts)) + 3

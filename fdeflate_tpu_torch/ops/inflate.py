@@ -443,6 +443,7 @@ def _seq_launch(states, lanes, words, word_base, bank: _Bank, K: int):
         cols = torch.from_numpy(np.vstack([rows, out0, si])).to(bank.dev)
         meta, tab = bank.take(cols[4])
     count("sequential.launches")
+    count("sequential.lanes", len(lanes))
     with span("sequential.records"):
         recs, bpos, nout, done = inflate_records(words, *cols[:4], meta, tab,
                                                  K)
@@ -471,6 +472,7 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
     exits) and ``sequential.materialize`` (the records expanded, the bytes
     read back, the windows kept, uploaded or read back, each stream's bytes
     appended).  Counts ``sequential.streams``, ``sequential.launches``,
+    ``sequential.lanes`` (each launch's lanes: its warps),
     ``sequential.blocks.dynamic`` / ``.fixed`` (blocks entered),
     ``sequential.headers.device`` / ``.host`` (dynamic headers K12 turned
     into blocks; headers it refused, each its stream's error),

@@ -42,7 +42,9 @@ skipped), ``discovery.lanes_dropped`` (headers dropped for their trees),
 ``discovery.fallback.<reason>`` per stream left to the sequential path:
 ``header`` (too short, or not a zlib deflate header), ``first_block`` (no
 dynamic header at bit 16), ``tables`` (the chain stopped at a header
-dropped for its trees, bit 16 included), ``chain`` (any other break),
+dropped for its trees, bit 16 included), ``budget`` (the chain stopped at
+a lane that ran out of record slots before its EOB: a block longer than a
+lane's budget, ``lane_budget``), ``chain`` (any other break),
 ``checksum`` (a distance before the stream's start, or an Adler-32
 mismatch; with ``materialize="host"``, also records the native backend
 cannot expand).
@@ -75,6 +77,7 @@ from ..ops.inflate import (
 )
 from ..ops.inflate_records import (
     DONE_EOB,
+    DONE_SLOTS,
     NO_LIMIT,
     inflate_records,
     recs_to_records,
@@ -331,23 +334,36 @@ def _discover(streams: list[bytes], max_steps: int, words, word_base):
         streams, words, word_base)
     if not lanes:
         return None, None, None, {}
-    recs, bpos, eob, nout = _lane_decode(lanes, max_steps, words, wend,
-                                         bit_end, tables)
+    recs, bpos, done, nout = _lane_decode(lanes, max_steps, words, wend,
+                                          bit_end, tables)
     mask = np.zeros(len(lanes), bool)
-    found, broken = {}, {"tables": 0, "chain": 0}
+    found, broken = {}, {"tables": 0, "budget": 0, "chain": 0}
     with span("discovery.chain"):
         for si, (lo, hi) in lane_range.items():
-            chain, cur, done = _walk(lanes, lo, hi, bpos, eob,
-                                     int(word_base[si]) * 32)
-            if done:
+            chain, cur, whole = _walk(lanes, lo, hi, bpos, done,
+                                      int(word_base[si]) * 32)
+            if whole:
                 mask[chain] = True
                 found[si] = (lo, hi), chain, cur
             else:
-                broken["tables" if cur in dropped[si] else "chain"] += 1
+                broken[_broken_reason(lanes, lo, hi, done, cur,
+                                      dropped[si])] += 1
     for reason, n in broken.items():
         count(f"discovery.fallback.{reason}", n)
     count("discovery.lanes_chained", int(mask.sum()))
     return recs, nout, mask, found
+
+
+def _broken_reason(lanes, lo: int, hi: int, done, cur: int,
+                   dropped) -> str:
+    """Why a stream's chain walk stopped at stream bit ``cur``: ``tables``
+    when the header there was dropped for its trees, ``budget`` when the
+    lane there ran out of record slots before its EOB (``DONE_SLOTS``: a
+    block longer than a lane's budget), else ``chain``."""
+    if cur in dropped:
+        return "tables"
+    at = next((i for i in range(lo, hi) if lanes[i][0] == cur), None)
+    return "budget" if at is not None and done[at] == DONE_SLOTS else "chain"
 
 
 def lane_budget(max_steps: int) -> int:
@@ -378,27 +394,29 @@ def lane_inputs(lanes, words, wend, bit_end, tables):
 
 def _lane_decode(lanes, max_steps: int, words, wend, bit_end, tables):
     """K4 over every candidate lane (JAX ``_pallas_lane_decode``).  Returns
-    (recs int32[K, L], bpos, eob, nout), the last three on the host."""
+    (recs int32[K, L], bpos, done, nout), the last three on the host:
+    ``done`` each lane's K4 exit code (``DONE_EOB``, ``DONE_SLOTS``, ...)."""
     args = lane_inputs(lanes, words, wend, bit_end, tables)
     count("discovery.lanes", len(lanes))
     with span("discovery.records"):
         recs, bpos, nout, done = inflate_records(*args, lane_budget(max_steps))
-        return (recs, bpos.cpu().numpy(), done.cpu().numpy() == DONE_EOB,
+        return (recs, bpos.cpu().numpy(), done.cpu().numpy(),
                 nout.cpu().numpy())
 
 
-def _walk(lanes, lo: int, hi: int, bpos, eob, gbase: int = 0):
+def _walk(lanes, lo: int, hi: int, bpos, done, gbase: int = 0):
     """Walk stream lanes[lo:hi] from bit 16: block i is confirmed when its
-    EOB exit is the next confirmed header.  Returns (lane indices, bit,
-    done), stream-local: done when a BFINAL block ends the chain, ``bit``
-    its exit; else ``bit`` is the offset the walk found no lane for, or
-    the lane there that met no EOB."""
+    EOB exit is the next confirmed header.  ``done``: each lane's K4 exit
+    code, or a bool per lane, True where it met its EOB.  Returns (lane
+    indices, bit, whole), stream-local: whole when a BFINAL block ends the
+    chain, ``bit`` its exit; else ``bit`` is the offset the walk found no
+    lane for, or the lane there that met no EOB."""
     by_off = {lanes[i][0]: i for i in range(lo, hi)}
     chain = []
     cur = 16
     while True:
         i = by_off.get(cur)
-        if i is None or not eob[i]:
+        if i is None or done[i] != DONE_EOB:
             return chain, cur, False
         chain.append(i)
         cur = int(bpos[i]) - gbase

@@ -1049,6 +1049,39 @@ def test_a_batch_of_256_thumbnails_on_the_card_equals_zlib(dev):
     assert n["launch.inflate_records"] == n["sequential.launches"] >= 2
 
 
+def test_fast_mode_streams_without_their_index_leave_discovery_by_budget(
+        dev, monkeypatch):
+    """The index-less fast-mode cell's route: 1 MiB single-block
+    ``compress_batch_ultra_fast`` streams through ``decompress_batch``;
+    discovery gives each up at its first lane, out of record slots, and the
+    sequential path decodes all of it in rounds of one lane a stream
+    (``sequential.lanes``: each launch's lanes, seen at K4's call)."""
+    from fdeflate_tpu_torch.ops import inflate as PI
+
+    raw = [r.tobytes() for r in make_idat_corpus(3, 1 << 20, seed=27)]
+    streams = P.compress_batch_ultra_fast(raw, device=dev)
+    assert all(z[2] & 7 == 0b101 for z in streams)
+    lanes = []
+    launch = PI.inflate_records
+
+    def counted(words, start, *rest):
+        lanes.append(start.numel())
+        return launch(words, start, *rest)
+
+    monkeypatch.setattr(PI, "inflate_records", counted)
+    before = profiling.counts()
+    assert P.decompress_batch(streams, device=dev) == raw
+    n = {k: v - before.get(k, 0) for k, v in profiling.counts().items()
+         if v != before.get(k, 0)}
+    assert {k: v for k, v in n.items()
+            if k.startswith("discovery.fallback.")} == {
+        "discovery.fallback.budget": 3}
+    assert n["sequential.streams"] == 3
+    assert n["sequential.launches"] == len(lanes) >= 30
+    assert n["sequential.lanes"] == sum(lanes)
+    assert n["launch.inflate_records"] == n["sequential.launches"] + 1
+
+
 def _no_host_parse(monkeypatch):
     """Make the host's header parse and table build raise, under every name
     the port holds them by."""

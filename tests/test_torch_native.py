@@ -183,10 +183,10 @@ def _k4_records(z: bytes):
     lanes, tables, _dropped = PDisc._parse_lanes(
         z, PDisc.find_block_boundaries(z, words, device=dev)[0])
     L = len(lanes)
-    recs, bpos, eob, _nout = PDisc._lane_decode(
+    recs, bpos, done, _nout = PDisc._lane_decode(
         lanes, 2048, words, np.full(L, words.numel()), np.full(L, len(z) * 8),
         K4.pack_tables(tables, dev))
-    chain, _exit, _done = PDisc._walk(lanes, 0, L, bpos, eob)
+    chain, _exit, _whole = PDisc._walk(lanes, 0, L, bpos, done)
     return recs[:, chain].T.reshape(-1).numpy()
 
 

@@ -414,7 +414,9 @@ def test_the_sequential_stages_open_in_order(opened):
 
 
 def test_the_sequential_counters_rise_by_blocks_launches_and_stored_bytes():
-    """GOOD's two dynamic headers both parsed by K12, none by the host."""
+    """GOOD's two dynamic headers both parsed by K12, none by the host; the
+    first launch takes GOOD's and the fixed block's lanes, the second
+    GOOD's alone."""
     batch, want = _seq_batch()
     before = profiling.counts()
     assert PI.decompress_sequential(batch, max_steps=STEPS,
@@ -422,6 +424,7 @@ def test_the_sequential_counters_rise_by_blocks_launches_and_stored_bytes():
     assert {k: v for k, v in _delta(before).items()
             if k.startswith("sequential.")} == {
         "sequential.streams": 3, "sequential.launches": 2,
+        "sequential.lanes": 3,
         "sequential.blocks.dynamic": 2, "sequential.blocks.fixed": 1,
         "sequential.headers.device": 2,
         "sequential.stored_bytes": 300, "sequential.window_host": 2}
