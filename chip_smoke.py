@@ -169,6 +169,13 @@ process per source, all at once) and drives the port's paths:
      ``try_foreign(materialize="host")`` (K4's records expanded by the
      native backend) on text6 and idat1 equals zlib.decompress, timed
      beside ``materialize="device"`` and host zlib.
+17.  K13 materialize_records at the sequential path's two shapes: a round
+     of 16 fast-mode 1 MiB streams (recs [8192, 16], cap 32768) and the
+     first round of 256 thumbnails (recs [8192, 256], at its cap and at
+     65536), each captured from ``decompress_sequential``, which launches
+     K13 once a round (counted), against its plain version (out and new
+     window) and at cap 262144 (the working bytes in device memory); one
+     call, back to back and the plain version's time, beside the bound.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after; a kernel of the path that did not launch fails the
@@ -2115,6 +2122,84 @@ def host_api_phase(torch, P, card, corpus, text6, idat8, idat1m):
     return route_launches, route_errs
 
 
+def materialize_phase(torch, P, dev, card) -> dict:
+    """Phase 17 (module docstring): K13 at the sequential path's shapes.
+    Returns its row, at the fast-mode shape, with the thumbnail shapes'
+    times beside it."""
+    from fdeflate_tpu_torch.ops import inflate as PI
+    from fdeflate_tpu_torch.ops.materialize_records import (
+        materialize_records, materialize_records_plain)
+    from fdeflate_tpu_torch.tools.corpus import make_idat_corpus
+    from portbench.thumbnails import make_rgb_thumbnails
+
+    def rounds_of(streams, want):
+        got = []
+
+        def keep(*args):
+            got.append(args)
+            return materialize_records(*args)
+
+        PI.materialize_records = keep
+        try:
+            n0 = launch_count(materialize_records)
+            if PI.decompress_sequential(streams, device=dev) != want:
+                raise AssertionError("decompress_sequential differs from "
+                                     "zlib.decompress")
+            launches = launch_count(materialize_records) - n0
+        finally:
+            PI.materialize_records = materialize_records
+        if launches != len(got):
+            raise AssertionError(f"K13 launched {launches} times in "
+                                 f"{len(got)} rounds")
+        return got, launches
+
+    raw = [r.tobytes() for r in make_idat_corpus(16, 1 << 20, seed=28)]
+    fast, fast_launches = rounds_of(P.compress_batch_ultra_fast(raw, device=dev),
+                                    raw)
+    images = [r.tobytes() for r in make_rgb_thumbnails(256, seed=28)]
+    thumbs, thumb_launches = rounds_of(
+        [zlib.compress(im, 6) for im in images], images)
+    recs, window, produced, _cap = fast[len(fast) // 2]
+    shapes = {"fast-mode round": (recs, window, produced, 32768)}
+    recs, window, produced, cap = thumbs[0]
+    shapes[f"thumbnail round, cap {cap}"] = (recs, window, produced, cap)
+    shapes["thumbnail round, cap 65536"] = (recs, window, produced, 65536)
+    err, times = 0.0, {}
+    for label, (recs, window, produced, cap) in shapes.items():
+        for c in (cap, 1 << 18):
+            got = materialize_records(recs, window, produced, c)
+            want = materialize_records_plain(recs, window, produced, c)
+            err = max(err, check_equal(torch, f"materialize_records ({label}, "
+                                       f"cap {c})", got, want))
+        K, L = recs.shape
+        nbytes = 4 * K * L + 8 * L + L * cap + 2 * L * 32768
+        fn = lambda a=(recs, window, produced, cap): materialize_records(*a)  # noqa: E731
+        ms = cuda_ms(torch, fn, KERNEL_REPS)
+        queued = back_to_back_ms(torch, fn, KERNEL_REPS)
+        plain_ms = cuda_ms(torch, lambda a=(recs, window, produced, cap):
+                           materialize_records_plain(*a), PLAIN_REPS)
+        times[label] = (ms, queued, plain_ms, nbytes)
+        print(f"materialize_records == plain ({label}: recs [{K}, {L}], cap "
+              f"{cap}; and at cap {1 << 18}): kernel {ms:.4f} ms one call, "
+              f"{queued:.4f} ms back to back, plain {plain_ms:.4f} ms, bound "
+              f"{bound(nbytes, 0)[0]:.6f} ms ({nbytes} bytes) [{card}]",
+              flush=True)
+    ms, queued, plain_ms, nbytes = times["fast-mode round"]
+    row = kernel_row("materialize_records",
+                     "fdeflate_tpu_torch/csrc/materialize_records.cu",
+                     "none: fdeflate_tpu/ops/inflate.py materialize is XLA",
+                     fast_launches, err, ms, plain_ms, (nbytes, 0))
+    row["back_to_back_ms"] = queued
+    row["thumb_launches"] = thumb_launches
+    row["shapes"] = {k: {"ms": v[0], "back_to_back_ms": v[1], "plain_ms": v[2],
+                         "bound_ms": bound(v[3], 0)[0]}
+                     for k, v in times.items()}
+    print(f"K13 launches: {fast_launches} in one call of 16 fast-mode 1 MiB "
+          f"streams, {thumb_launches} in one of 256 thumbnails (one a round)",
+          flush=True)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2597,6 +2682,9 @@ def main() -> int:
         if row["name"] in names:
             row["host_api_launches"] = host_launches[names[row["name"]]]
             row["host_api_max_abs_err"] = host_errs[names[row["name"]]]
+
+    # ---- 17. K13 materialize_records at the sequential path's shapes -----
+    rows.append(materialize_phase(torch, P, dev, card))
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -69,6 +69,9 @@ _SIGNATURES = {
                           + [_I] * 5 + [_P] * 11,
     # words, offs, wend, bit_end, W, info, meta, tab, H, stream
     "fdt_header_tables": [_P] * 4 + [_L] + [_P] * 3 + [_I, _P],
+    # recs, window, produced, out, new_window, scratch (or null), L, K, cap,
+    # stream
+    "fdt_materialize_records": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 build_seconds: float | None = None  # wall time of this process's nvcc run

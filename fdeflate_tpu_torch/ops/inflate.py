@@ -10,9 +10,10 @@ stored and fixed blocks (``_frame``, after the port's copy of the JAX
 package's ``_advance_headers`` in ``ops/inflate_host.py``); the dynamic
 headers the streams reached are parsed, and their K4 tables built, by K12
 (``ops/header_tables.py``), one launch a round, into a bank of tables that
-stays on the device.  A header K12 does not make a lane of, or whose trees
-the host's rule refuses, is an error: the host's parse of it
-(``_header_error``) gives only its class.
+stays on the device; K13 (``ops/materialize_records.py``) expands each
+round's records into bytes, where JAX calls ``materialize``.  A header K12
+does not make a lane of, or whose trees the host's rule refuses, is an
+error: the host's parse of it (``_header_error``) gives only its class.
 
 Where the JAX sequential path re-decodes a stream on its XLA engine
 (``decode_symbols``) after any record-kernel anomaly, the port has no
@@ -50,8 +51,8 @@ from .inflate_records import (
     META_ROWS,
     TAB_PAIRS,
     inflate_records,
-    recs_to_records,
 )
+from .materialize_records import materialize_records
 from .ultrafast import device_of, row_cumsum
 
 WINDOW = host.WINDOW
@@ -460,8 +461,10 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
     and one K12 launch parses the dynamic headers they reached
     (``_enter``); each launch decodes the current dynamic or fixed block of
     every active stream until EOB, an error or K records, with its tables
-    from the bank on the device.  The 32 KiB window of prior output stays
-    on the device across launches in which no stream left its block.
+    from the bank on the device; one K13 launch (``materialize_records``)
+    expands its records into bytes and the next windows.  The 32 KiB
+    window of prior output stays on the device across launches in which no
+    stream left its block.
     Returns per stream the bytes or the error.
 
     Runs in the span ``inflate.sequential``, and inside it, one after
@@ -469,9 +472,9 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
     staged; the framing, K12 through the read-back of its ``info``, the
     host's parse of the headers it refused; each launch's per-lane uploads
     and tables), ``sequential.records`` (K4 through the read-back of its
-    exits) and ``sequential.materialize`` (the records expanded, the bytes
-    read back, the windows kept, uploaded or read back, each stream's bytes
-    appended).  Counts ``sequential.streams``, ``sequential.launches``,
+    exits) and ``sequential.materialize`` (K13, the bytes read back, the
+    windows kept, uploaded or read back, each stream's bytes appended).
+    Counts ``sequential.streams``, ``sequential.launches``,
     ``sequential.lanes`` (each launch's lanes: its warps),
     ``sequential.blocks.dynamic`` / ``.fixed`` (blocks entered),
     ``sequential.headers.device`` / ``.host`` (dynamic headers K12 turned
@@ -514,9 +517,8 @@ def decompress_sequential(streams: list[bytes], max_steps: int = 8192, *,
                     count("sequential.window_host")
                     window = torch.from_numpy(
                         np.stack([states[i].window for i in lanes])).to(dev)
-                out, new_window = materialize(
-                    recs_to_records(recs), window,
-                    torch.from_numpy(produced).to(dev), cap)
+                out, new_window = materialize_records(
+                    recs, window, torch.from_numpy(produced).to(dev), cap)
                 out_np = out.cpu().numpy()
                 if (done == DONE_SLOTS).all():
                     # No stream leaves its block: the windows stay on the

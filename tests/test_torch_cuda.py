@@ -49,6 +49,10 @@ from fdeflate_tpu_torch.ops.header_tables import (
     header_tables_plain,
 )
 from fdeflate_tpu_torch.ops.inflate import pad_words
+from fdeflate_tpu_torch.ops.materialize_records import (
+    materialize_records,
+    materialize_records_plain,
+)
 from fdeflate_tpu_torch.ops.inflate_records import (
     NO_LIMIT,
     inflate_records,
@@ -1047,6 +1051,7 @@ def test_a_batch_of_256_thumbnails_on_the_card_equals_zlib(dev):
     assert n["sequential.streams"] == 256
     assert n["sequential.blocks.dynamic"] >= 512
     assert n["launch.inflate_records"] == n["sequential.launches"] >= 2
+    assert n["launch.materialize_records"] == n["sequential.launches"]
 
 
 def test_fast_mode_streams_without_their_index_leave_discovery_by_budget(
@@ -1080,6 +1085,119 @@ def test_fast_mode_streams_without_their_index_leave_discovery_by_budget(
     assert n["sequential.launches"] == len(lanes) >= 30
     assert n["sequential.lanes"] == sum(lanes)
     assert n["launch.inflate_records"] == n["sequential.launches"] + 1
+    assert n["launch.materialize_records"] == n["sequential.launches"]
+
+
+def _held_materialize(monkeypatch, dev):
+    """Hold every K13 launch of the sequential path to its plain version on
+    the same arguments (on the card), out and new window alike.  Returns
+    the list of (lanes, cap) of the launches held."""
+    from fdeflate_tpu_torch.ops import inflate as PI
+
+    held = []
+
+    def both(recs, window, produced, cap):
+        before = _launches("materialize_records")
+        got = materialize_records(recs, window, produced, cap)
+        assert _launches("materialize_records") == before + 1
+        assert {x.device.type for x in (recs, window, produced)} == {dev.type}
+        want = materialize_records_plain(recs, window, produced, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        held.append((recs.shape[1], cap))
+        return got
+
+    monkeypatch.setattr(PI, "materialize_records", both)
+    return held
+
+
+def test_materialize_records_on_the_thumbnail_rounds(dev, monkeypatch):
+    """K13 equals its plain version on every round of the thumbnail cell's
+    call: 256 lanes of K4 records, the first rounds at cap 32768."""
+    from fdeflate_tpu_torch.ops.inflate import decompress_sequential
+    from portbench.thumbnails import make_rgb_thumbnails
+
+    held = _held_materialize(monkeypatch, dev)
+    images = [r.tobytes() for r in make_rgb_thumbnails(256, seed=28)]
+    streams = [zlib.compress(im, 6) for im in images]
+    assert decompress_sequential(streams, device=dev) == images
+    assert len(held) >= 2 and held[0][0] == 256
+    assert max(cap for _l, cap in held) >= 32768
+
+
+def test_materialize_records_on_every_round_of_a_fast_mode_stream(
+        dev, monkeypatch):
+    """A 1 MiB single-block fast-mode stream through the sequential path:
+    K13 equals its plain version in every round, the window carried on the
+    card from one round to the next (uploaded from the host once)."""
+    from fdeflate_tpu_torch.ops.inflate import decompress_sequential
+
+    raw = make_idat_corpus(1, 1 << 20, seed=28)[0].tobytes()
+    (z,) = P.compress_batch_ultra_fast([raw], device=dev)
+    held = _held_materialize(monkeypatch, dev)
+    before = profiling.counts()
+    assert decompress_sequential([z], device=dev) == [raw]
+    n = {k: v - before.get(k, 0) for k, v in profiling.counts().items()}
+    assert len(held) == n["sequential.launches"] >= 30
+    assert n["sequential.window_host"] == 1
+
+
+def test_materialize_records_on_the_bad_header_streams(dev, monkeypatch):
+    """``edges.bad_header_streams`` beside good streams: every K13 launch
+    equals its plain version, failed lanes (produced 0) included, and the
+    answers are the CPU's."""
+    from fdeflate_tpu_torch.ops.inflate import decompress_sequential
+    from fdeflate_tpu_torch.tools.edges import bad_header_streams
+    from portbench.thumbnails import make_rgb_thumbnails
+
+    images = [r.tobytes() for r in make_rgb_thumbnails(8, 32, 32, 28)]
+    bad = bad_header_streams(images[0][:400])
+    streams = [zlib.compress(im, 6) for im in images]
+    streams += [z for z, _cls in bad.values()]
+    want = decompress_sequential(streams, device="cpu")
+    held = _held_materialize(monkeypatch, dev)
+    got = decompress_sequential(streams, device=dev)
+    assert got[:8] == want[:8] == images
+    assert [type(g).__name__ for g in got[8:]] == [
+        type(w).__name__ for w in want[8:]] == [c for _z, c in bad.values()]
+    assert len(held) >= 2
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_materialize_records_on_random_lane_subsets(dev, seed):
+    """K13 on random subsets of one thumbnail round's lanes, some lanes
+    marked failed (produced 0), at the round's cap and at 262144 (past
+    shared memory: the working bytes in device memory), equals its plain
+    version."""
+    from fdeflate_tpu_torch.ops import inflate as PI
+    from portbench.thumbnails import make_rgb_thumbnails
+
+    rounds = []
+
+    def keep(recs, window, produced, cap):
+        rounds.append((recs, window, produced, cap))
+        return materialize_records(recs, window, produced, cap)
+
+    streams = [zlib.compress(r.tobytes(), 6)
+               for r in make_rgb_thumbnails(64, seed=28)]
+    saved = PI.materialize_records
+    PI.materialize_records = keep
+    try:
+        PI.decompress_sequential(streams, device=dev)
+    finally:
+        PI.materialize_records = saved
+    rng = np.random.default_rng(seed)
+    recs, window, produced, cap = rounds[seed % len(rounds)]
+    L = recs.shape[1]
+    for size in (1, 7, L):
+        lanes = torch.from_numpy(rng.permutation(L)[:size]).to(dev)
+        p = produced[lanes].clone()
+        p[torch.from_numpy(rng.random(size) < 0.25).to(dev)] = 0
+        args = (recs[:, lanes], window[lanes], p)
+        for c in (cap, 1 << 18):
+            got = materialize_records(*args, c)
+            want = materialize_records_plain(*args, c)
+            assert torch.equal(got[0], want[0]), (size, c)
+            assert torch.equal(got[1], want[1]), (size, c)
 
 
 def _no_host_parse(monkeypatch):
@@ -1158,9 +1276,9 @@ def test_profiling_sync_waits_on_cuda_tensors(dev):
 
 
 def _every_wrapper(dev):
-    """(name, kernel call, plain call) of each of the twelve kernels' entry
-    points (K7's through both its wrappers) on small inputs on ``dev``; the
-    plain calls of K11 and K12 run on the CPU."""
+    """(name, kernel call, plain call) of each of the thirteen kernels'
+    entry points (K7's through both its wrappers) on small inputs on
+    ``dev``; the plain calls of K11 and K12 run on the CPU."""
     data, lengths, C = _inputs(dev, "ragged_B3_N8192_C4")
     B, N = data.shape
     t = trained_tables(str(dev))
@@ -1185,6 +1303,11 @@ def _every_wrapper(dev):
     c = torch.from_numpy(PD.scan_stage1_device(z, device="cpu")).to(dev)
     k11 = k11_edge_case("stacked tables")
     k12 = k12_edge_case()[:4]
+    k13 = (torch.tensor([[(1 << 28) | (2 << 16) | 0x4142],
+                         [(2 << 28) | (97 << 15) | 1]], dtype=torch.int32,
+                        device=dev),
+           torch.zeros(1, 32768, dtype=torch.uint8, device=dev),
+           torch.tensor([102], device=dev))
     return [
         ("assign_pack", lambda: assign_pack(data, lengths, C, t),
          lambda: assign_pack_plain(data, lengths, C, t)),
@@ -1212,6 +1335,8 @@ def _every_wrapper(dev):
          lambda: tuple(x.to(dev) for x in _flat(decode_symbols(**k11)))),
         ("header_tables", lambda: header_tables(*(x.to(dev) for x in k12)),
          lambda: tuple(x.to(dev) for x in header_tables_plain(*k12))),
+        ("materialize_records", lambda: materialize_records(*k13, 1024),
+         lambda: materialize_records_plain(*k13, 1024)),
     ]
 
 
